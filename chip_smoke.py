@@ -1,0 +1,295 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port (unified_cvo_tpu_torch) runs on
+the GPU: builds the CUDA kernels from csrc/, holds each against its plain
+PyTorch version at the bench shapes, then drives the frame-to-frame
+registration main path at full width (16384 points per frame) and checks
+its pose error and that every kernel of the path was launched.
+
+Usage: python3 chip_smoke.py [--frames 8]
+Exits non-zero, printing no result, without a CUDA device or when any
+phase fails. The last line of stdout is the result object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM published memory rate
+F32_FLOPS = 67e12           # H100 SXM published f32 rate outside the tensor cores
+# per-slot float operations of the consume kernels and per-candidate of the
+# select kernel (transform 18, distance 8, gates/exp/accumulation the rest)
+FLOW_OPS_PER_SLOT = 44
+STEP_OPS_PER_SLOT = 110
+SELECT_OPS_PER_CANDIDATE = 27
+
+N_POINTS = 16384
+MAX_ITER = 1500             # bench.py's iteration cap
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def device_ms(fn, reps=20, trials=5):
+    """Median device time of one call, over `trials` runs of `reps`
+    back-to-back calls. A sleep kernel holds the stream while the host
+    enqueues them, so the events time device work, not launch overhead."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return statistics.median(out)
+
+
+def bound(nbytes, ops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sorted_rows(idx, y_xyz):
+    """Per-source-row slots ordered by target index: compares row SETS."""
+    order = torch.argsort(idx, dim=0)
+    return torch.gather(idx, 0, order), torch.gather(
+        y_xyz, 1, order[None].expand_as(y_xyz))
+
+
+def check_kernels(frames_np, guess_np, params, dev, results):
+    from unified_cvo_tpu_torch.ops import ell as ell_ops
+    from unified_cvo_tpu_torch.ops import lie
+    from unified_cvo_tpu_torch.ops import neighbors as nbr
+    from unified_cvo_tpu_torch.ops import select as sel
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    src = make_pointcloud(frames_np[0], bucket=N_POINTS, device=dev)
+    tgt = make_pointcloud(frames_np[1], bucket=N_POINTS, device=dev)
+    K, P, dims = nbr.DEFAULT_K, nbr.PER_CELL_CAP, nbr.GRID_DIMS
+    ell = torch.full((), params.ell_init, dtype=torch.float32, device=dev)
+    eye = torch.eye(4, device=dev)
+    for name, guess in (("identity", eye), ("bench guess", torch.from_numpy(guess_np).to(dev))):
+        Rinv, Tinv = lie.invert_rt(guess[:3, :3], guess[:3, 3])
+        g = nbr.grid_inputs(params, ell, src, tgt, Rinv, Tinv)
+        args = (g.tab, g.cbase, g.xr2, g.pose, K, P, dims)
+        idx_k, y_k, kept_k = sel.select(*args)
+        idx_p, y_p, kept_p = sel.select_plain(*args)
+        torch.cuda.synchronize()
+        ik, yk = sorted_rows(idx_k, y_k)
+        ip, yp = sorted_rows(idx_p, y_p)
+        ovf_k = int(kept_k.sum() - (idx_k >= 0).sum())
+        ovf_p = int(kept_p.sum() - (idx_p >= 0).sum())
+        sel_err = float(torch.max(torch.abs(yk - yp)))
+        if not (torch.equal(ik, ip) and torch.equal(kept_k, kept_p)
+                and ovf_k == ovf_p and sel_err == 0.0):
+            raise SystemExit(f"select kernel disagrees with its plain version at {name}: "
+                             f"sets equal={torch.equal(ik, ip)} kept equal="
+                             f"{torch.equal(kept_k, kept_p)} overflow {ovf_k} vs {ovf_p}, "
+                             f"max |dy| {sel_err}")
+        log(f"select @ {name}: per-row sets equal, same slot order="
+            f"{torch.equal(idx_k, idx_p)}, kept {int(kept_k.sum())}, "
+            f"valid {int((idx_k >= 0).sum())}, overflow (K cap) {ovf_k}")
+
+        y_xyz = y_k
+        xp = ell_ops.pack_x(params, ell, src)
+        scal = ell_ops.pack_scalars(params, Rinv, Tinv)
+        fk = ell_ops.flow_reduce(xp, y_xyz, scal, params.c, params.d)
+        fp = ell_ops.flow_reduce_plain(xp, y_xyz, scal, params.c, params.d)
+        nz_k, nz_p = int(fk[2]), int(fp[2])
+        a_rel = abs(float(fk[3]) - float(fp[3])) / abs(float(fp[3]))
+        A_err = float(torch.max(torch.abs(fk[4] - fp[4])))
+        tw_err = float(torch.max(torch.abs(fk[0] - fp[0])))
+        jn_rel = abs(float(fk[1]) - float(fp[1])) / abs(float(fp[1]))
+        if not (nz_k == nz_p and a_rel <= 1e-5 and A_err <= 1e-6 and tw_err <= 1e-4):
+            raise SystemExit(f"flow kernel disagrees at {name}: nonzeros {nz_k} vs {nz_p}, "
+                             f"a_sum rel {a_rel}, A abs {A_err}, twist abs {tw_err}")
+        log(f"flow   @ {name}: nonzeros {nz_k} (exact), a_sum rel {a_rel:.3g}, "
+            f"A abs {A_err:.3g}, twist abs {tw_err:.3g}, joint norm rel {jn_rel:.3g}")
+
+        scal_t = ell_ops.pack_scalars(params, Rinv, Tinv, fp[0])
+        A = fp[4]
+        bk = ell_ops.step_cached(xp, y_xyz, A, scal_t)
+        bp = ell_ops.step_cached_plain(xp, y_xyz, A, scal_t)
+        st_err = float(torch.max(torch.abs(bk - bp)))
+        ok = torch.all(torch.abs(bk - bp) <= 1e-3 * torch.abs(bp) + 1e-4)
+        if not bool(ok):
+            raise SystemExit(f"step kernel disagrees at {name}: {bk.tolist()} vs {bp.tolist()}")
+        log(f"step   @ {name}: B..E kernel {bk.tolist()} plain {bp.tolist()}")
+
+        if name != "bench guess":
+            continue
+        # timings at the main path's shapes (bench guess pose)
+        N = src.capacity
+        cid = sel.pool_cells(g.cbase, dims)
+        touched = int(torch.unique(cid[cid < dims[0] * dims[1] * dims[2]]).numel())
+        cands = int((g.tab[cid.long()][..., 3 * P:] >= 0).sum())
+        sel_bytes = (touched * 4 * P * 4 + N * (16 + 12) + 48
+                     + K * N * 4 + 3 * K * N * 4 + N * 4)
+        slot_bytes = 3 * K * N * 4 + 6 * N * 4 + 32 * 4
+        timings = {
+            "select": (lambda: sel.select(*args), lambda: sel.select_plain(*args),
+                       bound(sel_bytes, SELECT_OPS_PER_CANDIDATE * cands), sel_err,
+                       "unified_cvo_tpu/ops/pallas_select.py:39 (_select_kernel)",
+                       "unified_cvo_tpu_torch/csrc/select.cu"),
+            "flow_reduce": (lambda: ell_ops.flow_reduce(xp, y_xyz, scal, params.c, params.d),
+                            lambda: ell_ops.flow_reduce_plain(xp, y_xyz, scal, params.c, params.d),
+                            bound(slot_bytes + K * N * 4 + 36, FLOW_OPS_PER_SLOT * K * N),
+                            max(A_err, tw_err),
+                            "unified_cvo_tpu/ops/pallas_ell.py:184 (_flow_reduce_kernel)",
+                            "unified_cvo_tpu_torch/csrc/ell.cu"),
+            "step_cached": (lambda: ell_ops.step_cached(xp, y_xyz, A, scal_t),
+                            lambda: ell_ops.step_cached_plain(xp, y_xyz, A, scal_t),
+                            bound(slot_bytes + K * N * 4 + 16, STEP_OPS_PER_SLOT * K * N),
+                            st_err,
+                            "unified_cvo_tpu/ops/pallas_ell.py:230 (_step_kernel_cached)",
+                            "unified_cvo_tpu_torch/csrc/ell.cu"),
+        }
+        for kname, (kfn, pfn, (b_ms, b_by), err, replaces, source) in timings.items():
+            ms = device_ms(kfn)
+            plain_ms = device_ms(pfn)
+            results[kname] = {
+                "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            log(f"time   {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by})")
+
+
+def profile_main_path(f2f, frames, guess, params, dev, iters=200):
+    """Where an iteration's time goes: one pair capped at `iters` iterations
+    under torch.profiler. Prints wall time, device kernels and device busy
+    time per iteration, the device's idle share and the heaviest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    f2f.run_sequence(frames[:2], guess, params, device=dev, max_iter=iters)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, infos = f2f.run_sequence(frames[:2], guess, params, device=dev, max_iter=iters)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n = infos[0].iterations
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.elapsed_us()
+            cnt, tot = per_name.get(e.name, (0, 0.0))
+            per_name[e.name] = (cnt + 1, tot + us)
+    busy_us = sum(t for _, t in per_name.values())
+    launches = sum(c for c, _ in per_name.values())
+    if not launches:
+        log("profile: the profiler recorded no device activity (device time not measured)")
+        return
+    log(f"profile ({n} iterations of one pair, profiler on): wall {wall_us / n:.1f} us/iter, "
+        f"{launches / n:.1f} device kernels+copies/iter, device busy {busy_us / n:.1f} us/iter, "
+        f"device idle share {1 - busy_us / wall_us:.4f}")
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]
+    for name, (cnt, tot) in top:
+        log(f"  {tot / n:8.2f} us/iter  {cnt / n:6.2f}/iter  {name[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--frames", type=int, default=8,
+                    help="timed frame pairs of the main path (after one warm-up pair)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if args.frames < 8:
+        print("chip_smoke: the main path needs at least 8 timed frames", file=sys.stderr)
+        return 2
+
+    from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
+    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH as params
+    from unified_cvo_tpu_torch.ops import cuda_lib
+    from unified_cvo_tpu_torch.ops import ell as ell_ops
+    from unified_cvo_tpu_torch.ops import select as sel
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    # ---- phase 1: card, versions, build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(smi)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    reports = cuda_lib.build_all()
+    for name in cuda_lib.SOURCES:
+        cuda_lib.load(name)
+    log(f"build: {time.perf_counter() - t0:.2f} s for {sorted(reports)} (nvcc, in parallel)")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"  {name}.cu: {line.strip()}")
+
+    dev = torch.device("cuda")
+    frames_np, T_true = f2f.make_sequence(N_POINTS, args.frames + 1)
+    guess_np = f2f.initial_guess()
+
+    # ---- phase 2: each kernel against its plain version at bench shapes
+    results = {}
+    check_kernels(frames_np, guess_np, params, dev, results)
+
+    # ---- phase 3: the main path
+    frames = [make_pointcloud(f, bucket=N_POINTS, device=dev) for f in frames_np]
+    guess = torch.from_numpy(guess_np).to(dev)
+    t0 = time.perf_counter()
+    f2f.run_sequence(frames[:2], guess, params, device=dev, max_iter=MAX_ITER)
+    torch.cuda.synchronize()
+    log(f"warm-up pair: {time.perf_counter() - t0:.2f} s")
+    sel.select.launches = ell_ops.flow_reduce.launches = ell_ops.step_cached.launches = 0
+    t0 = time.perf_counter()
+    res, infos = f2f.run_sequence(frames[1:], guess, params, device=dev,
+                                  max_iter=MAX_ITER)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"select": sel.select.launches, "flow_reduce": ell_ops.flow_reduce.launches,
+                "step_cached": ell_ops.step_cached.launches}
+    errs = f2f.pose_errors(res, T_true[1:])
+    iters = [i.iterations for i in infos]
+    builds = [i.nl_rebuilds for i in infos]
+    reads = [i.host_reads for i in infos]
+    n = len(res)
+    log(f"main path: {n} frames, {1e3 * seconds / n:.2f} ms/frame, "
+        f"{n / seconds:.3f} fps ({smi})")
+    log(f"  iterations/frame {iters}, builds/frame {builds}, host reads/frame {reads}, "
+        f"overflow/frame {[int(i.nl_overflow) for i in infos]}")
+    log(f"  pose error |xi| max {max(errs):.6f} mean {sum(errs) / n:.6f}")
+    if not max(errs) < f2f.POSE_ERROR_BOUND:
+        raise SystemExit(f"pose error {max(errs)} is not below {f2f.POSE_ERROR_BOUND}")
+
+    # ---- phase 4: the kernels went through the main path
+    if not (launches["select"] >= sum(builds)
+            and launches["flow_reduce"] == launches["step_cached"] == sum(iters)):
+        raise SystemExit(f"launch counts {launches} do not match {sum(builds)} builds "
+                         f"and {sum(iters)} iterations")
+    for name, cnt in launches.items():
+        results[name]["launches"] = cnt
+
+    # ---- phase 5: where an iteration's time goes (profiler, not counted)
+    profile_main_path(f2f, frames, guess, params, dev)
+    log(json.dumps({"kernels": list(results.values())}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

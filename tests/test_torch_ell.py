@@ -1,0 +1,134 @@
+"""The plain versions of the port's consume kernels (ops/ell.py) against the
+JAX package's Pallas kernels in interpret mode, fed one neighbor list built
+by the JAX package and carried across with convert.py.
+
+Setup: 400 points in a 512 bucket (dead slots and masked rows), the list
+consumed half-way to the true pose so that the flow is well away from zero.
+Tolerances: nonzeros exact; a_sum rtol 1e-5; unit twist atol 1e-4; joint
+norm rtol 1e-4; A atol 1e-6 slot by slot; B..E rtol 1e-3 atol 1e-4 (the
+JAX package's own, test_neighbors.py:299-301: per-tile partial sums
+reassociate the f32 reductions).
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from unified_cvo_tpu.config import CvoParams as JaxParams
+from unified_cvo_tpu.ops import lie as j_lie
+from unified_cvo_tpu.ops import neighbors as j_nbr
+from unified_cvo_tpu.ops import pallas_ell as pe
+from unified_cvo_tpu.utils.pointcloud import make_pointcloud as j_make
+from unified_cvo_tpu_torch import convert
+from unified_cvo_tpu_torch.ops import cuda_lib
+from unified_cvo_tpu_torch.ops import ell as t_ell
+
+torch.set_num_threads(1)
+
+TILE = 256
+
+
+@pytest.fixture(scope="module")
+def setup():
+    rng = np.random.default_rng(0)
+    xyz = np.stack([rng.uniform(-12, 12, 400), rng.uniform(-2, 2, 400),
+                    rng.uniform(2, 50, 400)], axis=1).astype(np.float32)
+    jp = JaxParams(ell_init=0.4, sp_thres=0.0006, is_using_geometry=1)
+    tp = convert.params_from_fields(dataclasses.asdict(jp))
+    xi = np.array([0.002, 0.005, -0.001, 0.05, 0.02, 0.4], np.float32)
+    R_m, t_m = j_lie.se3_exp(jnp.asarray(xi), 1.0)
+    xyz2 = np.asarray(xyz @ np.asarray(R_m).T + np.asarray(t_m))
+    src = j_make(xyz, bucket=512)
+    tgt = j_make(xyz2, bucket=512)
+    R_h, t_h = j_lie.se3_exp(jnp.asarray(0.5 * xi), 1.0)
+    Rinv, Tinv = j_lie.invert_rt(R_h, t_h)
+    ell = jnp.float32(jp.ell_init)
+    nl = j_nbr.build_neighbor_list(jp, ell, src, tgt, Rinv, Tinv, k=32,
+                                   skin=0.3, per_cell_cap=24)
+    t_src = convert.pointcloud_from_numpy(np.asarray(src.xyz), np.asarray(src.mask),
+                                          device="cpu")
+    t_nl = convert.neighbor_list_from_numpy(
+        **{f: np.asarray(getattr(nl, f)) for f in (
+            "idx", "valid", "y_xyz", "y_t_build", "overflow", "pose_build",
+            "r_max_t", "ell_build", "k_lin")}, device="cpu")
+    flow_j = pe.flow_twist_ell_fused(jp, ell, src, nl, Rinv, Tinv, tile_n=TILE,
+                                     interpret=True, emit_a=True)
+    return dict(jp=jp, tp=tp, src=src, nl=nl, Rinv=Rinv, Tinv=Tinv, ell=ell,
+                t_src=t_src, t_nl=t_nl, flow_j=flow_j,
+                tR=torch.from_numpy(np.array(Rinv)), tT=torch.from_numpy(np.array(Tinv)))
+
+
+def _xp(s):
+    return t_ell.pack_x(s["tp"], torch.tensor(s["jp"].ell_init), s["t_src"])
+
+
+def test_pack_x_matches_jax(setup):
+    s = setup
+    ref = np.asarray(pe.pack_x(s["jp"], s["ell"], s["src"]))
+    np.testing.assert_allclose(_xp(s).numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_twist", [False, True])
+def test_pack_scalars_matches_jax(setup, with_twist):
+    s = setup
+    tw = s["flow_j"][0] if with_twist else None
+    ref = np.asarray(pe.pack_scalars(s["jp"], s["Rinv"], s["Tinv"], tw))
+    got = t_ell.pack_scalars(s["tp"], s["tR"], s["tT"],
+                             None if tw is None else torch.from_numpy(np.array(tw)))
+    assert got.shape == (t_ell.S_LEN,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-7)
+
+
+def test_flow_plain_matches_pallas(setup):
+    s = setup
+    unit_j, jn_j, nz_j, asum_j, a_j = s["flow_j"]
+    unit, jn, nz, asum, a = t_ell.flow_reduce_plain(
+        _xp(s), s["t_nl"].y_xyz, t_ell.pack_scalars(s["tp"], s["tR"], s["tT"]),
+        s["tp"].c, s["tp"].d)
+    assert int(nz) == int(nz_j) > 0
+    np.testing.assert_allclose(float(asum), float(asum_j), rtol=1e-5)
+    np.testing.assert_allclose(unit.numpy(), np.asarray(unit_j), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(float(jn), float(jn_j), rtol=1e-4)
+    np.testing.assert_allclose(a.numpy(), np.asarray(a_j), rtol=0, atol=1e-6)
+    # dead slots and masked rows carry exactly zero kernel values
+    dead = s["t_nl"].idx.numpy() < 0
+    assert (a.numpy()[dead] == 0).all() and (a.numpy()[:, 400:] == 0).all()
+
+
+def test_step_plain_matches_pallas(setup):
+    s = setup
+    unit_j, _, _, _, a_j = s["flow_j"]
+    want = pe.step_coeffs_ell_fused_cached(
+        s["jp"], s["ell"], s["src"], s["nl"], s["Rinv"], s["Tinv"], unit_j, a_j,
+        tile_n=TILE, interpret=True)
+    scal = t_ell.pack_scalars(s["tp"], s["tR"], s["tT"], torch.from_numpy(np.array(unit_j)))
+    got = t_ell.step_cached_plain(_xp(s), s["t_nl"].y_xyz,
+                                  torch.from_numpy(np.array(a_j)), scal)
+    assert bool(torch.all(torch.isfinite(got)))
+    for g, w in zip(got.tolist(), want):
+        np.testing.assert_allclose(g, float(w), rtol=1e-3, atol=1e-4)
+
+
+def test_cpu_wrappers_take_the_plain_path(setup, monkeypatch):
+    """On CPU tensors the wrappers run the plain versions, never load a
+    library and never count a launch."""
+    s = setup
+
+    def no_build(name):
+        raise AssertionError(f"a CPU call tried to load the {name} kernel")
+
+    monkeypatch.setattr(cuda_lib, "load", no_build)
+    flow0, step0 = t_ell.flow_reduce.launches, t_ell.step_cached.launches
+    xp = _xp(s)
+    scal = t_ell.pack_scalars(s["tp"], s["tR"], s["tT"])
+    got = t_ell.flow_reduce(xp, s["t_nl"].y_xyz, scal, s["tp"].c, s["tp"].d)
+    ref = t_ell.flow_reduce_plain(xp, s["t_nl"].y_xyz, scal, s["tp"].c, s["tp"].d)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    scal_t = t_ell.pack_scalars(s["tp"], s["tR"], s["tT"], got[0])
+    assert torch.equal(t_ell.step_cached(xp, s["t_nl"].y_xyz, got[4], scal_t),
+                       t_ell.step_cached_plain(xp, s["t_nl"].y_xyz, got[4], scal_t))
+    assert (t_ell.flow_reduce.launches, t_ell.step_cached.launches) == (flow0, step0)
