@@ -1,9 +1,15 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (unified_cvo_tpu_torch) runs on
 the GPU: builds the CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the bench shapes, then drives the frame-to-frame
-registration main path at full width (16384 points per frame) and checks
-its pose error and that every kernel of the path was launched.
+PyTorch version at the bench shapes, then drives both ported paths at full
+width (16384 points per frame) and checks their pose errors and that every
+kernel of each path was launched:
+
+  ELL path    KITTI_GEOMETRIC_BENCH, backend 'ell' (select, flow_reduce,
+              step_cached), phases 2-5;
+  dense path  KITTI_COLOR_BENCH with 5 colour features per point, backend
+              'pallas' (Morton culling; dense_flow, dense_step), phases
+              2b, 3b and 4b.
 
 Usage: python3 chip_smoke.py [--frames 8]
 Exits non-zero, printing no result, without a CUDA device or when any
@@ -31,6 +37,8 @@ SELECT_OPS_PER_CANDIDATE = 27
 
 N_POINTS = 16384
 MAX_ITER = 1500             # bench.py's iteration cap
+DENSE_PAIRS = 3             # timed pairs of the dense path (after one warm-up)
+N_CLASSES = 19              # semantic classes of the all-channel kernel check
 
 
 def log(*a):
@@ -169,17 +177,155 @@ def check_kernels(frames_np, guess_np, params, dev, results):
                 f"bound {b_ms:.4f} ms ({b_by})")
 
 
-def profile_main_path(f2f, frames, guess, params, dev, iters=200):
+def dense_pair_ops(lo, step: bool) -> int:
+    """f32 operations per (source, target) pair of the dense kernels at
+    layout `lo`, counting each expf, division and comparison as one."""
+    ops = 2                                        # sp gate and select
+    if lo.use_geo_type:
+        ops += 9                                   # dot, n2, cos^2, gate
+    if lo.use_geometry:
+        ops += 13                                  # d2, gate, exp, scale
+    for on, dim in ((lo.use_intensity, lo.feature_dim), (lo.use_semantics, lo.num_classes)):
+        if on:
+            ops += 2 * dim + 9                     # dot, distance, gate, exp
+    return ops + (59 if step else 8)               # step tail / flow moments
+
+
+def check_dense_kernels(frames_np, feats, guess_np, dev, results):
+    """Phase 2b: dense_flow and dense_step against their plain versions at
+    the bench shapes (frames 0 -> 1 at the bench guess, ell_init culling,
+    tiles 128 x 512) for (a) KITTI_COLOR_BENCH with 5 features and (b) every
+    channel: geometry, intensity, 19 one-hot semantic classes and mixed
+    geometric types."""
+    import numpy as np
+
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH
+    from unified_cvo_tpu_torch.ops import dense, kernels, lie, morton
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    rng = np.random.default_rng(11)
+    n = len(frames_np[0])
+    labels = np.eye(N_CLASSES, dtype=np.float32)[rng.integers(0, N_CLASSES, n)]
+    geo = np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)]
+    sets = {
+        "a: colour (F=5)": (KITTI_COLOR_BENCH, {}),
+        "b: all channels (F=5, C=19, geo types)": (
+            KITTI_COLOR_BENCH.replace(is_using_semantics=1, is_using_geometric_type=1),
+            dict(labels=labels, geometric_types=geo)),
+    }
+    ti, tj = dense.DEFAULT_TILE_I, dense.DEFAULT_TILE_J
+    guess = torch.from_numpy(guess_np).to(dev)
+    Rinv, Tinv = lie.invert_rt(guess[:3, :3], guess[:3, 3])
+    errs = {"dense_flow": 0.0, "dense_step": 0.0}
+    for label, (params, extra) in sets.items():
+        src, _ = morton.sort_cloud(make_pointcloud(frames_np[0], features=feats, bucket=n,
+                                                   device=dev, **extra))
+        tgt, _ = morton.sort_cloud(make_pointcloud(frames_np[1], features=feats, bucket=n,
+                                                   device=dev, **extra))
+        y_t = tgt.transformed(Rinv, Tinv)
+        ell = torch.full((), params.ell_init, dtype=torch.float32, device=dev)
+        x_lo, x_hi = morton.tile_aabbs(src.xyz, src.mask, ti)
+        y_lo, y_hi = morton.tile_aabbs(y_t.xyz, y_t.mask, tj)
+        comp = dense.compact_tile_mask(morton.tile_cull_mask(
+            x_lo, x_hi, morton.tile_d2max(params, ell, src.xyz, src.mask, ti), y_lo, y_hi))
+        n_act = int(comp.n)
+        lo = dense.layout_for(params, src)
+        center = dense.cloud_center(src)
+        xp = dense.pack_x(params, lo, src, ell, center=center)
+        yp = dense.pack_y(lo, y_t, center=center)
+        fk = dense.dense_flow(params, lo, xp, yp, comp, ti, tj)
+        fp = dense.dense_flow_plain(params, lo, xp, yp, comp, ti, tj)
+        torch.cuda.synchronize()
+        s_ok = torch.allclose(fk[0], fp[0], rtol=1e-5, atol=1e-7)
+        wy_ok = torch.allclose(fk[1], fp[1], rtol=1e-5, atol=1e-6)
+        a_rel = abs(float(fk[3]) - float(fp[3])) / abs(float(fp[3]))
+        nz_k, nz_p = int(fk[2]), int(fp[2])
+        f_err = max(float(torch.max(torch.abs(fk[0] - fp[0]))),
+                    float(torch.max(torch.abs(fk[1] - fp[1]))))
+        if not (nz_k == nz_p and s_ok and wy_ok and a_rel <= 1e-5):
+            raise SystemExit(f"dense_flow disagrees ({label}): nonzeros {nz_k} vs {nz_p}, "
+                             f"rows s ok {s_ok}, wy ok {wy_ok}, a_sum rel {a_rel}, "
+                             f"max abs {f_err}")
+        stats = kernels.FlowStats(fp[0], fp[1] + fp[0][:, None] * center, fp[2], fp[3])
+        twist, _ = kernels.flow_from_stats(params, src, stats)
+        yp_t = dense.pack_y(lo, y_t, twist=twist, center=center)
+        bk = dense.dense_step(params, lo, xp, yp_t, comp, ti, tj)
+        bp = dense.dense_step_plain(params, lo, xp, yp_t, comp, ti, tj)
+        torch.cuda.synchronize()
+        s_err = float(torch.max(torch.abs(bk - bp)))
+        if not bool(torch.all(torch.abs(bk - bp) <= 2e-4 * torch.abs(bp) + 1e-6)):
+            raise SystemExit(f"dense_step disagrees ({label}): {bk.tolist()} vs {bp.tolist()}")
+        errs["dense_flow"] = max(errs["dense_flow"], f_err)
+        errs["dense_step"] = max(errs["dense_step"], s_err)
+        pairs = n_act * ti * tj
+        log(f"dense  @ {label}: {n_act} of {comp.pair_i.numel()} tile pairs active "
+            f"({pairs / 1e6:.1f} M point pairs); flow nonzeros {nz_k} (exact), a_sum rel "
+            f"{a_rel:.3g}, rows max abs {f_err:.3g}; step B..E kernel {bk.tolist()} "
+            f"plain {bp.tolist()}")
+
+        # timings at both channel sets; set (a) is the main path's and goes
+        # into the kernels line
+        comp_bytes = 4 * (3 * comp.pair_i.numel() + 1) + comp.row_has.numel()
+        in_bytes = 4 * (xp.numel()) + comp_bytes
+        timings = {
+            "dense_flow": (lambda: dense.dense_flow(params, lo, xp, yp, comp, ti, tj),
+                           lambda: dense.dense_flow_plain(params, lo, xp, yp, comp, ti, tj),
+                           bound(in_bytes + 4 * yp.numel() + 4 * 5 * n + 8,
+                                 pairs * dense_pair_ops(lo, step=False)),
+                           "unified_cvo_tpu/ops/pallas_kernels.py:398 (_flow_kernel)"),
+            "dense_step": (lambda: dense.dense_step(params, lo, xp, yp_t, comp, ti, tj),
+                           lambda: dense.dense_step_plain(params, lo, xp, yp_t, comp, ti, tj),
+                           bound(in_bytes + 4 * yp_t.numel() + 16,
+                                 pairs * dense_pair_ops(lo, step=True)),
+                           "unified_cvo_tpu/ops/pallas_kernels.py:429 (_step_kernel)"),
+        }
+        for kname, (kfn, pfn, (b_ms, b_by), replaces) in timings.items():
+            ms = device_ms(kfn)
+            plain_ms = device_ms(pfn, reps=3, trials=3)
+            log(f"time   {kname} ({label}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by})")
+            if label.startswith("a"):
+                results[kname] = {
+                    "name": kname, "route": "cuda",
+                    "source": "unified_cvo_tpu_torch/csrc/dense.cu", "replaces": replaces,
+                    "launches": None, "max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    for kname, err in errs.items():
+        results[kname]["max_abs_err"] = err
+
+
+def reset_launch_counts():
+    from unified_cvo_tpu_torch.ops import dense
+    from unified_cvo_tpu_torch.ops import ell as ell_ops
+    from unified_cvo_tpu_torch.ops import select as sel
+
+    for fn in (sel.select, ell_ops.flow_reduce, ell_ops.step_cached,
+               dense.dense_flow, dense.dense_step):
+        fn.launches = 0
+
+
+def launch_counts():
+    from unified_cvo_tpu_torch.ops import dense
+    from unified_cvo_tpu_torch.ops import ell as ell_ops
+    from unified_cvo_tpu_torch.ops import select as sel
+
+    return {"select": sel.select.launches, "flow_reduce": ell_ops.flow_reduce.launches,
+            "step_cached": ell_ops.step_cached.launches,
+            "dense_flow": dense.dense_flow.launches, "dense_step": dense.dense_step.launches}
+
+
+def profile_main_path(f2f, frames, guess, params, dev, iters=200, label="", **align_kw):
     """Where an iteration's time goes: one pair capped at `iters` iterations
     under torch.profiler. Prints wall time, device kernels and device busy
     time per iteration, the device's idle share and the heaviest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    f2f.run_sequence(frames[:2], guess, params, device=dev, max_iter=iters)
+    f2f.run_sequence(frames[:2], guess, params, device=dev, max_iter=iters, **align_kw)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, infos = f2f.run_sequence(frames[:2], guess, params, device=dev, max_iter=iters)
+        _, infos = f2f.run_sequence(frames[:2], guess, params, device=dev, max_iter=iters,
+                                    **align_kw)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     n = infos[0].iterations
@@ -194,7 +340,7 @@ def profile_main_path(f2f, frames, guess, params, dev, iters=200):
     if not launches:
         log("profile: the profiler recorded no device activity (device time not measured)")
         return
-    log(f"profile ({n} iterations of one pair, profiler on): wall {wall_us / n:.1f} us/iter, "
+    log(f"profile{label} ({n} iterations of one pair, profiler on): wall {wall_us / n:.1f} us/iter, "
         f"{launches / n:.1f} device kernels+copies/iter, device busy {busy_us / n:.1f} us/iter, "
         f"device idle share {1 - busy_us / wall_us:.4f}")
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]
@@ -215,10 +361,9 @@ def main(argv=None) -> int:
         return 2
 
     from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH
     from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH as params
     from unified_cvo_tpu_torch.ops import cuda_lib
-    from unified_cvo_tpu_torch.ops import ell as ell_ops
-    from unified_cvo_tpu_torch.ops import select as sel
     from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
 
     # ---- phase 1: card, versions, build
@@ -239,12 +384,15 @@ def main(argv=None) -> int:
                 log(f"  {name}.cu: {line.strip()}")
 
     dev = torch.device("cuda")
-    frames_np, T_true = f2f.make_sequence(N_POINTS, args.frames + 1)
+    frames_np, T_true, feats = f2f.make_sequence(N_POINTS, args.frames + 1, features=True)
     guess_np = f2f.initial_guess()
 
     # ---- phase 2: each kernel against its plain version at bench shapes
     results = {}
     check_kernels(frames_np, guess_np, params, dev, results)
+    t0 = time.perf_counter()
+    check_dense_kernels(frames_np, feats, guess_np, dev, results)
+    log(f"phase 2b (dense kernel checks and timings): {time.perf_counter() - t0:.2f} s")
 
     # ---- phase 3: the main path
     frames = [make_pointcloud(f, bucket=N_POINTS, device=dev) for f in frames_np]
@@ -253,14 +401,13 @@ def main(argv=None) -> int:
     f2f.run_sequence(frames[:2], guess, params, device=dev, max_iter=MAX_ITER)
     torch.cuda.synchronize()
     log(f"warm-up pair: {time.perf_counter() - t0:.2f} s")
-    sel.select.launches = ell_ops.flow_reduce.launches = ell_ops.step_cached.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     res, infos = f2f.run_sequence(frames[1:], guess, params, device=dev,
                                   max_iter=MAX_ITER)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"select": sel.select.launches, "flow_reduce": ell_ops.flow_reduce.launches,
-                "step_cached": ell_ops.step_cached.launches}
+    launches = launch_counts()
     errs = f2f.pose_errors(res, T_true[1:])
     iters = [i.iterations for i in infos]
     builds = [i.nl_rebuilds for i in infos]
@@ -279,11 +426,50 @@ def main(argv=None) -> int:
             and launches["flow_reduce"] == launches["step_cached"] == sum(iters)):
         raise SystemExit(f"launch counts {launches} do not match {sum(builds)} builds "
                          f"and {sum(iters)} iterations")
-    for name, cnt in launches.items():
-        results[name]["launches"] = cnt
+    for name in ("select", "flow_reduce", "step_cached"):
+        results[name]["launches"] = launches[name]
+
+    # ---- phase 3b: the dense path, colour sequence on backend 'pallas'
+    t_dense = time.perf_counter()
+    cframes = [make_pointcloud(f, features=feats, bucket=N_POINTS, device=dev)
+               for f in frames_np[:DENSE_PAIRS + 2]]
+    t0 = time.perf_counter()
+    f2f.run_sequence(cframes[:2], guess, KITTI_COLOR_BENCH, device=dev,
+                     backend="pallas", max_iter=MAX_ITER)
+    torch.cuda.synchronize()
+    log(f"dense warm-up pair: {time.perf_counter() - t0:.2f} s")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res, infos = f2f.run_sequence(cframes[1:], guess, KITTI_COLOR_BENCH, device=dev,
+                                  backend="pallas", max_iter=MAX_ITER)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    dlaunches = launch_counts()
+    errs = f2f.pose_errors(res, T_true[1:DENSE_PAIRS + 1])
+    iters = [i.iterations for i in infos]
+    n = len(res)
+    log(f"dense path (KITTI_COLOR_BENCH, backend pallas): {n} frames, "
+        f"{1e3 * seconds / n:.2f} ms/frame, {n / seconds:.3f} fps, "
+        f"{1e3 * seconds / sum(iters):.3f} ms/iteration ({smi})")
+    log(f"  iterations/frame {iters}, host reads/frame {[i.host_reads for i in infos]}, "
+        f"nonzeros/frame {[int(i.nonzeros) for i in infos]}")
+    log(f"  pose error |xi| max {max(errs):.6f} mean {sum(errs) / n:.6f}")
+    if not max(errs) < f2f.POSE_ERROR_BOUND:
+        raise SystemExit(f"dense path pose error {max(errs)} is not below "
+                         f"{f2f.POSE_ERROR_BOUND}")
+
+    # ---- phase 4b: the dense kernels went through the dense path
+    if not (dlaunches["dense_flow"] == dlaunches["dense_step"] == sum(iters)):
+        raise SystemExit(f"dense launch counts {dlaunches} do not match "
+                         f"{sum(iters)} iterations")
+    for name in ("dense_flow", "dense_step"):
+        results[name]["launches"] = dlaunches[name]
+    log(f"phases 3b-4b (dense path, warm-up included): {time.perf_counter() - t_dense:.2f} s")
 
     # ---- phase 5: where an iteration's time goes (profiler, not counted)
-    profile_main_path(f2f, frames, guess, params, dev)
+    profile_main_path(f2f, frames, guess, params, dev, label=" ELL path")
+    profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
+                      label=" dense path", backend="pallas")
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

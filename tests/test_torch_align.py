@@ -1,12 +1,20 @@
-"""The whole frame-to-frame slice of the PyTorch port (models/align.py on the
-ELL path, apps/f2f_sequence.py) against JAX align(backend='ell',
-nl_builder='grid') on the CPU, on identical numpy inputs.
+"""The port's aligner (models/align.py) and its slices against JAX align on
+the CPU, on identical numpy inputs:
 
-Poses compare by |log(T_jax T_port^-1)| < 5e-3, and both must stay within
-the 0.05 pose-error bound. Iteration counts are not compared unless both hit
-the cap: f32 reduction order perturbs each step by ~1e-4 relative and the
-threshold-driven schedule amplifies that (PERF.md, "Fused-vs-jnp consume
-drift").
+* the frame-to-frame ELL slice (apps/f2f_sequence.py) against JAX
+  align(backend='ell', nl_builder='grid');
+* the dense backends: 'pallas' (plain versions of the dense tiled kernels,
+  with Morton culling) against JAX 'pallas_interpret', and 'jnp' against
+  JAX 'jnp', at test_pallas.py's setup (poses to 1e-5, equal iterations);
+* the dense slice as a whole: the colour sequence on 'pallas' against the
+  same chain through JAX 'jnp' (JAX's dense-Pallas interpret mode is too
+  slow at 2048 points; test_pallas.py shows the two JAX backends agree).
+
+Sequence poses compare by |log(T_jax T_port^-1)| < 5e-3, and both must stay
+within the 0.05 pose-error bound. Iteration counts of capped ELL runs are
+not compared unless both hit the cap: f32 reduction order perturbs each step
+by ~1e-4 relative and the threshold-driven schedule amplifies that (PERF.md,
+"Fused-vs-jnp consume drift").
 """
 
 import dataclasses
@@ -22,10 +30,13 @@ from unified_cvo_tpu.ops import lie as j_lie
 from unified_cvo_tpu.utils.pointcloud import make_pointcloud as j_make
 from unified_cvo_tpu_torch import convert
 from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
-from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH, CvoParams
+from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH, KITTI_GEOMETRIC_BENCH, CvoParams
 from unified_cvo_tpu_torch.models.align import align as t_align
+from unified_cvo_tpu_torch.models.align import resolve_backend
 from unified_cvo_tpu_torch.ops import lie as t_lie
 from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud as t_make
+
+from test_align import _bunnyish_cloud
 
 torch.set_num_threads(1)
 
@@ -109,28 +120,30 @@ def test_f2f_sequence_matches_jax_chain():
     assert all(i.nl_rebuilds >= 1 and i.iterations == 300 for i in infos)
 
 
-@pytest.mark.parametrize("case", ["channels", "acvo", "scan", "small_auto", "dense"])
+@pytest.mark.parametrize("case", ["channels", "acvo", "scan", "acvo_dense", "channels_ell"])
 def test_configurations_outside_the_slice_raise(case):
     rng = np.random.default_rng(5)
-    n = 1024 if case == "small_auto" else 4096
+    n = 4096
     xyz = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
     pc = t_make(xyz, bucket=n, device="cpu")
     params, kw = CvoParams(), {}
-    if case == "channels":
+    if case in ("channels", "channels_ell"):
         params = params.replace(is_using_intensity=1)
-    elif case == "acvo":
+    if case in ("acvo", "acvo_dense"):
         params = params.replace(is_ell_adaptive=1)
-    elif case == "scan":
+    if case == "scan":
         kw = dict(nl_builder="scan")
-    elif case == "dense":
+    elif case == "acvo_dense":
         kw = dict(backend="pallas")
+    elif case == "channels_ell":
+        kw = dict(backend="ell")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_align(pc, pc, np.eye(4, dtype=np.float32), params, device="cpu", **kw)
 
 
 def test_explicit_ell_runs_small_clouds():
     """backend='ell' runs at any size, as in JAX; 'auto' would send a
-    1024-point cloud to a dense backend."""
+    1024-point cloud to the dense 'jnp' backend."""
     xyz, xyz2, ig, _, jp = _case_1024()
     tp = convert.params_from_fields(dataclasses.asdict(jp))
     T, ret, info = t_align(t_make(xyz, bucket=1024, device="cpu"),
@@ -138,3 +151,86 @@ def test_explicit_ell_runs_small_clouds():
                            device="cpu", backend="ell", max_iter=3, nl_k=32)
     assert info.iterations == 3 and info.nl_rebuilds == 1
     assert bool(torch.all(torch.isfinite(T)))
+
+
+@pytest.mark.parametrize("caps, flags, device, want", [
+    ((1024, 1024), {}, "cpu", "jnp"),
+    ((4096, 2048), {}, "cpu", "jnp"),
+    ((4096, 4096), {}, "cuda", "ell"),
+    ((4096, 4096), dict(is_using_geometry=0), "cpu", "jnp"),
+    ((4096, 8192), dict(is_using_geometry=0), "cuda", "pallas"),
+    ((2048, 8192), {}, "cuda", "pallas"),
+], ids=["small", "one_small", "large", "no_channel_cpu", "no_channel_card", "mixed"])
+def test_auto_backend_policy_matches_jax(caps, flags, device, want):
+    """JAX's auto policy (align.py:94-122), with the port's device in place of
+    jax.default_backend(); resolving needs no card."""
+    assert resolve_backend(CvoParams(**flags), *caps, "auto", device) == want
+
+
+def _bunny_case(moved):
+    """test_pallas.py::test_align_backend_pallas_interpret_matches_jnp's
+    setup; `moved` registers a rotated copy instead of the cloud itself."""
+    xyz, feats = _bunnyish_cloud(np.random.default_rng(0), n=160)
+    jp = JaxParams(ell_init=0.5, is_using_intensity=1, max_step=0.05,
+                   ell_decay_start=5, indicator_window_size=5,
+                   indicator_stable_threshold=0.2)
+    xyz2 = xyz
+    if moved:
+        R, t = j_lie.se3_exp(jnp.asarray([0.03, -0.05, 0.04, 0.08, -0.05, 0.06]), 1.0)
+        xyz2 = (xyz @ np.asarray(R).T + np.asarray(t)).astype(np.float32)
+    return (jp, convert.params_from_fields(dataclasses.asdict(jp)),
+            (j_make(xyz, features=feats, bucket=64), j_make(xyz2, features=feats, bucket=64)),
+            (t_make(xyz, features=feats, bucket=64, device="cpu"),
+             t_make(xyz2, features=feats, bucket=64, device="cpu")))
+
+
+def test_pallas_backend_matches_jax_pallas_interpret():
+    jp, tp, (jx, jy), (tx, ty) = _bunny_case(moved=False)
+    T_j, ret_j, info_j = j_align(jx, jy, jnp.eye(4), jp, max_iter=10, backend="pallas_interpret")
+    T_t, ret_t, info_t = t_align(tx, ty, np.eye(4, dtype=np.float32), tp, device="cpu",
+                                 max_iter=10, backend="pallas")
+    assert info_t.iterations == int(info_j.iterations) and int(ret_t) == int(ret_j)
+    assert info_t.host_reads == info_t.iterations
+    assert info_t.nl_overflow is None and info_t.nl_rebuilds is None
+    np.testing.assert_allclose(T_t.numpy(), np.asarray(T_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("moved", [False, True], ids=["same_cloud", "moved"])
+def test_jnp_backend_matches_jax_jnp(moved):
+    jp, tp, (jx, jy), (tx, ty) = _bunny_case(moved)
+    T_j, _, info_j = j_align(jx, jy, jnp.eye(4), jp, max_iter=10, chunk=64, backend="jnp")
+    T_t, _, info_t = t_align(tx, ty, np.eye(4, dtype=np.float32), tp, device="cpu",
+                             max_iter=10, chunk=64, backend="jnp")
+    assert info_t.iterations == int(info_j.iterations)
+    np.testing.assert_allclose(T_t.numpy(), np.asarray(T_j), atol=1e-5)
+    np.testing.assert_allclose(float(info_t.inner_product), float(info_j.inner_product),
+                               rtol=1e-4)
+
+
+def test_colour_sequence_dense_slice_matches_jax_chain():
+    """The dense slice as a whole: two 2048-point pairs of the colour
+    sequence with KITTI_COLOR_BENCH through the port's run_sequence on
+    'pallas' (Morton culling, 128 x 512 tiles, plain versions of the
+    kernels), against the same chain through JAX align(backend='jnp').
+    Culling drops only pairs whose kernel is zero, so the poses agree."""
+    n, max_iter = 2048, 30
+    frames, T_true, feats = f2f.make_sequence(n, 2, features=True)
+    guess = f2f.initial_guess()
+    res_t, infos = f2f.run_sequence(
+        [t_make(f, features=feats, bucket=n, device="cpu") for f in frames],
+        torch.from_numpy(guess), KITTI_COLOR_BENCH, device="cpu", backend="pallas",
+        max_iter=max_iter)
+    jp = JaxParams(**dataclasses.asdict(KITTI_COLOR_BENCH))
+    g = jnp.asarray(guess)
+    res_j = []
+    jf = [j_make(f, features=feats, bucket=n) for f in frames]
+    for k in range(2):
+        T, _, _ = j_align(jf[k], jf[k + 1], g, jp, max_iter=max_iter, backend="jnp")
+        g = j_lie.rt_to_mat44(*j_lie.invert_rt(*j_lie.mat44_to_rt(T)))
+        res_j.append(np.asarray(T))
+    errs_t = f2f.pose_errors(res_t, T_true)
+    errs_j = f2f.pose_errors(res_j, T_true)
+    assert max(errs_t) < f2f.POSE_ERROR_BOUND and max(errs_j) < f2f.POSE_ERROR_BOUND
+    for T_j, T_t in zip(res_j, res_t):
+        assert _pose_gap(T_j, T_t.numpy()) < POSE_TOL
+    assert all(i.host_reads == i.iterations and i.nl_rebuilds is None for i in infos)

@@ -8,7 +8,9 @@ frame with a varying motion; each pair is registered with the previous
 pair's result as its constant-velocity guess, without a host round trip
 between pairs.
 
-`chip_smoke.py` drives it on the card; the CPU tests drive it with
+With per-point colour features and `KITTI_COLOR_BENCH`, `run_sequence(...,
+backend="pallas")` drives the dense tiled backend on the same sequence.
+`chip_smoke.py` drives both on the card; the CPU tests drive them with
 `device="cpu"` (the plain PyTorch versions of the kernels).
 """
 
@@ -57,12 +59,24 @@ def _exp44(xi: np.ndarray) -> np.ndarray:
     return lie.rt_to_mat44(R, t).numpy()
 
 
-def make_sequence(n_points: int = 16384, n_frames: int = 8):
+def point_features(xyz: np.ndarray) -> np.ndarray:
+    """[n, 5] per-point colour features [|sin(1.7 xyz)|, 0, 0] (the
+    reference's FEATURE_DIMENSIONS = 5; __graft_entry__.py:19-21)."""
+    return np.concatenate([np.abs(np.sin(xyz * 1.7)), np.zeros((len(xyz), 2))],
+                          axis=1).astype(np.float32)
+
+
+def make_sequence(n_points: int = 16384, n_frames: int = 8, features: bool = False):
     """(frames, T_true): n_frames + 1 noisy [n, 3] float32 frames and the
     n_frames true relative transforms, frame_{k+1} = T_true[k] . frame_k.
     Points that recede past the ~55 m envelope wrap back to near range, so
-    the workload stays stationary and frames overlap only partially."""
+    the workload stays stationary and frames overlap only partially.
+
+    With `features`, returns (frames, T_true, feats): feats [n, 5] is fixed
+    at creation from the scene's points and carried with each point through
+    every frame and the wrap, so row i of every frame takes feats[i]."""
     xyz_k = synthetic_kitti_scene(n_points)
+    feats = point_features(xyz_k)
     rng = np.random.default_rng(7)
     frames, T_true = [], []
     for k in range(n_frames + 1):
@@ -74,7 +88,7 @@ def make_sequence(n_points: int = 16384, n_frames: int = 8):
         xyz_k = xyz_k @ T_k[:3, :3].T + T_k[:3, 3]
         xyz_k[:, 2] = 2.0 + np.mod(xyz_k[:, 2] - 2.0, 53.0)
         T_true.append(T_k)
-    return frames, T_true
+    return (frames, T_true, feats) if features else (frames, T_true)
 
 
 def initial_guess() -> np.ndarray:

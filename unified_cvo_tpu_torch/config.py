@@ -93,6 +93,11 @@ class CvoParams:
 # geometric channel on, under a name of its own.
 KITTI_GEOMETRIC_BENCH = CvoParams()
 
+# The colour workload of the dense backend: the bench preset with the
+# intensity channel on (the reference's colour YAML is not in this
+# repository either). Clouds carry FEATURE_DIMENSIONS = 5 channels per point.
+KITTI_COLOR_BENCH = KITTI_GEOMETRIC_BENCH.replace(is_using_intensity=1)
+
 _FIELD_TYPES = {f.name: f.type for f in dataclasses.fields(CvoParams)}
 
 

@@ -1,8 +1,13 @@
-"""Kernel helpers shared by the ELL passes (port of the parts of
-unified_cvo_tpu/ops/kernels.py that the frame-to-frame slice runs).
+"""Kernel helpers shared by the ELL and dense passes, and the blocked plain
+PyTorch passes of the dense 'jnp' backend (port of the parts of
+unified_cvo_tpu/ops/kernels.py that the ported slices run).
 
-The dense N x M twins (kernel_block, flow_stats, step_coeffs, ...) belong to
-the dense backend and are not ported yet (ROADMAP queue 1, item 3).
+`kernel_block`, `flow_stats` and `step_coeffs` stream the N x M kernel
+matrix over target chunks without materialising it; they run on any device,
+as the JAX package runs its blocked-XLA passes outside Pallas. They are the
+'jnp' backend of models/align.py and the oracle of the dense tiled kernels
+(ops/dense.py). `kernel_block_dense`, `weighted_d2_sum`, `least_square_flow`
+and `association_topk(_dense)` are not ported yet (ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -13,7 +18,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from unified_cvo_tpu_torch.ops import lie
 from unified_cvo_tpu_torch.utils.pointcloud import PointCloud
+
+DEFAULT_CHUNK = 2048
 
 
 def geometric_constants(params):
@@ -63,3 +71,145 @@ def flow_from_stats(params, x: PointCloud, stats: FlowStats):
     jn = torch.linalg.vector_norm(joint)
     unit = joint / torch.where(jn < 1e-30, torch.ones_like(jn), jn)
     return unit, jn
+
+
+def channel_constants(ell: float, sigma: float, sp_thres: float):
+    """(sigma^2, distance gate -2 ell^2 log(sp_thres / sigma^2), 2 ell^2) of
+    a channel kernel, rounded to float32 as the JAX package computes them and
+    returned as Python floats (exact f32 values)."""
+    f32 = torch.float32
+    e, s = torch.tensor(ell, dtype=f32), torch.tensor(sigma, dtype=f32)
+    ell2, sigma2 = e * e, s * s
+    thres = -2.0 * ell2 * torch.log(torch.tensor(sp_thres, dtype=f32) / sigma2)
+    return float(sigma2), float(thres), float(2.0 * ell2)
+
+
+def _mm(a, b):
+    """f32 matmul; TF32 is off for the whole package (its __init__), as the
+    JAX package pins HIGHEST precision for these reductions."""
+    return torch.matmul(a, b)
+
+
+def _slice_cloud(pc: PointCloud, start: int, size: int) -> PointCloud:
+    def sl(a):
+        return None if a is None else a[start:start + size]
+
+    return PointCloud(xyz=sl(pc.xyz), mask=sl(pc.mask), features=sl(pc.features),
+                      labels=sl(pc.labels), geometric_types=sl(pc.geometric_types))
+
+
+def kernel_block(params, ell, x: PointCloud, yb: PointCloud) -> torch.Tensor:
+    """One [I, J] tile of the sparsified kernel matrix A (fill_in_A_mat_gpu,
+    CvoGPU.cu:477-593): geometric SE kernel with range-scaled lengthscale,
+    colour kernel, semantic kernel and geometric-type cosine^2 gate, each
+    with its own distance gate, then the sp_thres sparsification. Gated and
+    masked entries are exactly 0."""
+    xp, yp = x.xyz, yb.xyz
+    a = torch.ones((xp.shape[0], yp.shape[0]), dtype=torch.float32, device=xp.device)
+    ok = (x.mask[:, None] > 0) & (yb.mask[None, :] > 0)
+    sigma2, sp, log_term = geometric_constants(params)
+
+    if params.is_using_geometric_type:
+        xg, yg = x.geometric_types, yb.geometric_types
+        dot = _mm(xg, yg.T)
+        n2x = torch.sum(xg * xg, -1)[:, None]
+        n2y = torch.sum(yg * yg, -1)[None, :]
+        geo = dot * dot / torch.clamp(n2x * n2y, min=1e-12)
+        ok = ok & (geo >= 0.01)          # gate (CvoGPU.cu:541-542)
+        a = a * geo
+
+    if params.is_using_geometry:
+        # explicit coordinate differences: no |x|^2 cancellation at small d2
+        d2 = torch.zeros_like(a)
+        for c in range(3):
+            diff = xp[:, c:c + 1] - yp[None, :, c]
+            d2 = d2 + diff * diff
+        l_i = range_ell(ell, torch.sqrt(torch.sum(xp * xp, -1)))[:, None]
+        two_l2 = 2.0 * l_i * l_i
+        ok = ok & (d2 < -two_l2 * log_term)
+        a = a * sigma2 * torch.exp(-d2 / two_l2)
+
+    for on, f_x, f_y, ell_c, sigma_c in (
+            (params.is_using_intensity, x.features, yb.features, params.c_ell, params.c_sigma),
+            (params.is_using_semantics, x.labels, yb.labels, params.s_ell, params.s_sigma)):
+        if not on:
+            continue
+        sig2, thres, two_ell2 = channel_constants(ell_c, sigma_c, params.sp_thres)
+        d2c = (torch.sum(f_x * f_x, -1)[:, None] + torch.sum(f_y * f_y, -1)[None, :]
+               - 2.0 * _mm(f_x, f_y.T))
+        d2c = torch.clamp(d2c, min=0.0)
+        ok = ok & (d2c < thres)
+        a = a * sig2 * torch.exp(-d2c / two_ell2)
+
+    return torch.where(ok & (a > sp), a, torch.zeros_like(a))
+
+
+def flow_stats(params, ell, x: PointCloud, y_t: PointCloud,
+               chunk: int = DEFAULT_CHUNK) -> FlowStats:
+    """Streaming pass 1: kernel row statistics over target chunks."""
+    chunk = min(chunk, y_t.capacity)
+    y_t = pad_cloud_to_multiple(y_t, chunk)
+    N, dev = x.capacity, x.xyz.device
+    s = torch.zeros((N,), dtype=torch.float32, device=dev)
+    w = torch.zeros((N, 3), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((), dtype=torch.int64, device=dev)
+    asum = torch.zeros((), dtype=torch.float32, device=dev)
+    for c in range(y_t.capacity // chunk):
+        yb = _slice_cloud(y_t, c * chunk, chunk)
+        a = kernel_block(params, ell, x, yb)
+        s = s + torch.sum(a, dim=1)
+        w = w + _mm(a, yb.xyz)
+        cnt = cnt + torch.sum(a > 0)
+        asum = asum + torch.sum(a)
+    return FlowStats(s, w, cnt.to(torch.int32), asum)
+
+
+def step_coeffs(params, ell, x: PointCloud, y_t: PointCloud, twist,
+                chunk: int = DEFAULT_CHUNK):
+    """Streaming pass 2: quartic Taylor coefficients (B, C, D, E)
+    (compute_step_size_xi + compute_step_size_poly_coeff, CvoGPU.cu:953-1082).
+    The per-pair dots xi{1..4}z_j . (x_i - y_j) decompose as
+    X @ xi{k}z^T minus a per-target dot."""
+    chunk = min(chunk, y_t.capacity)
+    y_t = pad_cloud_to_multiple(y_t, chunk)
+    omega, v = twist[:3], twist[3:]
+    W = lie.skew(omega)
+    W2 = W @ W
+    W3 = W2 @ W
+    W4 = W2 @ W2
+    y = y_t.xyz
+    # per-target flow derivatives (compute_step_size_xi)
+    xiz = y @ W.T + v
+    xi2z = y @ W2.T + W @ v
+    xi3z = y @ W3.T + W2 @ v
+    xi4z = y @ W4.T + W3 @ v
+    normxiz2 = torch.sum(xiz * xiz, -1)
+    xdx2 = -torch.sum(xiz * xi2z, -1)
+    epsc = torch.sum(xi2z * xi2z, -1) + 2.0 * torch.sum(xiz * xi3z, -1)
+    xis = (xiz, xi2z, xi3z, xi4z)
+    ydots = [torch.sum(y * xi, -1) for xi in xis]   # the "- y_j" half of each dot
+
+    xp = x.xyz
+    if params.is_using_range_ell:
+        l_i = range_ell(ell, torch.sqrt(torch.sum(xp * xp, -1)))
+    else:
+        l_i = ell * torch.ones((x.capacity,), dtype=torch.float32, device=xp.device)
+    coef = (1.0 / (2.0 * l_i * l_i))[:, None]
+
+    B = C = D = E = torch.zeros((), dtype=torch.float32, device=xp.device)
+    for c in range(y_t.capacity // chunk):
+        lo, hi = c * chunk, (c + 1) * chunk
+        a = kernel_block(params, ell, x, _slice_cloud(y_t, lo, chunk))
+        d1, d2_, d3, d4 = (_mm(xp, xi[lo:hi].T) - yd[lo:hi][None, :]
+                           for xi, yd in zip(xis, ydots))
+        beta = -2.0 * coef * d1
+        gamma = -coef * (normxiz2[lo:hi][None, :] + 2.0 * d2_)
+        delta = 2.0 * coef * (xdx2[lo:hi][None, :] - d3)
+        epsil = -coef * (epsc[lo:hi][None, :] + 2.0 * d4)
+        b2 = beta * beta
+        B = B + torch.sum(a * beta)
+        C = C + torch.sum(a * (gamma + 0.5 * b2))
+        D = D + torch.sum(a * (delta + beta * gamma + b2 * beta / 6.0))
+        E = E + torch.sum(a * (epsil + beta * delta + 0.5 * b2 * gamma
+                               + 0.5 * gamma * gamma + b2 * b2 / 24.0))
+    return B, C, D, E

@@ -39,6 +39,14 @@ class PointCloud:
     def num_valid(self) -> torch.Tensor:
         return torch.sum(self.mask)
 
+    @property
+    def feature_dim(self) -> int:
+        return 0 if self.features is None else self.features.shape[-1]
+
+    @property
+    def num_classes(self) -> int:
+        return 0 if self.labels is None else self.labels.shape[-1]
+
     def transformed(self, R: torch.Tensor, t: torch.Tensor) -> "PointCloud":
         """Rigid transform of positions only (reference
         transform_pointcloud_thrust, CvoGPU_impl.cu:164-173)."""
