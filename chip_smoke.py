@@ -1,15 +1,25 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (unified_cvo_tpu_torch) runs on
 the GPU: builds the CUDA kernels from csrc/, holds each against its plain
-PyTorch version at the bench shapes, then drives both ported paths at full
+PyTorch version at the bench shapes, then drives the ported paths at full
 width (16384 points per frame) and checks their pose errors and that every
 kernel of each path was launched:
 
-  ELL path    KITTI_GEOMETRIC_BENCH, backend 'ell' (select, flow_reduce,
-              step_cached), phases 2-5;
-  dense path  KITTI_COLOR_BENCH with 5 colour features per point, backend
-              'pallas' (Morton culling; dense_flow, dense_step), phases
-              2b, 3b and 4b.
+  ELL path         KITTI_GEOMETRIC_BENCH, backend 'ell' (select,
+                   flow_reduce, step_cached), phases 2-5;
+  dense path       KITTI_COLOR_BENCH with 5 colour features per point,
+                   backend 'pallas' (Morton culling; dense_flow,
+                   dense_step), phases 2b, 3b and 4b;
+  colour ELL path  KITTI_COLOR_BENCH on the default backend: 'ell' with the
+                   grid builder and the channel factor (select, the
+                   geometry x channel flow_reduce, step_cached), phases 2c
+                   and 3c;
+  channel only     KITTI_COLOR_BENCH without geometry: one scan build and
+                   the channel-only flow_reduce, phase 3d.
+
+Phase 2c also holds flow_rows and step_uncached (the entry points of
+pallas_ell.flow_stats_ell_fused and step_coeffs_ell_fused, which no align
+path calls, as in JAX) against their plain versions in every variant.
 
 Usage: python3 chip_smoke.py [--frames 8]
 Exits non-zero, printing no result, without a CUDA device or when any
@@ -34,11 +44,17 @@ F32_FLOPS = 67e12           # H100 SXM published f32 rate outside the tensor cor
 FLOW_OPS_PER_SLOT = 44
 STEP_OPS_PER_SLOT = 110
 SELECT_OPS_PER_CANDIDATE = 27
+# per-slot operations of the A evaluation by variant: the geometric front
+# half (transform 18, distance 8, exp, gates), times the channel factor,
+# or the channel factor alone (transform and gates only)
+A_OPS_PER_SLOT = {"geo": 32, "geo_chan": 34, "chan": 21}
 
 N_POINTS = 16384
 MAX_ITER = 1500             # bench.py's iteration cap
 DENSE_PAIRS = 3             # timed pairs of the dense path (after one warm-up)
 N_CLASSES = 19              # semantic classes of the all-channel kernel check
+COLOUR_PAIRS = 3            # timed pairs of the colour ELL path (after one warm-up)
+CHAN_ONLY_ITER = 50         # iteration cap of the channel-only pair
 
 
 def log(*a):
@@ -294,13 +310,152 @@ def check_dense_kernels(frames_np, feats, guess_np, dev, results):
         results[kname]["max_abs_err"] = err
 
 
+def check_ell_channel_kernels(frames_np, feats, guess_np, dev, results):
+    """Phase 2c: the ELL kernel variants at the bench shapes (frames 0 -> 1,
+    bench guess, K = 32, ell_init): flow_reduce, flow_rows and
+    step_uncached against their plain versions on four lists: geometry
+    only (KITTI_GEOMETRIC_BENCH, grid), colour (KITTI_COLOR_BENCH, grid,
+    chan), all channels (plus 19 one-hot classes and geometric types, grid,
+    chan) and channel only (KITTI_COLOR_BENCH without geometry, scan,
+    chan). Logs each variant's time, plain time and bound; flow_rows and
+    step_uncached take the launches of these checks, since no path
+    launches them."""
+    import numpy as np
+
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH, KITTI_GEOMETRIC_BENCH
+    from unified_cvo_tpu_torch.ops import ell as ell_ops
+    from unified_cvo_tpu_torch.ops import lie
+    from unified_cvo_tpu_torch.ops import neighbors as nbr
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    rng = np.random.default_rng(11)
+    n = len(frames_np[0])
+    extra = dict(labels=np.eye(N_CLASSES, dtype=np.float32)[rng.integers(0, N_CLASSES, n)],
+                 geometric_types=np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)])
+    all_ch = KITTI_COLOR_BENCH.replace(is_using_semantics=1, is_using_geometric_type=1)
+    sets = [("geometry only", KITTI_GEOMETRIC_BENCH, {}, "grid"),
+            ("colour", KITTI_COLOR_BENCH, {}, "grid"),
+            ("all channels", all_ch, extra, "grid"),
+            ("channel only", KITTI_COLOR_BENCH.replace(is_using_geometry=0), {}, "scan")]
+    guess = torch.from_numpy(guess_np).to(dev)
+    Rinv, Tinv = lie.invert_rt(guess[:3, :3], guess[:3, 3])
+    variants = {"flow_reduce": {}, "flow_rows": {}, "step_uncached": {}}
+    errs = dict.fromkeys(variants, 0.0)
+    timed = []
+    ell_ops.reset_launches()
+    for label, params, fields, builder in sets:
+        src = make_pointcloud(frames_np[0], features=feats, bucket=n, device=dev, **fields)
+        tgt = make_pointcloud(frames_np[1], features=feats, bucket=n, device=dev, **fields)
+        ell = torch.full((), params.ell_init, dtype=torch.float32, device=dev)
+        build = nbr.build_neighbor_list if builder == "grid" else nbr.build_neighbor_list_scan
+        nl = build(params, ell, src, tgt, Rinv, Tinv)
+        use_geo = bool(params.is_using_geometry)
+        v = ell_ops.variant(nl.chan, use_geo)
+        K = nl.y_xyz.shape[1]
+        xp = ell_ops.pack_x(params, ell, src)
+        scal = ell_ops.pack_scalars(params, Rinv, Tinv)
+        ch = dict(chan=nl.chan, use_geometry=use_geo)
+
+        fk = ell_ops.flow_reduce(xp, nl.y_xyz, scal, params.c, params.d, **ch)
+        fp = ell_ops.flow_reduce_plain(xp, nl.y_xyz, scal, params.c, params.d, **ch)
+        torch.cuda.synchronize()
+        nz_k, nz_p = int(fk[2]), int(fp[2])
+        a_rel = abs(float(fk[3]) - float(fp[3])) / abs(float(fp[3]))
+        A_err = float(torch.max(torch.abs(fk[4] - fp[4])))
+        tw_err = float(torch.max(torch.abs(fk[0] - fp[0])))
+        if not (nz_k == nz_p > 0 and a_rel <= 1e-5 and A_err <= 1e-6 and tw_err <= 1e-4):
+            raise SystemExit(f"flow_reduce ({v}) disagrees on the {label} list: nonzeros "
+                             f"{nz_k} vs {nz_p}, a_sum rel {a_rel}, A abs {A_err}, "
+                             f"twist abs {tw_err}")
+        errs["flow_reduce"] = max(errs["flow_reduce"], A_err, tw_err)
+
+        rk = ell_ops.flow_rows(xp, nl.y_xyz, scal, **ch)
+        rp = ell_ops.flow_rows_plain(xp, nl.y_xyz, scal, **ch)
+        torch.cuda.synchronize()
+        # rows at s rtol 1e-5 atol 1e-7 and wy rtol 1e-5 atol 1e-6; without
+        # geometry every live slot carries an O(0.1) A, so wy sums 32 terms
+        # of |A y| up to ~20 and takes the JAX test's own wy tolerance
+        # (rtol 1e-4 atol 1e-5, test_neighbors.py:293)
+        wy_tol = dict(rtol=1e-5, atol=1e-6) if use_geo else dict(rtol=1e-4, atol=1e-5)
+        s_ok = torch.allclose(rk[0], rp[0], rtol=1e-5, atol=1e-7)
+        wy_ok = torch.allclose(rk[1], rp[1], **wy_tol)
+        r_rel = abs(float(rk[4]) - float(rp[4])) / abs(float(rp[4]))
+        if not (s_ok and wy_ok and torch.equal(rk[2], rp[2]) and int(rk[3]) == int(rp[3])
+                == nz_p and r_rel <= 1e-5):
+            raise SystemExit(f"flow_rows ({v}) disagrees on the {label} list: s ok {s_ok}, "
+                             f"wy ok {wy_ok} (max abs "
+                             f"{float(torch.max(torch.abs(rk[1] - rp[1])))}), cnt equal {torch.equal(rk[2], rp[2])}, "
+                             f"nonzeros {int(rk[3])} vs {int(rp[3])}, a_sum rel {r_rel}")
+        errs["flow_rows"] = max(errs["flow_rows"], float(torch.max(torch.abs(rk[0] - rp[0]))),
+                                float(torch.max(torch.abs(rk[1] - rp[1]))))
+
+        scal_t = ell_ops.pack_scalars(params, Rinv, Tinv, fp[0])
+        bk = ell_ops.step_uncached(xp, nl.y_xyz, scal_t, **ch)
+        bp = ell_ops.step_uncached_plain(xp, nl.y_xyz, scal_t, **ch)
+        bc = ell_ops.step_cached(xp, nl.y_xyz, fk[4], scal_t)
+        torch.cuda.synchronize()
+        if not (bool(torch.all(torch.abs(bk - bp) <= 1e-3 * torch.abs(bp) + 1e-4))
+                and torch.equal(bk, bc)):
+            raise SystemExit(f"step_uncached ({v}) disagrees on the {label} list: kernel "
+                             f"{bk.tolist()}, plain {bp.tolist()}, cached kernel {bc.tolist()}")
+        errs["step_uncached"] = max(errs["step_uncached"], float(torch.max(torch.abs(bk - bp))))
+        log(f"ell {v:8s} @ {label} ({builder} list, K {K}, {int(nl.valid.sum())} live slots, "
+            f"overflow {int(nl.overflow)}): flow_reduce nonzeros {nz_k} (exact), a_sum rel "
+            f"{a_rel:.3g}, A abs {A_err:.3g}, twist abs {tw_err:.3g}; flow_rows s, wy, cnt "
+            f"within tolerance, a_sum rel {r_rel:.3g}; step_uncached B..E {bk.tolist()} "
+            f"(plain {bp.tolist()}, equal to step_cached on the kernel's A)")
+        if label != "all channels":
+            timed.append((v, xp, nl, scal, scal_t, ch, params))
+
+    launches = {name: (getattr(ell_ops, name).launches, dict(getattr(ell_ops, name).variant_launches))
+                for name in ("flow_rows", "step_uncached")}
+    for v, xp, nl, scal, scal_t, ch, params in timed:
+        K, N = nl.y_xyz.shape[1], nl.y_xyz.shape[2]
+        slot_in = 3 * K * N * 4 + 6 * N * 4 + 32 * 4 + (K * N * 4 if nl.chan is not None else 0)
+        a_ops = A_OPS_PER_SLOT[v]
+        fns = {
+            "flow_reduce": (
+                lambda: ell_ops.flow_reduce(xp, nl.y_xyz, scal, params.c, params.d, **ch),
+                lambda: ell_ops.flow_reduce_plain(xp, nl.y_xyz, scal, params.c, params.d, **ch),
+                bound(slot_in + K * N * 4 + 36, (a_ops + 12) * K * N)),
+            "flow_rows": (
+                lambda: ell_ops.flow_rows(xp, nl.y_xyz, scal, **ch),
+                lambda: ell_ops.flow_rows_plain(xp, nl.y_xyz, scal, **ch),
+                bound(slot_in + 5 * N * 4 + 8, (a_ops + 8) * K * N)),
+            "step_uncached": (
+                lambda: ell_ops.step_uncached(xp, nl.y_xyz, scal_t, **ch),
+                lambda: ell_ops.step_uncached_plain(xp, nl.y_xyz, scal_t, **ch),
+                bound(slot_in + 16, (a_ops + STEP_OPS_PER_SLOT) * K * N)),
+        }
+        for kname, (kfn, pfn, (b_ms, b_by)) in fns.items():
+            ms, plain_ms = device_ms(kfn), device_ms(pfn)
+            variants[kname][v] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                                  "bound_by": b_by}
+            log(f"time   {kname} ({v}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by})")
+    results["flow_reduce"]["variants"] = variants["flow_reduce"]
+    results["flow_reduce"]["max_abs_err"] = max(results["flow_reduce"]["max_abs_err"],
+                                                errs["flow_reduce"])
+    for kname, replaces in (("flow_rows", "unified_cvo_tpu/ops/pallas_ell.py:168 (_flow_kernel)"),
+                            ("step_uncached",
+                             "unified_cvo_tpu/ops/pallas_ell.py:249 (_step_kernel, reduced)")):
+        geo = variants[kname]["geo"]
+        results[kname] = {
+            "name": kname, "route": "cuda", "source": "unified_cvo_tpu_torch/csrc/ell.cu",
+            "replaces": replaces, "launches": launches[kname][0],
+            "max_abs_err": errs[kname], "ms": geo["ms"], "plain_ms": geo["plain_ms"],
+            "bound_ms": geo["bound_ms"], "bound_by": geo["bound_by"], "library_ms": None,
+            "variants": variants[kname], "launches_by_variant": launches[kname][1],
+            "launched_by": "phase 2c checks (no align path calls it, as in JAX)"}
+
+
 def reset_launch_counts():
     from unified_cvo_tpu_torch.ops import dense
     from unified_cvo_tpu_torch.ops import ell as ell_ops
     from unified_cvo_tpu_torch.ops import select as sel
 
-    for fn in (sel.select, ell_ops.flow_reduce, ell_ops.step_cached,
-               dense.dense_flow, dense.dense_step):
+    ell_ops.reset_launches()
+    for fn in (sel.select, dense.dense_flow, dense.dense_step):
         fn.launches = 0
 
 
@@ -310,6 +465,7 @@ def launch_counts():
     from unified_cvo_tpu_torch.ops import select as sel
 
     return {"select": sel.select.launches, "flow_reduce": ell_ops.flow_reduce.launches,
+            "flow_reduce_by_variant": dict(ell_ops.flow_reduce.variant_launches),
             "step_cached": ell_ops.step_cached.launches,
             "dense_flow": dense.dense_flow.launches, "dense_step": dense.dense_step.launches}
 
@@ -393,6 +549,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     check_dense_kernels(frames_np, feats, guess_np, dev, results)
     log(f"phase 2b (dense kernel checks and timings): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    check_ell_channel_kernels(frames_np, feats, guess_np, dev, results)
+    log(f"phase 2c (ELL kernel variants, checks and timings): {time.perf_counter() - t0:.2f} s")
 
     # ---- phase 3: the main path
     frames = [make_pointcloud(f, bucket=N_POINTS, device=dev) for f in frames_np]
@@ -423,7 +582,8 @@ def main(argv=None) -> int:
 
     # ---- phase 4: the kernels went through the main path
     if not (launches["select"] >= sum(builds)
-            and launches["flow_reduce"] == launches["step_cached"] == sum(iters)):
+            and launches["flow_reduce_by_variant"]["geo"] == launches["flow_reduce"]
+            == launches["step_cached"] == sum(iters)):
         raise SystemExit(f"launch counts {launches} do not match {sum(builds)} builds "
                          f"and {sum(iters)} iterations")
     for name in ("select", "flow_reduce", "step_cached"):
@@ -466,10 +626,77 @@ def main(argv=None) -> int:
         results[name]["launches"] = dlaunches[name]
     log(f"phases 3b-4b (dense path, warm-up included): {time.perf_counter() - t_dense:.2f} s")
 
+    # ---- phase 3c: colour on the ELL path (the default backend)
+    t_col = time.perf_counter()
+    t0 = time.perf_counter()
+    f2f.run_sequence(cframes[:2], guess, KITTI_COLOR_BENCH, device=dev, max_iter=MAX_ITER)
+    torch.cuda.synchronize()
+    log(f"colour ELL warm-up pair: {time.perf_counter() - t0:.2f} s")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res, infos = f2f.run_sequence(cframes[1:COLOUR_PAIRS + 2], guess, KITTI_COLOR_BENCH,
+                                  device=dev, max_iter=MAX_ITER)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    claunches = launch_counts()
+    errs = f2f.pose_errors(res, T_true[1:COLOUR_PAIRS + 1])
+    iters = [i.iterations for i in infos]
+    builds = [i.nl_rebuilds for i in infos]
+    n = len(res)
+    log(f"colour ELL path (KITTI_COLOR_BENCH, default backend -> "
+        f"{sorted({(i.backend, i.nl_builder) for i in infos})}): {n} frames, "
+        f"{1e3 * seconds / n:.2f} ms/frame, {n / seconds:.3f} fps, "
+        f"{1e3 * seconds / sum(iters):.3f} ms/iteration ({smi})")
+    log(f"  iterations/frame {iters}, builds/frame {builds}, host reads/frame "
+        f"{[i.host_reads for i in infos]}, overflow/frame {[int(i.nl_overflow) for i in infos]}")
+    log(f"  pose error |xi| max {max(errs):.6f} mean {sum(errs) / n:.6f}")
+    log(f"  launches {claunches}")
+    if not all((i.backend, i.nl_builder) == ("ell", "grid") for i in infos):
+        raise SystemExit("the colour workload did not resolve to 'ell' with the grid builder")
+    if not max(errs) < f2f.POSE_ERROR_BOUND:
+        raise SystemExit(f"colour ELL pose error {max(errs)} is not below "
+                         f"{f2f.POSE_ERROR_BOUND}")
+    if not (claunches["select"] >= sum(builds)
+            and claunches["flow_reduce_by_variant"]["geo_chan"] == claunches["flow_reduce"]
+            == claunches["step_cached"] == sum(iters)):
+        raise SystemExit(f"colour ELL launch counts {claunches} do not match {sum(builds)} "
+                         f"builds and {sum(iters)} iterations")
+    log(f"phase 3c (colour ELL path, warm-up included): {time.perf_counter() - t_col:.2f} s")
+
+    # ---- phase 3d: channel only (no geometry): one scan build, short
+    chan_only = KITTI_COLOR_BENCH.replace(is_using_geometry=0)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res, infos = f2f.run_sequence(cframes[:2], guess, chan_only, device=dev,
+                                  max_iter=CHAN_ONLY_ITER)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    olaunches = launch_counts()
+    info = infos[0]
+    err = f2f.pose_errors(res, T_true[:1])[0]
+    log(f"channel-only pair (KITTI_COLOR_BENCH, is_using_geometry=0): {info.backend} + "
+        f"{info.nl_builder} builder, {info.iterations} iterations, {info.nl_rebuilds} "
+        f"build(s), {info.host_reads} host reads, overflow {int(info.nl_overflow)}, "
+        f"{1e3 * seconds:.2f} ms (first call included), pose error |xi| {err:.6f} (no bound)")
+    log(f"  launches {olaunches}")
+    if not ((info.backend, info.nl_builder, info.nl_rebuilds) == ("ell", "scan", 1)
+            and olaunches["flow_reduce_by_variant"]["chan"] == olaunches["flow_reduce"]
+            == olaunches["step_cached"] == info.iterations > 0
+            and bool(torch.all(torch.isfinite(res[0])))):
+        raise SystemExit(f"channel-only pair: {info}, launches {olaunches}")
+    for name in ("select", "flow_reduce", "step_cached"):
+        results[name]["launches_colour_ell"] = claunches[name]
+    results["flow_reduce"]["launches_by_variant"] = {
+        "geo": launches["flow_reduce_by_variant"]["geo"],
+        "geo_chan": claunches["flow_reduce_by_variant"]["geo_chan"],
+        "chan": olaunches["flow_reduce_by_variant"]["chan"]}
+
     # ---- phase 5: where an iteration's time goes (profiler, not counted)
     profile_main_path(f2f, frames, guess, params, dev, label=" ELL path")
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
                       label=" dense path", backend="pallas")
+    profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
+                      label=" colour ELL path")
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

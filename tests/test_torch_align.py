@@ -3,6 +3,11 @@ the CPU, on identical numpy inputs:
 
 * the frame-to-frame ELL slice (apps/f2f_sequence.py) against JAX
   align(backend='ell', nl_builder='grid');
+* the ELL path with channels and the scan builder: the colour chain on the
+  default backend (grid list with a channel factor), the no-geometry scan
+  fixture (one build per solve) and the large-support small-cloud fixture
+  (the default builder resolves to 'scan' on both sides), each against JAX
+  align(backend='ell'), and the builder rule against JAX's;
 * the dense backends: 'pallas' (plain versions of the dense tiled kernels,
   with Morton culling) against JAX 'pallas_interpret', and 'jnp' against
   JAX 'jnp', at test_pallas.py's setup (poses to 1e-5, equal iterations);
@@ -32,11 +37,12 @@ from unified_cvo_tpu_torch import convert
 from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
 from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH, KITTI_GEOMETRIC_BENCH, CvoParams
 from unified_cvo_tpu_torch.models.align import align as t_align
-from unified_cvo_tpu_torch.models.align import resolve_backend
+from unified_cvo_tpu_torch.models.align import resolve_backend, resolve_nl_builder
 from unified_cvo_tpu_torch.ops import lie as t_lie
 from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud as t_make
 
 from test_align import _bunnyish_cloud
+from test_torch_neighbors import _params, _scene
 
 torch.set_num_threads(1)
 
@@ -122,10 +128,15 @@ def test_f2f_sequence_matches_jax_chain():
 
 @pytest.mark.parametrize("case", ["channels", "acvo", "scan", "acvo_dense", "channels_ell"])
 def test_configurations_outside_the_slice_raise(case):
+    """ACVO, on any backend, is still outside the port and raises naming its
+    ROADMAP item. The other three cases (intensity on the auto and on the
+    explicit ELL backend, the scan builder) were outside the earlier slices
+    and now run on the CPU through the ELL path, with the builder JAX picks."""
     rng = np.random.default_rng(5)
     n = 4096
     xyz = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
-    pc = t_make(xyz, bucket=n, device="cpu")
+    feats = rng.uniform(0, 1, (n, 5)).astype(np.float32)
+    pc = t_make(xyz, features=feats, bucket=n, device="cpu")
     params, kw = CvoParams(), {}
     if case in ("channels", "channels_ell"):
         params = params.replace(is_using_intensity=1)
@@ -137,8 +148,31 @@ def test_configurations_outside_the_slice_raise(case):
         kw = dict(backend="pallas")
     elif case == "channels_ell":
         kw = dict(backend="ell")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_align(pc, pc, np.eye(4, dtype=np.float32), params, device="cpu", **kw)
+    if case.startswith("acvo"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_align(pc, pc, np.eye(4, dtype=np.float32), params, device="cpu", **kw)
+        return
+    T, ret, info = t_align(pc, pc, np.eye(4, dtype=np.float32), params, device="cpu",
+                           max_iter=3, **kw)
+    assert (info.backend, info.nl_builder) == ("ell", "scan" if case == "scan" else "grid")
+    assert info.iterations == 3 and info.nl_rebuilds == 1
+    assert bool(torch.all(torch.isfinite(T)))
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(params=dict(is_using_geometry=0), backend="ell"), "rank candidates"),
+    (dict(params=dict(is_using_geometry=0, is_using_intensity=1), backend="ell",
+          nl_builder="grid"), "needs the geometric channel"),
+    (dict(params={}, backend="ell", nl_builder="kdtree"), "unknown nl_builder"),
+], ids=["no_channel", "grid_without_geometry", "unknown_builder"])
+def test_ell_preconditions_raise_value_error(kw, match):
+    """align.py:248-256 and :274-277: the ELL path needs a ranking channel,
+    and the grid builder needs geometry."""
+    xyz = np.random.default_rng(6).uniform(-5, 5, (256, 3)).astype(np.float32)
+    pc = t_make(xyz, features=np.ones((256, 5), np.float32), bucket=256, device="cpu")
+    params = CvoParams(**kw.pop("params"))
+    with pytest.raises(ValueError, match=match):
+        t_align(pc, pc, np.eye(4, dtype=np.float32), params, device="cpu", max_iter=1, **kw)
 
 
 def test_explicit_ell_runs_small_clouds():
@@ -165,6 +199,117 @@ def test_auto_backend_policy_matches_jax(caps, flags, device, want):
     """JAX's auto policy (align.py:94-122), with the port's device in place of
     jax.default_backend(); resolving needs no card."""
     assert resolve_backend(CvoParams(**flags), *caps, "auto", device) == want
+
+
+@pytest.mark.parametrize("flags, caps, want", [
+    (dict(), (4096, 4096), "grid"),
+    (dict(), (16384, 16384), "grid"),
+    (dict(is_using_intensity=1), (16384, 16384), "grid"),
+    (dict(ell_init=0.7), (4096, 4096), "grid"),
+    (dict(ell_init=0.8), (4096, 4096), "scan"),
+    (dict(), (2048, 4096), "scan"),
+    (dict(), (4096, 1024), "scan"),
+    (dict(is_using_geometry=0, is_using_intensity=1), (16384, 16384), "scan"),
+    (dict(sigma=1.0), (4096, 4096), "scan"),
+], ids=["bench", "bench_16k", "colour", "support_1.85m", "support_2.11m", "small_source",
+        "small_target", "no_geometry", "wide_sigma"])
+def test_nl_builder_rule_matches_jax(flags, caps, want):
+    """JAX's default builder (align.py:257-273): 'grid' for geometric
+    configurations whose static support radius is at most 2 m with both
+    clouds at 4096 points or more, else 'scan'. The radius is JAX's own."""
+    from unified_cvo_tpu.ops.neighbors import static_support_radius as j_radius
+
+    params = CvoParams(**flags)
+    jp = JaxParams(**dataclasses.asdict(params))
+    jax_rule = "grid" if (bool(jp.is_using_geometry) and j_radius(jp) <= 2.0
+                          and min(caps) >= 4096) else "scan"
+    assert jax_rule == want
+    assert resolve_nl_builder(params, *caps) == want
+    assert resolve_nl_builder(params, *caps, "scan") == "scan"
+
+
+def test_align_no_geometry_scan_matches_jax():
+    """test_neighbors.py::test_align_scan_no_geometry_channel's setup: the
+    kernel is pose-independent, so the value-ranked scan list is built once
+    and never rebuilt, and each iteration reads only `done`."""
+    rng = np.random.default_rng(0)
+    jp, tp = _params(is_using_geometry=0, is_using_intensity=1, c_ell=0.3,
+                       c_sigma=1.0, sp_thres=0.01, max_step=0.02)
+    xyz = _scene(rng, 512, spread=4.0)
+    feats = rng.uniform(0, 1, (512, 3)).astype(np.float32)
+    xi = np.array([0.0, 0.002, -0.001, 0.02, 0.01, 0.05], np.float32)
+    R_m, t_m = j_lie.se3_exp(jnp.asarray(xi), 1.0)
+    xyz2 = np.asarray(xyz @ np.asarray(R_m).T + np.asarray(t_m))
+    kw = dict(backend="ell", max_iter=60, nl_k=512)
+    T_j, _, info_j = j_align(j_make(xyz, features=feats, bucket=512),
+                             j_make(xyz2, features=feats, bucket=512), jnp.eye(4), jp, **kw)
+    T_t, _, info_t = t_align(t_make(xyz, features=feats, bucket=512, device="cpu"),
+                             t_make(xyz2, features=feats, bucket=512, device="cpu"),
+                             np.eye(4, dtype=np.float32), tp, device="cpu", **kw)
+    assert info_t.nl_builder == "scan"
+    assert info_t.nl_rebuilds == int(info_j.nl_rebuilds) == 1
+    assert int(info_t.nl_overflow) == int(info_j.nl_overflow) == 0
+    assert info_t.host_reads == info_t.iterations
+    assert float(np.max(np.abs(T_t.numpy() - np.asarray(T_j)))) < 2e-3
+
+
+def test_align_large_support_small_cloud_matches_jax():
+    """test_neighbors.py::test_align_scan_large_support_small_cloud's setup
+    (support 3.3 m, 768 points) with the DEFAULT nl_builder: both sides
+    choose the scan builder; poses within the JAX test's 8e-3."""
+    rng = np.random.default_rng(0)
+    jp, tp = _params(ell_init=3.0, ell_min=0.5, max_step=0.1)
+    xyz = _scene(rng, 768)
+    xi = np.array([0.001, 0.004, -0.002, 0.02, 0.01, 0.1], np.float32)
+    R_m, t_m = j_lie.se3_exp(jnp.asarray(xi), 1.0)
+    xyz2 = np.asarray(xyz @ np.asarray(R_m).T + np.asarray(t_m))
+    kw = dict(backend="ell", max_iter=250, nl_k=640)
+    T_j, _, info_j = j_align(j_make(xyz, bucket=256), j_make(xyz2, bucket=256),
+                             jnp.eye(4), jp, **kw)
+    T_t, _, info_t = t_align(t_make(xyz, bucket=256, device="cpu"),
+                             t_make(xyz2, bucket=256, device="cpu"),
+                             np.eye(4, dtype=np.float32), tp, device="cpu", **kw)
+    assert info_t.nl_builder == "scan"
+    assert int(info_t.nl_overflow) == int(info_j.nl_overflow) == 0
+    assert float(np.max(np.abs(T_t.numpy() - np.asarray(T_j)))) < 8e-3
+
+
+def test_colour_sequence_ell_matches_jax_chain(monkeypatch):
+    """Two 4096-point pairs of the colour sequence with KITTI_COLOR_BENCH
+    and the DEFAULT backend, max_iter=300: the port resolves to 'ell' with
+    the grid builder and passes the list's channel factor to every flow
+    pass, as JAX routes it; poses against the same chain through JAX."""
+    from unified_cvo_tpu_torch.ops import ell as t_ell
+
+    seen = []
+    real = t_ell.flow_reduce
+
+    def spy(*a, chan=None, use_geometry=True, **kw):
+        seen.append(t_ell.variant(chan, use_geometry))
+        return real(*a, chan=chan, use_geometry=use_geometry, **kw)
+
+    monkeypatch.setattr(t_ell, "flow_reduce", spy)
+    n, max_iter = 4096, 300
+    frames, T_true, feats = f2f.make_sequence(n, 2, features=True)
+    guess = f2f.initial_guess()
+    res_t, infos = f2f.run_sequence(
+        [t_make(f, features=feats, bucket=n, device="cpu") for f in frames],
+        torch.from_numpy(guess), KITTI_COLOR_BENCH, device="cpu", max_iter=max_iter)
+    jp = JaxParams(**dataclasses.asdict(KITTI_COLOR_BENCH))
+    g = jnp.asarray(guess)
+    res_j = []
+    jf = [j_make(f, features=feats, bucket=n) for f in frames]
+    for k in range(2):
+        T, _, _ = j_align(jf[k], jf[k + 1], g, jp, max_iter=max_iter)
+        g = j_lie.rt_to_mat44(*j_lie.invert_rt(*j_lie.mat44_to_rt(T)))
+        res_j.append(np.asarray(T))
+    assert all((i.backend, i.nl_builder) == ("ell", "grid") for i in infos)
+    assert seen == ["geo_chan"] * sum(i.iterations for i in infos)
+    errs_t = f2f.pose_errors(res_t, T_true)
+    errs_j = f2f.pose_errors(res_j, T_true)
+    assert max(errs_t) < f2f.POSE_ERROR_BOUND and max(errs_j) < f2f.POSE_ERROR_BOUND
+    for T_j, T_t in zip(res_j, res_t):
+        assert _pose_gap(T_j, T_t.numpy()) < POSE_TOL
 
 
 def _bunny_case(moved):

@@ -8,10 +8,12 @@ frame with a varying motion; each pair is registered with the previous
 pair's result as its constant-velocity guess, without a host round trip
 between pairs.
 
-With per-point colour features and `KITTI_COLOR_BENCH`, `run_sequence(...,
-backend="pallas")` drives the dense tiled backend on the same sequence.
-`chip_smoke.py` drives both on the card; the CPU tests drive them with
-`device="cpu"` (the plain PyTorch versions of the kernels).
+With per-point colour features and `KITTI_COLOR_BENCH`, `run_sequence`
+drives the ELL path with the channel factor on the same sequence (the
+default backend, as JAX routes it) and `run_sequence(..., backend="pallas")`
+the dense tiled backend. `chip_smoke.py` drives them on the card; the CPU
+tests drive them with `device="cpu"` (the plain PyTorch versions of the
+kernels).
 """
 
 from __future__ import annotations

@@ -55,12 +55,9 @@ def neighbor_list_from_numpy(idx, valid, y_xyz, y_t_build, overflow,
     `device=None` means the card)."""
     device = resolve_device(device)
     f32 = torch.float32
-    if chan is not None:
-        raise NotImplementedError(
-            "channel factors are not ported yet (ROADMAP queue 1, item 4)")
     return NeighborList(
         idx=_t(idx, torch.int32, device), valid=_t(valid, torch.bool, device),
-        y_xyz=_t(y_xyz, f32, device), chan=None,
+        y_xyz=_t(y_xyz, f32, device), chan=_t(chan, f32, device),
         y_t_build=_t(y_t_build, f32, device),
         overflow=_t(overflow, torch.int32, device),
         pose_build=_t(pose_build, f32, device), r_max_t=_t(r_max_t, f32, device),

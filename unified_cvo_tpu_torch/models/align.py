@@ -10,9 +10,12 @@ Every backend runs the same iteration (align.py:396-537):
     6. indicator update; past ell_decay_start, ell decays when the two
        indicator windows agree (CvoGPU.cu:1509-1517)
 and differs in the two passes:
-  'ell'     a Verlet candidate list, rebuilt when the O(1) drift bound says
-            a target may have moved more than the skin since the build
-            (align.py:557-633; select, flow and step kernels on the card);
+  'ell'     a Verlet candidate list (grid or scan builder), rebuilt when
+            the O(1) drift bound says a target may have moved more than the
+            skin since the build, never without geometry (align.py:557-633;
+            select, flow and step kernels on the card); colour, semantic and
+            geometric-type channels enter as the list's build-time factor
+            `chan`;
   'pallas'  dense tiles over Morton-sorted clouds, with (source tile x
             target tile) pairs beyond the kernel support culled every
             iteration (align.py:324-364; dense flow and step kernels on the
@@ -21,7 +24,7 @@ and differs in the two passes:
 
 All state stays on the device. The loop is a Python loop that reads one
 small flag tensor back to the host per iteration (done, and on the ELL path
-drift), and counts those reads in AlignInfo.host_reads.
+with geometry drift), and counts those reads in AlignInfo.host_reads.
 
 Transform conventions follow the reference exactly: the loop state (R, T)
 starts at init_guess and the RETURNED transform is its inverse
@@ -47,9 +50,8 @@ from unified_cvo_tpu_torch.ops.poly import step_from_poly
 from unified_cvo_tpu_torch.utils.pointcloud import PointCloud
 
 ACVO_TODO = "adaptive ell (ACVO) is not ported yet (ROADMAP queue 1, item 5)"
-SCAN_TODO = ("the scan neighbor-list builder is not ported yet "
-             "(ROADMAP queue 1, item 4)")
 BACKENDS = ("auto", "ell", "pallas", "jnp")
+NL_BUILDERS = ("auto", "grid", "scan")
 
 
 class AlignInfo(NamedTuple):
@@ -63,35 +65,56 @@ class AlignInfo(NamedTuple):
     #   K / per-cell caps, max over builds (0 = the list was exact)
     nl_rebuilds: Optional[int] = None           # neighbor-list builds (>= 1)
     host_reads: int = 0                         # device-to-host flag reads
+    backend: Optional[str] = None               # the backend that ran
+    nl_builder: Optional[str] = None            # 'grid' or 'scan' on 'ell'
+
+
+def has_rank_channel(params) -> bool:
+    """Some channel ranks the ELL candidates: distance or a channel kernel."""
+    return bool(params.is_using_geometry or nbr.has_channels(params))
 
 
 def resolve_backend(params, source_cap: int, target_cap: int,
                     backend: str = "auto", device=None) -> str:
-    """The JAX package's backend policy (align.py:94-122) for what the port
-    runs: 'ell' for large clouds with a ranking channel; otherwise a dense
-    backend, 'jnp' for clouds under 4096 points and on the CPU, 'pallas'
-    else. What the port does not run yet raises NotImplementedError naming
-    its ROADMAP item."""
+    """The JAX package's backend policy (align.py:94-122): 'ell' for large
+    clouds with a ranking channel; otherwise a dense backend, 'jnp' for
+    clouds under 4096 points and on the CPU, 'pallas' else. ACVO raises
+    NotImplementedError naming its ROADMAP item; 'ell' without a ranking
+    channel raises ValueError, as in JAX (align.py:253-256)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; the port runs {BACKENDS}")
     if params.is_ell_adaptive:
         raise NotImplementedError(ACVO_TODO)
     if backend == "auto":
-        has_rank_channel = bool(params.is_using_geometry or nbr.has_channels(params))
-        if has_rank_channel and source_cap >= 4096 and target_cap >= 4096:
-            backend = "ell"
-        elif (device is not None and torch.device(device).type == "cpu") \
+        if has_rank_channel(params) and source_cap >= 4096 and target_cap >= 4096:
+            return "ell"
+        if (device is not None and torch.device(device).type == "cpu") \
                 or max(source_cap, target_cap) < 4096:
             return "jnp"
-        else:
-            return "pallas"
-    if backend == "ell":
-        if nbr.has_channels(params):
-            raise NotImplementedError(f"backend 'ell': {nbr.CHANNELS_TODO}")
-        if not params.is_using_geometry:
-            raise NotImplementedError(
-                f"the ELL path without the geometric channel needs the scan builder: {SCAN_TODO}")
+        return "pallas"
+    if backend == "ell" and not has_rank_channel(params):
+        raise ValueError("backend='ell' needs at least one kernel channel to rank "
+                         "candidates; use 'pallas' or 'jnp'")
     return backend
+
+
+def resolve_nl_builder(params, source_cap: int, target_cap: int,
+                       nl_builder: str = "auto") -> str:
+    """The JAX package's builder choice (align.py:257-277): the voxel grid
+    for geometric configurations whose support at ell_init is at most 2 m
+    with both clouds of at least 4096 points, the brute-force scan for
+    everything else. The grid needs geometry to bound its cells."""
+    if nl_builder not in NL_BUILDERS:
+        raise ValueError(f"unknown nl_builder {nl_builder!r}; one of {NL_BUILDERS}")
+    if nl_builder == "auto":
+        grid = (bool(params.is_using_geometry)
+                and nbr.static_support_radius(params) <= 2.0
+                and source_cap >= 4096 and target_cap >= 4096)
+        return "grid" if grid else "scan"
+    if nl_builder == "grid" and not params.is_using_geometry:
+        raise ValueError("nl_builder='grid' needs the geometric channel to bound the "
+                         "voxel cell size; use nl_builder='scan'")
+    return nl_builder
 
 
 class _Schedule:
@@ -152,7 +175,7 @@ def align(
     nl_k: Optional[int] = None,
     nl_skin: Optional[float] = None,
     nl_per_cell: Optional[int] = None,
-    nl_builder: str = "grid",
+    nl_builder: str = "auto",
     spatial_culling: bool = True,
     tile_i: Optional[int] = None,
     tile_j: Optional[int] = None,
@@ -163,8 +186,10 @@ def align(
     `init_guess` has the convention of CvoGPU::align's init_guess_transform
     (the inverse of the source->target prior). `device=None` means the card;
     clouds and guess are moved there. ret is -1 after a degenerate flow.
-    nl_* tune the ELL candidate list; spatial_culling, tile_i and tile_j the
-    'pallas' backend (defaults 128 x 512); chunk the 'jnp' backend."""
+    nl_* tune the ELL candidate list (nl_builder 'auto' picks 'grid' or
+    'scan' as JAX does); spatial_culling, tile_i and tile_j the 'pallas'
+    backend (defaults 128 x 512); chunk the 'jnp' backend and the scan
+    builder."""
     dev = resolve_device(device)
     backend = resolve_backend(params, source.capacity, target.capacity, backend, dev)
     max_iter = params.MAX_ITER if max_iter is None else max_iter
@@ -174,12 +199,15 @@ def align(
     sqrt_nxny = torch.sqrt(torch.clamp(source.num_valid * target.num_valid, min=1.0))
     st = _Schedule(params, guess[:3, :3], guess[:3, 3], sqrt_nxny, dev)
     if backend == "ell":
+        nl_builder = resolve_nl_builder(params, source.capacity, target.capacity,
+                                        nl_builder)
         k, host_reads, nl_overflow, rebuilds = _ell_loop(
-            st, source, target, max_iter, nl_k, nl_skin, nl_per_cell, nl_builder)
+            st, source, target, max_iter, nl_k, nl_skin, nl_per_cell, nl_builder,
+            chunk)
     else:
         k, host_reads = _dense_loop(st, source, target, max_iter, backend,
                                     spatial_culling, tile_i, tile_j, chunk)
-        nl_overflow = rebuilds = None
+        nl_overflow = rebuilds = nl_builder = None
     Rf, Tf = st.pose_inv()
     info = AlignInfo(
         iterations=k,
@@ -191,19 +219,21 @@ def align(
         nl_overflow=nl_overflow,
         nl_rebuilds=rebuilds,
         host_reads=host_reads,
+        backend=backend,
+        nl_builder=nl_builder,
     )
     return lie.rt_to_mat44(Rf, Tf), st.ret, info
 
 
 def _ell_loop(st: _Schedule, source, target, max_iter, nl_k, nl_skin,
-              nl_per_cell, nl_builder):
+              nl_per_cell, nl_builder, chunk):
     """Nested Verlet loops (align.py:557-633): the outer loop builds the
     candidate list at the current pose and ell, the inner loop iterates
-    until done, the cap, or drift. Returns (iterations, host reads,
-    overflow, builds)."""
-    if nl_builder != "grid":
-        raise NotImplementedError(f"nl_builder={nl_builder!r}: {SCAN_TODO}")
+    until done, the cap, or drift. Without geometry the kernel is
+    pose-independent: the list is built once and the drift bound is never
+    read. Returns (iterations, host reads, overflow, builds)."""
     params = st.params
+    use_geo = bool(params.is_using_geometry)
     nl_k = nbr.DEFAULT_K if nl_k is None else nl_k
     nl_skin = nbr.DEFAULT_SKIN if nl_skin is None else nl_skin
     nl_per_cell = nbr.PER_CELL_CAP if nl_per_cell is None else nl_per_cell
@@ -212,8 +242,12 @@ def _ell_loop(st: _Schedule, source, target, max_iter, nl_k, nl_skin,
     done = False
     while not done and k < max_iter:
         Rinv, Tinv = st.pose_inv()
-        nl = nbr.build_neighbor_list(params, st.ell, source, target, Rinv, Tinv,
-                                     k=nl_k, skin=nl_skin, per_cell_cap=nl_per_cell)
+        if nl_builder == "scan":
+            nl = nbr.build_neighbor_list_scan(params, st.ell, source, target, Rinv, Tinv,
+                                              k=nl_k, skin=nl_skin, chunk=chunk)
+        else:
+            nl = nbr.build_neighbor_list(params, st.ell, source, target, Rinv, Tinv,
+                                         k=nl_k, skin=nl_skin, per_cell_cap=nl_per_cell)
         nl_overflow = torch.maximum(nl_overflow, nl.overflow)
         rebuilds += 1
         drift = False
@@ -224,15 +258,18 @@ def _ell_loop(st: _Schedule, source, target, max_iter, nl_k, nl_skin,
             xp = ell_ops.pack_x(params, st.ell, source)
             twist, joint_norm, nz, asum, A = ell_ops.flow_reduce(
                 xp, nl.y_xyz, ell_ops.pack_scalars(params, Rinv, Tinv),
-                params.c, params.d)
+                params.c, params.d, chan=nl.chan, use_geometry=use_geo)
             coeffs = ell_ops.step_cached(
                 xp, nl.y_xyz, A, ell_ops.pack_scalars(params, Rinv, Tinv, twist))
             finished = st.advance(k, twist, joint_norm, nz, asum, coeffs)
             k += 1
-            Rinv, Tinv = st.pose_inv()
-            flags = torch.stack(
-                [finished, nbr.drift_bound_exceeded(nl, Rinv, Tinv, nl_skin)])
-            done, drift = flags.tolist()
+            if use_geo:
+                Rinv, Tinv = st.pose_inv()
+                flags = torch.stack(
+                    [finished, nbr.drift_bound_exceeded(nl, Rinv, Tinv, nl_skin)])
+                done, drift = flags.tolist()
+            else:
+                done = bool(finished)
             host_reads += 1
     return k, host_reads, nl_overflow, rebuilds
 

@@ -1,13 +1,25 @@
-"""Consume passes of the ELL hot loop: the flow pass that computes the
-kernel matrix A and reduces the flow moments, and the step pass that reads
-A back and reduces the quartic step coefficients B..E.
+"""Consume passes of the ELL hot loop and their entry points: the flow pass
+that computes the kernel matrix A and reduces the flow moments, the step
+pass that reads A back and reduces the quartic step coefficients B..E, and
+the two passes that recompute A themselves (per-point flow rows, uncached
+step).
 
-`flow_reduce` replaces unified_cvo_tpu/ops/pallas_ell.py::_flow_reduce_kernel
-(flow_twist_ell_fused with emit_a=True) and `step_cached` replaces
-_step_kernel_cached with _step_tail (step_coeffs_ell_fused_cached). On a
-CUDA tensor each launches its kernel in csrc/ell.cu; on a CPU tensor each
-runs its plain PyTorch version below, which is also the oracle the card's
-kernels are held against.
+  `flow_reduce`   replaces unified_cvo_tpu/ops/pallas_ell.py::
+                  _flow_reduce_kernel (flow_twist_ell_fused, emit_a=True);
+  `step_cached`   replaces _step_kernel_cached with _step_tail
+                  (step_coeffs_ell_fused_cached);
+  `flow_rows`     replaces _flow_kernel (flow_stats_ell_fused);
+  `step_uncached` replaces _step_kernel with reduced=True
+                  (step_coeffs_ell_fused).
+
+On a CUDA tensor each launches its kernel in csrc/ell.cu; on a CPU tensor
+each runs its plain PyTorch version below, which is also the oracle the
+card's kernels are held against. The passes that evaluate A come in the
+three variants of pallas_ell._transform_and_a: geometry only ("geo"),
+geometry times the channel factor ("geo_chan") and the channel factor
+alone ("chan", from a scan list built without geometry). Each wrapper
+counts its launches in total (`launches`) and per variant
+(`variant_launches`).
 
 Inputs are the JAX package's packed layout: `pack_x` [6, N] per-point rows
 for the current ell and `pack_scalars` [32] pose and twist scalars, built on
@@ -22,7 +34,7 @@ import torch
 
 from unified_cvo_tpu_torch.ops import cuda_lib
 from unified_cvo_tpu_torch.ops import lie
-from unified_cvo_tpu_torch.ops.kernels import geometric_constants, range_ell
+from unified_cvo_tpu_torch.ops.kernels import FlowStats, geometric_constants, range_ell
 from unified_cvo_tpu_torch.utils.pointcloud import PointCloud
 
 # x-pack rows
@@ -31,6 +43,18 @@ X0, X1, X2, THRES, NEGI2L2, COEF = range(6)
 S_RINV, S_TINV, S_SIGMA2, S_SP, S_OM2, S_VV = 0, 9, 12, 13, 14, 15
 S_OMEGA, S_V, S_WV, S_C2 = 16, 19, 22, 25
 S_VWV, S_WV2, S_VC2, S_VOM, S_LEN = 28, 29, 30, 31, 32
+# kernel variants, in the order of csrc/ell.cu's variant codes
+VARIANTS = ("geo", "geo_chan", "chan")
+
+
+def variant(chan, use_geometry: bool) -> str:
+    """The variant of the A evaluation for this channel factor and switch."""
+    if use_geometry:
+        return "geo" if chan is None else "geo_chan"
+    if chan is None:
+        raise ValueError("an ELL pass needs the geometric channel or a channel "
+                         "factor to evaluate the kernel")
+    return "chan"
 
 
 def pack_x(params, ell, x: PointCloud) -> torch.Tensor:
@@ -79,17 +103,38 @@ def _y_t(y_xyz, scal):
             + y_xyz[2] * R[3 * c + 2] + T[c] for c in range(3)]
 
 
-def flow_reduce_plain(xp, y_xyz, scal, c: float, d: float):
+def _kernel_a(x, yt, scal, chan, use_geometry: bool):
+    """Gated kernel values A [K, N] from [1, N] x rows and 3 x [K, N]
+    moved slots (pallas_ell._transform_and_a): ok = chan > 0, a = chan;
+    under geometry a = a * kgeo and ok &= d2 < thres; then A = a where
+    ok and a > sp, else 0. Dead slots carry DEAD_COORD coordinates, so the
+    distance gate is false there and kgeo underflows to 0; without geometry
+    the channel factor (built with the slots' validity folded in) is 0
+    there."""
+    variant(chan, use_geometry)
+    ok, a = None, None
+    if chan is not None:
+        ok, a = chan > 0, chan
+    if use_geometry:
+        d2 = (x[X0] - yt[0]) ** 2 + (x[X1] - yt[1]) ** 2 + (x[X2] - yt[2]) ** 2
+        kgeo = scal[S_SIGMA2] * torch.exp(d2 * x[NEGI2L2])
+        gate = d2 < x[THRES]
+        ok = gate if ok is None else ok & gate
+        a = kgeo if a is None else a * kgeo
+    return torch.where(ok & (a > scal[S_SP]), a, torch.zeros_like(a))
+
+
+def _rows(xp):
+    return [xp[r:r + 1] for r in range(6)]                  # [1, N] rows
+
+
+def flow_reduce_plain(xp, y_xyz, scal, c: float, d: float, chan=None,
+                      use_geometry: bool = True):
     """Plain version of the flow kernel: (unit twist [6], joint_norm,
     nonzeros, a_sum, A [K, N]) as pallas_ell.flow_twist_ell_fused returns
     them with emit_a=True."""
-    x = [xp[r:r + 1] for r in range(6)]                     # [1, N] rows
     yt = _y_t(y_xyz, scal)
-    d2 = (x[X0] - yt[0]) ** 2 + (x[X1] - yt[1]) ** 2 + (x[X2] - yt[2]) ** 2
-    kgeo = scal[S_SIGMA2] * torch.exp(d2 * x[NEGI2L2])
-    # dead slots carry DEAD_COORD coordinates: the gate is false there
-    a = torch.where((d2 < x[THRES]) & (kgeo > scal[S_SP]), kgeo,
-                    torch.zeros_like(kgeo))
+    a = _kernel_a(_rows(xp), yt, scal, chan, use_geometry)
     s = torch.sum(a, dim=0)
     wy = [torch.sum(a * yt[i], dim=0) for i in range(3)]
     xr = [xp[i] for i in range(3)]
@@ -104,10 +149,22 @@ def flow_reduce_plain(xp, y_xyz, scal, c: float, d: float):
     return unit, jn, nz, torch.sum(s), a
 
 
+def flow_rows_plain(xp, y_xyz, scal, chan=None, use_geometry: bool = True):
+    """Plain version of the row-flow kernel (pallas_ell._flow_kernel): per
+    point s [N] = sum_k A, wy [3, N] = sum_k A y_t and cnt [N] int32 of
+    A > 0, then nonzeros (int32) and a_sum over the points."""
+    yt = _y_t(y_xyz, scal)
+    a = _kernel_a(_rows(xp), yt, scal, chan, use_geometry)
+    s = torch.sum(a, dim=0)
+    wy = torch.stack([torch.sum(a * yt[i], dim=0) for i in range(3)])
+    cnt = torch.sum(a > 0, dim=0).to(torch.int32)
+    return s, wy, cnt, torch.sum(cnt).to(torch.int32), torch.sum(s)
+
+
 def step_cached_plain(xp, y_xyz, a, scal) -> torch.Tensor:
     """Plain version of the step kernel: [4] = (B, C, D, E) from the cached
     kernel matrix `a` (pallas_ell._step_kernel_cached + _step_tail)."""
-    x = [xp[r:r + 1] for r in range(6)]
+    x = _rows(xp)
     # zero y_t where A == 0: dead slots carry DEAD_COORD and beta^4 of a
     # 1e9-scale value is inf, which 0 * inf would turn into NaN
     y = [torch.where(a > 0, yc, torch.zeros_like(yc)) for yc in _y_t(y_xyz, scal)]
@@ -153,7 +210,15 @@ def step_cached_plain(xp, y_xyz, a, scal) -> torch.Tensor:
     ])
 
 
-def _common_checks(xp, y_xyz, scal, who):
+def step_uncached_plain(xp, y_xyz, scal, chan=None, use_geometry: bool = True):
+    """Plain version of the uncached step kernel (pallas_ell._step_kernel,
+    reduced): A recomputed as the flow pass computes it, then the step tail
+    of `step_cached_plain`."""
+    a = _kernel_a(_rows(xp), _y_t(y_xyz, scal), scal, chan, use_geometry)
+    return step_cached_plain(xp, y_xyz, a, scal)
+
+
+def _common_checks(xp, y_xyz, scal, chan, who):
     if y_xyz.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {y_xyz.device}")
     dev = y_xyz.device
@@ -161,15 +226,41 @@ def _common_checks(xp, y_xyz, scal, who):
     cuda_lib.check_tensor(y_xyz, "y_xyz", torch.float32, (3, K, N), dev, who)
     cuda_lib.check_tensor(xp, "xp", torch.float32, (6, N), dev, who)
     cuda_lib.check_tensor(scal, "scal", torch.float32, (S_LEN,), dev, who)
+    if chan is not None:
+        cuda_lib.check_tensor(chan, "chan", torch.float32, (K, N), dev, who)
     return dev, K, N
 
 
-def flow_reduce(xp, y_xyz, scal, c: float, d: float):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _counted(fn, v=None):
+    fn.launches += 1
+    if v is not None:
+        fn.variant_launches[v] += 1
+
+
+def reset_launches():
+    """Set every launch count of this module to 0."""
+    for fn in (flow_reduce, step_cached, flow_rows, step_uncached):
+        fn.launches = 0
+    for fn in (flow_reduce, flow_rows, step_uncached):
+        fn.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+def flow_reduce(xp, y_xyz, scal, c: float, d: float, chan=None,
+                use_geometry: bool = True):
     """Flow pass: (unit twist [6], joint_norm, nonzeros, a_sum, A [K, N]).
     The CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    v = variant(chan, use_geometry)
     if y_xyz.device.type == "cpu":
-        return flow_reduce_plain(xp, y_xyz, scal, c, d)
-    dev, K, N = _common_checks(xp, y_xyz, scal, "flow_reduce")
+        return flow_reduce_plain(xp, y_xyz, scal, c, d, chan, use_geometry)
+    dev, K, N = _common_checks(xp, y_xyz, scal, chan, "flow_reduce")
     lib = _lib()
     nb = lib.cvo_ell_blocks(N)
     A = torch.empty((K, N), dtype=torch.float32, device=dev)
@@ -178,37 +269,95 @@ def flow_reduce(xp, y_xyz, scal, c: float, d: float):
     out = torch.empty((8,), dtype=torch.float32, device=dev)
     nz = torch.empty((1,), dtype=torch.int32, device=dev)
     err = lib.cvo_flow_reduce(
-        xp.data_ptr(), y_xyz.data_ptr(), scal.data_ptr(), A.data_ptr(),
+        xp.data_ptr(), y_xyz.data_ptr(), _ptr(chan), scal.data_ptr(), A.data_ptr(),
         part.data_ptr(), part_cnt.data_ptr(), out.data_ptr(), nz.data_ptr(),
-        N, K, float(c), float(d), torch.cuda.current_stream(dev).cuda_stream)
+        N, K, float(c), float(d), VARIANTS.index(v), _stream(dev))
     cuda_lib.check(err, "flow_reduce kernel launch")
-    flow_reduce.launches += 1
+    _counted(flow_reduce, v)
     return out[:6], out[6], nz[0], out[7], A
 
 
-flow_reduce.launches = 0
-
-
 def step_cached(xp, y_xyz, a, scal) -> torch.Tensor:
-    """Step pass from the cached kernel matrix: [4] = (B, C, D, E).
+    """Step pass from the cached kernel matrix: [4] = (B, C, D, E). Channels
+    entered through A, so none is taken here (as _step_kernel_cached).
     The CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if y_xyz.device.type == "cpu":
         return step_cached_plain(xp, y_xyz, a, scal)
-    dev, K, N = _common_checks(xp, y_xyz, scal, "step_cached")
+    dev, K, N = _common_checks(xp, y_xyz, scal, None, "step_cached")
     cuda_lib.check_tensor(a, "a", torch.float32, (K, N), dev, "step_cached")
     lib = _lib()
     part = torch.empty((lib.cvo_ell_blocks(N), 4), dtype=torch.float32, device=dev)
     out = torch.empty((4,), dtype=torch.float32, device=dev)
     err = lib.cvo_step_cached(
         xp.data_ptr(), y_xyz.data_ptr(), a.data_ptr(), scal.data_ptr(),
-        part.data_ptr(), out.data_ptr(), N, K,
-        torch.cuda.current_stream(dev).cuda_stream)
+        part.data_ptr(), out.data_ptr(), N, K, _stream(dev))
     cuda_lib.check(err, "step_cached kernel launch")
-    step_cached.launches += 1
+    _counted(step_cached)
     return out
 
 
-step_cached.launches = 0
+def flow_rows(xp, y_xyz, scal, chan=None, use_geometry: bool = True):
+    """Row-flow pass: (s [N], wy [3, N], cnt [N] int32, nonzeros, a_sum).
+    The CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    v = variant(chan, use_geometry)
+    if y_xyz.device.type == "cpu":
+        return flow_rows_plain(xp, y_xyz, scal, chan, use_geometry)
+    dev, K, N = _common_checks(xp, y_xyz, scal, chan, "flow_rows")
+    lib = _lib()
+    nb = lib.cvo_ell_blocks(N)
+    s = torch.empty((N,), dtype=torch.float32, device=dev)
+    wy = torch.empty((3, N), dtype=torch.float32, device=dev)
+    cnt = torch.empty((N,), dtype=torch.int32, device=dev)
+    part = torch.empty((nb,), dtype=torch.float32, device=dev)
+    part_cnt = torch.empty((nb,), dtype=torch.int32, device=dev)
+    asum = torch.empty((1,), dtype=torch.float32, device=dev)
+    nz = torch.empty((1,), dtype=torch.int32, device=dev)
+    err = lib.cvo_flow_rows(
+        xp.data_ptr(), y_xyz.data_ptr(), _ptr(chan), scal.data_ptr(), s.data_ptr(),
+        wy.data_ptr(), cnt.data_ptr(), part.data_ptr(), part_cnt.data_ptr(),
+        asum.data_ptr(), nz.data_ptr(), N, K, VARIANTS.index(v), _stream(dev))
+    cuda_lib.check(err, "flow_rows kernel launch")
+    _counted(flow_rows, v)
+    return s, wy, cnt, nz[0], asum[0]
+
+
+def step_uncached(xp, y_xyz, scal, chan=None, use_geometry: bool = True) -> torch.Tensor:
+    """Uncached step pass: A recomputed, then [4] = (B, C, D, E).
+    The CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    v = variant(chan, use_geometry)
+    if y_xyz.device.type == "cpu":
+        return step_uncached_plain(xp, y_xyz, scal, chan, use_geometry)
+    dev, K, N = _common_checks(xp, y_xyz, scal, chan, "step_uncached")
+    lib = _lib()
+    part = torch.empty((lib.cvo_ell_blocks(N), 4), dtype=torch.float32, device=dev)
+    out = torch.empty((4,), dtype=torch.float32, device=dev)
+    err = lib.cvo_step_uncached(
+        xp.data_ptr(), y_xyz.data_ptr(), _ptr(chan), scal.data_ptr(), part.data_ptr(),
+        out.data_ptr(), N, K, VARIANTS.index(v), _stream(dev))
+    cuda_lib.check(err, "step_uncached kernel launch")
+    _counted(step_uncached, v)
+    return out
+
+
+reset_launches()
+
+
+def flow_stats_ell_fused(params, ell, x: PointCloud, nl, R_inv, T_inv) -> FlowStats:
+    """pallas_ell.flow_stats_ell_fused's entry point: the row-flow pass on a
+    neighbor list, as FlowStats (row_wy [N, 3])."""
+    s, wy, _, nz, asum = flow_rows(pack_x(params, ell, x), nl.y_xyz,
+                                   pack_scalars(params, R_inv, T_inv), nl.chan,
+                                   bool(params.is_using_geometry))
+    return FlowStats(row_sum=s, row_wy=wy.T, nonzeros=nz, a_sum=asum)
+
+
+def step_coeffs_ell_fused(params, ell, x: PointCloud, nl, R_inv, T_inv, twist):
+    """pallas_ell.step_coeffs_ell_fused's entry point: the uncached step
+    pass on a neighbor list, as (B, C, D, E)."""
+    bcde = step_uncached(pack_x(params, ell, x), nl.y_xyz,
+                         pack_scalars(params, R_inv, T_inv, twist), nl.chan,
+                         bool(params.is_using_geometry))
+    return bcde[0], bcde[1], bcde[2], bcde[3]
 
 
 def _lib():
@@ -217,9 +366,13 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cvo_ell_blocks.argtypes = [I]
         lib.cvo_ell_blocks.restype = I
-        lib.cvo_flow_reduce.argtypes = [P, P, P, P, P, P, P, P, I, I, F, F, P]
+        lib.cvo_flow_reduce.argtypes = [P, P, P, P, P, P, P, P, P, I, I, F, F, I, P]
         lib.cvo_flow_reduce.restype = I
         lib.cvo_step_cached.argtypes = [P, P, P, P, P, P, I, I, P]
         lib.cvo_step_cached.restype = I
+        lib.cvo_flow_rows.argtypes = [P, P, P, P, P, P, P, P, P, P, P, I, I, I, P]
+        lib.cvo_flow_rows.restype = I
+        lib.cvo_step_uncached.argtypes = [P, P, P, P, P, P, I, I, I, P]
+        lib.cvo_step_uncached.restype = I
         lib._argtypes_set = True
     return lib

@@ -1,17 +1,23 @@
-"""Verlet-style ELL neighbor lists (port of unified_cvo_tpu/ops/neighbors.py,
-grid builder and plain consume passes).
+"""Verlet-style ELL neighbor lists (port of unified_cvo_tpu/ops/neighbors.py:
+the grid and scan builders, the channel factor and the plain consume
+passes).
 
-build (rare):  bucket the pose-moved targets into a dense voxel table
-               (cell >= support + skin per axis), and for each source point
-               keep the K nearest targets of its 27-cell pool within
-               r_i + skin (ops/select.py: a CUDA kernel on the card);
+build (rare):  grid builder: bucket the pose-moved targets into a dense
+               voxel table (cell >= support + skin per axis), and for each
+               source point keep the K nearest targets of its 27-cell pool
+               within r_i + skin (ops/select.py: a CUDA kernel on the card);
+               scan builder: a chunked N x M scan with a running top-K
+               merge, for any support radius and cloud size, ranked by the
+               channel kernel value when geometry is off. Both then gather
+               the pose-independent channel factor `chan` once per build;
 consume (hot): per-slot kernel, flow and step math over the K-major
                [K, N] slots (ops/ell.py: CUDA kernels on the card; the
                plain passes below are the JAX package's jnp twins);
 validity:      the list stays a superset of the kernel support while every
                target has drifted less than `skin` since the build and ell
                has only decayed; align checks an O(1) drift bound each
-               iteration and rebuilds when it fires.
+               iteration and rebuilds when it fires. Without geometry the
+               kernel is pose-independent and the list is never rebuilt.
 
 Per-candidate fields are K-major ([K, N], components leading: [3, K, N]):
 with N contiguous, a thread per source point reads coalesced.
@@ -29,7 +35,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from unified_cvo_tpu_torch.ops import select as select_ops
-from unified_cvo_tpu_torch.ops.kernels import FlowStats, geometric_constants, range_ell
+from unified_cvo_tpu_torch.ops.kernels import (
+    DEFAULT_CHUNK, FlowStats, channel_constants, geometric_constants, kernel_block,
+    pad_cloud_to_multiple, range_ell, _slice_cloud)
 from unified_cvo_tpu_torch.ops import lie
 from unified_cvo_tpu_torch.utils.pointcloud import PointCloud
 
@@ -39,9 +47,6 @@ DEAD_COORD = select_ops.DEAD_COORD   # dead-slot coordinate sentinel
 GRID_DIMS = (64, 32, 64)  # static voxel grid (131072 cells)
 PER_CELL_CAP = 8          # targets stored per cell before the exact filter
 
-CHANNELS_TODO = ("intensity, semantic and geometric-type channels are not "
-                 "ported yet (ROADMAP queue 1, item 4: the channel kernel)")
-
 
 class NeighborList(NamedTuple):
     """Static-shape candidate list with the raw target coordinates."""
@@ -49,8 +54,9 @@ class NeighborList(NamedTuple):
     idx: torch.Tensor                 # [K, N] int32 target index, -1 pad
     valid: torch.Tensor               # [K, N] bool
     y_xyz: torch.Tensor               # [3, K, N] RAW target xyz, DEAD_COORD pad
-    chan: Optional[torch.Tensor]      # pose-independent channel factor; None
-    #   while only the geometric channel is ported
+    chan: Optional[torch.Tensor]      # [K, N] pose-independent factor of the
+    #   colour, semantic and geometric-type kernels with their gates folded
+    #   in as exact zeros; None when only the geometric channel is on
     y_t_build: torch.Tensor           # [M, 3] transformed target at build
     overflow: torch.Tensor            # [] int32: candidates dropped by the caps
     pose_build: Optional[torch.Tensor] = None  # [12] (R_inv | T_inv) at build
@@ -76,6 +82,14 @@ def support_radius(params, ell, x: PointCloud) -> torch.Tensor:
     l_i = range_ell(ell, _norm(x.xyz))
     d2_thres = -2.0 * l_i * l_i * log_term
     return torch.sqrt(torch.clamp(d2_thres, min=0.0))
+
+
+def static_support_radius(params) -> float:
+    """Upper estimate of the support radius at ell_init for a ~55 m range
+    envelope: the input of align's builder choice (neighbors.py:117-125)."""
+    sigma2 = float(params.sigma) ** 2
+    arg = max(sigma2 / float(params.sp_thres), 1.0 + 1e-6)
+    return (55.0 / 500.0 + 1.0) * float(params.ell_init) * math.sqrt(2.0 * math.log(arg))
 
 
 def transform_cols(xyz, R_inv, T_inv) -> torch.Tensor:
@@ -121,8 +135,6 @@ def grid_inputs(
     the align loop applies) and bucketed into a dense voxel table whose
     per-axis cell size is >= max_i(r_i) + skin, so a source point's 27-cell
     neighbourhood covers its whole candidate ball."""
-    if has_channels(params):
-        raise NotImplementedError(CHANNELS_TODO)
     f32 = torch.float32
     dev = x.xyz.device
     M = target.capacity
@@ -198,7 +210,8 @@ def build_neighbor_list(
     grid_dims: Tuple[int, int, int] = GRID_DIMS,
 ) -> NeighborList:
     """Grid-bucketed candidate list: `grid_inputs`, then the K nearest
-    within r_i + skin of each source point (`select_ops.select`)."""
+    within r_i + skin of each source point (`select_ops.select`), then the
+    channel factor of the kept slots."""
     g = grid_inputs(params, ell, x, target, R_inv, T_inv, skin, per_cell_cap,
                     grid_dims)
     idx, y_xyz, kept = select_ops.select(g.tab, g.cbase, g.xr2, g.pose, k,
@@ -209,7 +222,7 @@ def build_neighbor_list(
         idx=idx,
         valid=valid,
         y_xyz=y_xyz,
-        chan=None,
+        chan=_build_chan(params, x, target, idx, valid),
         y_t_build=g.y_t,
         overflow=overflow,
         pose_build=g.pose,
@@ -228,6 +241,131 @@ def _k_lin(params, x: PointCloud):
 def _r_max(target: PointCloud):
     n2 = torch.sum(target.xyz * target.xyz, dim=-1)
     return torch.sqrt(torch.amax(torch.where(target.mask > 0, n2, torch.zeros_like(n2))))
+
+
+def _gather_slots(a, idx):
+    """Per-slot rows of a target field: [F, K, N] from a [M, F] array and
+    K-major idx (dead slots read row 0; the caller masks them)."""
+    if a is None:
+        return None
+    g = a[torch.clamp(idx, min=0).reshape(-1).long()]       # [K*N, F]
+    return g.T.reshape(a.shape[1], idx.shape[0], idx.shape[1])
+
+
+def _build_chan(params, x: PointCloud, target: PointCloud, idx, valid):
+    return _channel_kernel(
+        params, x, valid,
+        _gather_slots(target.features if params.is_using_intensity else None, idx),
+        _gather_slots(target.labels if params.is_using_semantics else None, idx),
+        _gather_slots(target.geometric_types if params.is_using_geometric_type
+                      else None, idx))
+
+
+def _channel_kernel(params, x: PointCloud, valid, y_feat, y_label, y_geo):
+    """Pose-independent kernel factor per slot (neighbors.py:530-574): the
+    colour and semantic kernels and the geometric-type cosine^2 gate of
+    fill_in_A_mat_gpu (CvoGPU.cu:477-593) with their distance gates folded
+    in as exact zeros. K-major [K, N], or None when no such channel is on.
+    Every sum runs in the JAX package's order, so the values agree to f32
+    rounding and the gates decide alike."""
+    a = None
+    ok = valid
+
+    def col(arr, c):
+        return arr[:, c][None, :]
+
+    if params.is_using_geometric_type:
+        xg = x.geometric_types
+        dot = col(xg, 0) * y_geo[0] + col(xg, 1) * y_geo[1]
+        n2 = torch.sum(xg * xg, -1)[None, :] * (y_geo[0] * y_geo[0] + y_geo[1] * y_geo[1])
+        geo = dot * dot / torch.clamp(n2, min=1e-12)
+        ok = ok & (geo >= 0.01)
+        a = geo
+
+    for on, xf, yf, ell_c, sigma_c in (
+            (params.is_using_intensity, x.features, y_feat, params.c_ell, params.c_sigma),
+            (params.is_using_semantics, x.labels, y_label, params.s_ell, params.s_sigma)):
+        if not on:
+            continue
+        sig2, thres, two_ell2 = channel_constants(ell_c, sigma_c, params.sp_thres)
+        d2 = (col(xf, 0) - yf[0]) ** 2
+        for f in range(1, xf.shape[1]):
+            d2 = d2 + (col(xf, f) - yf[f]) ** 2
+        ok = ok & (d2 < thres)
+        k = sig2 * torch.exp(-d2 / two_ell2)
+        a = k if a is None else a * k
+
+    if a is None:
+        return None
+    return torch.where(ok, a, torch.zeros_like(a))
+
+
+def build_neighbor_list_scan(
+    params,
+    ell,
+    x: PointCloud,
+    target: PointCloud,
+    R_inv,
+    T_inv,
+    k: int = DEFAULT_K,
+    skin: float = DEFAULT_SKIN,
+    chunk: int = DEFAULT_CHUNK,
+) -> NeighborList:
+    """Brute-force chunked top-K candidate list (neighbors.py:442-527): one
+    dense N x M scan per build, streamed over target chunks with a running
+    top-K merge. Sound for any support radius and cloud size.
+
+    Geometry on: candidates within r_i + skin, nearest first. Geometry off:
+    the kernel is pose-independent, candidates are ranked by the channel
+    kernel value (strongest first) and the list is exact for the whole
+    solve. Each merge sorts [kept | chunk] stably, as JAX's sort keeps the
+    earlier entries first on ties."""
+    f32 = torch.float32
+    dev = x.xyz.device
+    N, M = x.capacity, target.capacity
+    chunk = min(chunk, M)
+    tgt = pad_cloud_to_multiple(target, chunk)
+    y_t_full = transform_cols(tgt.xyz, R_inv, T_inv)         # [Mp, 3]
+    use_geom = bool(params.is_using_geometry)
+    if use_geom:
+        r2 = ((support_radius(params, ell, x) + skin) ** 2)[:, None]
+    key = torch.full((N, k), math.inf, dtype=f32, device=dev)
+    idx = torch.full((N, k), -1, dtype=torch.int32, device=dev)
+    nkeep = torch.zeros((), dtype=torch.int64, device=dev)
+    for lo in range(0, tgt.capacity, chunk):
+        if use_geom:
+            d2 = torch.zeros((N, chunk), dtype=f32, device=dev)
+            for c in range(3):
+                diff = x.xyz[:, c, None] - y_t_full[lo:lo + chunk, c][None, :]
+                d2 = d2 + diff * diff
+            keep = ((d2 <= r2) & (tgt.mask[lo:lo + chunk][None, :] > 0)
+                    & (x.mask[:, None] > 0))
+            kb = torch.where(keep, d2, torch.full_like(d2, math.inf))
+        else:
+            a = kernel_block(params, ell, x, _slice_cloud(tgt, lo, chunk))
+            kb = torch.where(a > 0, -a, torch.full_like(a, math.inf))
+        cols = torch.arange(lo, lo + chunk, dtype=torch.int32, device=dev).expand(N, chunk)
+        ck, order = torch.sort(torch.cat([key, kb], dim=1), dim=1, stable=True)
+        ci = torch.gather(torch.cat([idx, cols], dim=1), 1, order)
+        key, idx = ck[:, :k], ci[:, :k]
+        nkeep = nkeep + torch.sum(torch.isfinite(kb))
+    valid = torch.isfinite(key).T.contiguous()               # [K, N]
+    idx = torch.where(valid, idx.T, -1).to(torch.int32).contiguous()
+    overflow = (nkeep - torch.sum(valid)).to(torch.int32)
+    y_xyz = torch.where(valid[None], _gather_slots(tgt.xyz, idx),
+                        torch.full((), DEAD_COORD, dtype=f32, device=dev)).contiguous()
+    return NeighborList(
+        idx=idx,
+        valid=valid,
+        y_xyz=y_xyz,
+        chan=_build_chan(params, x, tgt, idx, valid),
+        y_t_build=y_t_full[:M],
+        overflow=overflow,
+        pose_build=torch.cat([R_inv.reshape(9), T_inv]).to(f32),
+        r_max_t=_r_max(tgt),
+        ell_build=torch.as_tensor(ell, dtype=f32).to(dev),
+        k_lin=_k_lin(params, x),
+    )
 
 
 def drift_bound_exceeded(nl: NeighborList, R_inv, T_inv, skin: float):
@@ -250,18 +388,24 @@ def _slots_t(nl: NeighborList, R_inv, T_inv):
 def kernel_slots(params, ell, x: PointCloud, y_t_slots, nl: NeighborList):
     """[K, N] kernel values: slot-wise transcription of kernel_block
     (fill_in_A_mat_gpu, CvoGPU.cu:477-593) with identical gates; dead and
-    masked slots are exactly 0. Geometric channel only."""
-    if nl.chan is not None or has_channels(params):
-        raise NotImplementedError(CHANNELS_TODO)
+    masked slots are exactly 0. Only the geometric factor is evaluated
+    here; the other channels arrive precomputed in nl.chan
+    (neighbors.py:640-668)."""
     sigma2, sp, log_term = geometric_constants(params)
+    a = None
     ok = nl.valid & (x.mask[None, :] > 0)
-    if not params.is_using_geometry:
+    if nl.chan is not None:
+        ok = ok & (nl.chan > 0)
+        a = nl.chan
+    if params.is_using_geometry:
+        d2 = sum((x.xyz[:, c][None, :] - y_t_slots[c]) ** 2 for c in range(3))
+        l_i = range_ell(ell, _norm(x.xyz))[None, :]
+        two_l2 = 2.0 * l_i * l_i
+        ok = ok & (d2 < -two_l2 * log_term)
+        kgeo = sigma2 * torch.exp(-d2 / two_l2)
+        a = kgeo if a is None else a * kgeo
+    if a is None:
         return torch.where(ok, torch.ones_like(y_t_slots[0]), torch.zeros_like(y_t_slots[0]))
-    d2 = sum((x.xyz[:, c][None, :] - y_t_slots[c]) ** 2 for c in range(3))
-    l_i = range_ell(ell, _norm(x.xyz))[None, :]
-    two_l2 = 2.0 * l_i * l_i
-    ok = ok & (d2 < -two_l2 * log_term)
-    a = sigma2 * torch.exp(-d2 / two_l2)
     return torch.where(ok & (a > sp), a, torch.zeros_like(a))
 
 
