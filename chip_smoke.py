@@ -21,7 +21,13 @@ Phase 2c also holds flow_rows and step_uncached (the entry points of
 pallas_ell.flow_stats_ell_fused and step_coeffs_ell_fused, which no align
 path calls, as in JAX) against their plain versions in every variant.
 
-Usage: python3 chip_smoke.py [--frames 8]
+Phase 2b launches each dense kernel twice for bit-equal outputs and checks
+it on three compactions (culled, one source tile emptied, every pair
+active). `--dense-ablation` stops after phases 1 and 2b and also times
+measurement builds of csrc/dense.cu (no first look at the geometric gate,
+no queue of survivors, no overlap of staging, nothing fused); it prints no result line.
+
+Usage: python3 chip_smoke.py [--frames 8] [--dense-ablation]
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails. The last line of stdout is the result object.
 """
@@ -207,15 +213,96 @@ def dense_pair_ops(lo, step: bool) -> int:
     return ops + (59 if step else 8)               # step tail / flow moments
 
 
-def check_dense_kernels(frames_np, feats, guess_np, dev, results):
+GATE_OPS = 10   # d2 (3 subtractions, 3 products, 3 additions) and its comparison
+
+
+def dense_ops(lo, pairs: int, gated: int, step: bool) -> int:
+    """Operations this run's data needs: a pair that fails the geometric
+    gate is zero whatever its channels say, so it needs the gate alone;
+    the `gated` pairs that pass need all of dense_pair_ops."""
+    per = dense_pair_ops(lo, step)
+    if not lo.use_geometry:
+        return pairs * per
+    return pairs * GATE_OPS + gated * (per - GATE_OPS)
+
+
+def dense_agree(dense, params, lo, xp, yp, yp_t, comp, ti, tj, label):
+    """dense_flow and dense_step against their plain versions on one
+    compaction, each launched twice: the two launches must be bit-equal.
+    Raises SystemExit on any disagreement."""
+    fk = dense.dense_flow(params, lo, xp, yp, comp, ti, tj)
+    fk2 = dense.dense_flow(params, lo, xp, yp, comp, ti, tj)
+    fp = dense.dense_flow_plain(params, lo, xp, yp, comp, ti, tj)
+    bk = dense.dense_step(params, lo, xp, yp_t, comp, ti, tj)
+    bk2 = dense.dense_step(params, lo, xp, yp_t, comp, ti, tj)
+    bp = dense.dense_step_plain(params, lo, xp, yp_t, comp, ti, tj)
+    torch.cuda.synchronize()
+    s_ok = torch.allclose(fk[0], fp[0], rtol=1e-5, atol=1e-7)
+    wy_ok = torch.allclose(fk[1], fp[1], rtol=1e-5, atol=1e-6)
+    a_rel = abs(float(fk[3]) - float(fp[3])) / max(abs(float(fp[3])), 1e-30)
+    nz_k, nz_p = int(fk[2]), int(fp[2])
+    f_err = max(float(torch.max(torch.abs(fk[0] - fp[0]))),
+                float(torch.max(torch.abs(fk[1] - fp[1]))))
+    if not (nz_k == nz_p and s_ok and wy_ok and a_rel <= 1e-5):
+        raise SystemExit(f"dense_flow disagrees ({label}): nonzeros {nz_k} vs {nz_p}, "
+                         f"rows s ok {s_ok}, wy ok {wy_ok}, a_sum rel {a_rel}, "
+                         f"max abs {f_err}")
+    s_err = float(torch.max(torch.abs(bk - bp)))
+    if not bool(torch.all(torch.abs(bk - bp) <= 2e-4 * torch.abs(bp) + 1e-6)):
+        raise SystemExit(f"dense_step disagrees ({label}): {bk.tolist()} vs {bp.tolist()}")
+    if not (all(torch.equal(a, b) for a, b in zip(fk, fk2)) and torch.equal(bk, bk2)):
+        raise SystemExit(f"two launches on the same inputs differ ({label})")
+    return {"nz": nz_k, "a_rel": a_rel, "f_err": f_err, "s_err": s_err, "bk": bk, "bp": bp,
+            "fp": fp}
+
+
+# measurement builds of csrc/dense.cu for --dense-ablation: what each part
+# of the design is worth at the colour set's bench shapes
+DENSE_VARIANTS = (
+    ("every pair in full (-DDENSE_PREFILTER=0)", ("-DDENSE_PREFILTER=0",)),
+    ("survivors not queued (-DDENSE_COMPACT=0)", ("-DDENSE_COMPACT=0",)),
+    ("staging not overlapped (-DDENSE_ASYNC=0)", ("-DDENSE_ASYNC=0",)),
+    ("nothing fused (-fmad=false)", ("-fmad=false",)),
+    ("every pair in full, nothing fused", ("-DDENSE_PREFILTER=0", "-fmad=false")),
+)
+
+
+def dense_ablation(dense, case):
+    """Times the package's build of the dense kernels and each measurement
+    build in turn on one case (checked against the plain version first)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from unified_cvo_tpu_torch.ops import cuda_lib
+
+    params, lo, xp, yp, yp_t, comp, ti, tj = case
+    with ThreadPoolExecutor(len(DENSE_VARIANTS)) as pool:
+        libs = list(pool.map(lambda v: cuda_lib.load_variant("dense", v[1]), DENSE_VARIANTS))
+    builds = [("package build", None)] + [
+        (label, lib) for (label, _), lib in zip(DENSE_VARIANTS, libs)]
+    for label, lib in builds + builds[:1]:
+        dense.use_build(lib)
+        got = dense_agree(dense, params, lo, xp, yp, yp_t, comp, ti, tj, label)
+        f_ms = device_ms(lambda: dense.dense_flow(params, lo, xp, yp, comp, ti, tj))
+        s_ms = device_ms(lambda: dense.dense_step(params, lo, xp, yp_t, comp, ti, tj))
+        log(f"ablation {label}: first look {dense.library_has_first_look()}, nonzeros "
+            f"{got['nz']} (exact), dense_flow {f_ms:.4f} ms, dense_step {s_ms:.4f} ms")
+    dense.use_build(None)
+
+
+def check_dense_kernels(frames_np, feats, guess_np, dev, results, ablation=False):
     """Phase 2b: dense_flow and dense_step against their plain versions at
     the bench shapes (frames 0 -> 1 at the bench guess, ell_init culling,
     tiles 128 x 512) for (a) KITTI_COLOR_BENCH with 5 features and (b) every
     channel: geometry, intensity, 19 one-hot semantic classes and mixed
-    geometric types."""
+    geometric types, (c) geometry only and (d) a set without an
+    instantiation of its own. Each set on three compactions: the culled
+    one, the same with one source tile emptied, and every pair active; set
+    (a) also on two other tilings (half-filled row blocks and short chunks,
+    two row blocks per tile); every kernel launched twice for bit-equal
+    outputs."""
     import numpy as np
 
-    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH, KITTI_GEOMETRIC_BENCH
     from unified_cvo_tpu_torch.ops import dense, kernels, lie, morton
     from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
 
@@ -224,88 +311,112 @@ def check_dense_kernels(frames_np, feats, guess_np, dev, results):
     labels = np.eye(N_CLASSES, dtype=np.float32)[rng.integers(0, N_CLASSES, n)]
     geo = np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)]
     sets = {
-        "a: colour (F=5)": (KITTI_COLOR_BENCH, {}),
+        "a: colour (F=5)": (KITTI_COLOR_BENCH, {}, "colour"),
         "b: all channels (F=5, C=19, geo types)": (
             KITTI_COLOR_BENCH.replace(is_using_semantics=1, is_using_geometric_type=1),
-            dict(labels=labels, geometric_types=geo)),
+            dict(labels=labels, geometric_types=geo), "all_channels"),
+        "c: geometry only": (KITTI_GEOMETRIC_BENCH, {}, "geometry"),
+        "d: colour and semantics, an unlisted set (F=5, C=19)": (
+            KITTI_COLOR_BENCH.replace(is_using_semantics=1), dict(labels=labels), "generic"),
     }
     ti, tj = dense.DEFAULT_TILE_I, dense.DEFAULT_TILE_J
     guess = torch.from_numpy(guess_np).to(dev)
     Rinv, Tinv = lie.invert_rt(guess[:3, :3], guess[:3, 3])
     errs = {"dense_flow": 0.0, "dense_step": 0.0}
-    for label, (params, extra) in sets.items():
+    for label, (params, extra, instance) in sets.items():
         src, _ = morton.sort_cloud(make_pointcloud(frames_np[0], features=feats, bucket=n,
                                                    device=dev, **extra))
         tgt, _ = morton.sort_cloud(make_pointcloud(frames_np[1], features=feats, bucket=n,
                                                    device=dev, **extra))
         y_t = tgt.transformed(Rinv, Tinv)
         ell = torch.full((), params.ell_init, dtype=torch.float32, device=dev)
-        x_lo, x_hi = morton.tile_aabbs(src.xyz, src.mask, ti)
-        y_lo, y_hi = morton.tile_aabbs(y_t.xyz, y_t.mask, tj)
-        comp = dense.compact_tile_mask(morton.tile_cull_mask(
-            x_lo, x_hi, morton.tile_d2max(params, ell, src.xyz, src.mask, ti), y_lo, y_hi))
+
+        def cull_mask(ti, tj):
+            x_lo, x_hi = morton.tile_aabbs(src.xyz, src.mask, ti)
+            y_lo, y_hi = morton.tile_aabbs(y_t.xyz, y_t.mask, tj)
+            return morton.tile_cull_mask(
+                x_lo, x_hi, morton.tile_d2max(params, ell, src.xyz, src.mask, ti), y_lo, y_hi)
+
+        mask = cull_mask(ti, tj)
+        comp = dense.compact_tile_mask(mask)
         n_act = int(comp.n)
         lo = dense.layout_for(params, src)
+        chosen = dense.library_instance(lo)
+        if not chosen == dense.kernel_instance(lo) == instance:
+            raise SystemExit(f"dense ({label}): the library runs the {chosen} instantiation, "
+                             f"ops/dense.py says {dense.kernel_instance(lo)}, expected {instance}")
         center = dense.cloud_center(src)
         xp = dense.pack_x(params, lo, src, ell, center=center)
         yp = dense.pack_y(lo, y_t, center=center)
-        fk = dense.dense_flow(params, lo, xp, yp, comp, ti, tj)
         fp = dense.dense_flow_plain(params, lo, xp, yp, comp, ti, tj)
-        torch.cuda.synchronize()
-        s_ok = torch.allclose(fk[0], fp[0], rtol=1e-5, atol=1e-7)
-        wy_ok = torch.allclose(fk[1], fp[1], rtol=1e-5, atol=1e-6)
-        a_rel = abs(float(fk[3]) - float(fp[3])) / abs(float(fp[3]))
-        nz_k, nz_p = int(fk[2]), int(fp[2])
-        f_err = max(float(torch.max(torch.abs(fk[0] - fp[0]))),
-                    float(torch.max(torch.abs(fk[1] - fp[1]))))
-        if not (nz_k == nz_p and s_ok and wy_ok and a_rel <= 1e-5):
-            raise SystemExit(f"dense_flow disagrees ({label}): nonzeros {nz_k} vs {nz_p}, "
-                             f"rows s ok {s_ok}, wy ok {wy_ok}, a_sum rel {a_rel}, "
-                             f"max abs {f_err}")
         stats = kernels.FlowStats(fp[0], fp[1] + fp[0][:, None] * center, fp[2], fp[3])
         twist, _ = kernels.flow_from_stats(params, src, stats)
         yp_t = dense.pack_y(lo, y_t, twist=twist, center=center)
-        bk = dense.dense_step(params, lo, xp, yp_t, comp, ti, tj)
-        bp = dense.dense_step_plain(params, lo, xp, yp_t, comp, ti, tj)
-        torch.cuda.synchronize()
-        s_err = float(torch.max(torch.abs(bk - bp)))
-        if not bool(torch.all(torch.abs(bk - bp) <= 2e-4 * torch.abs(bp) + 1e-6)):
-            raise SystemExit(f"dense_step disagrees ({label}): {bk.tolist()} vs {bp.tolist()}")
-        errs["dense_flow"] = max(errs["dense_flow"], f_err)
-        errs["dense_step"] = max(errs["dense_step"], s_err)
+        got = dense_agree(dense, params, lo, xp, yp, yp_t, comp, ti, tj, label)
+        errs["dense_flow"] = max(errs["dense_flow"], got["f_err"])
+        errs["dense_step"] = max(errs["dense_step"], got["s_err"])
         pairs = n_act * ti * tj
-        log(f"dense  @ {label}: {n_act} of {comp.pair_i.numel()} tile pairs active "
-            f"({pairs / 1e6:.1f} M point pairs); flow nonzeros {nz_k} (exact), a_sum rel "
-            f"{a_rel:.3g}, rows max abs {f_err:.3g}; step B..E kernel {bk.tolist()} "
-            f"plain {bp.tolist()}")
+        gated = dense.geometric_gate_count(lo, xp, yp, comp, ti, tj)
+        log(f"dense  @ {label} ({chosen} instantiation): {n_act} of {comp.pair_i.numel()} "
+            f"tile pairs active ({pairs / 1e6:.1f} M point pairs, {gated} pass the geometric "
+            f"gate); flow nonzeros {got['nz']} (exact), a_sum rel {got['a_rel']:.3g}, rows "
+            f"max abs {got['f_err']:.3g}; step B..E kernel {got['bk'].tolist()} plain "
+            f"{got['bp'].tolist()}; two launches bit-equal")
+        busiest = int(torch.argmax(mask.sum(dim=1)))
+        emptied = mask.clone()
+        emptied[busiest] = 0
+        for kind, m in (("source tile %d emptied" % busiest, emptied),
+                        ("every pair active", torch.ones_like(mask))):
+            other = dense.compact_tile_mask(m)
+            o = dense_agree(dense, params, lo, xp, yp, yp_t, other, ti, tj, f"{label}, {kind}")
+            errs["dense_flow"] = max(errs["dense_flow"], o["f_err"])
+            errs["dense_step"] = max(errs["dense_step"], o["s_err"])
+            zero_rows = bool(torch.all(o["fp"][0][busiest * ti:(busiest + 1) * ti] == 0))
+            log(f"dense  @ {label}, {kind}: {int(other.n)} tile pairs, flow nonzeros "
+                f"{o['nz']} (exact), rows max abs {o['f_err']:.3g}, step max abs "
+                f"{o['s_err']:.3g}; two launches bit-equal"
+                + (f"; rows of tile {busiest} zero" if kind.startswith("source") and zero_rows
+                   else ""))
 
-        # timings at both channel sets; set (a) is the main path's and goes
+        for ti2, tj2 in ((64, 64), (256, 256)) if label.startswith("a") else ():
+            other = dense.compact_tile_mask(cull_mask(ti2, tj2))
+            o = dense_agree(dense, params, lo, xp, yp, yp_t, other, ti2, tj2,
+                            f"{label}, tiles {ti2} x {tj2}")
+            log(f"dense  @ {label}, tiles {ti2} x {tj2}: {int(other.n)} of "
+                f"{other.pair_i.numel()} tile pairs, flow nonzeros {o['nz']} (exact), rows max "
+                f"abs {o['f_err']:.3g}, step max abs {o['s_err']:.3g}; two launches bit-equal")
+
+        # timings at every channel set; set (a) is the main path's and goes
         # into the kernels line
         comp_bytes = 4 * (3 * comp.pair_i.numel() + 1) + comp.row_has.numel()
         in_bytes = 4 * (xp.numel()) + comp_bytes
         timings = {
             "dense_flow": (lambda: dense.dense_flow(params, lo, xp, yp, comp, ti, tj),
                            lambda: dense.dense_flow_plain(params, lo, xp, yp, comp, ti, tj),
-                           bound(in_bytes + 4 * yp.numel() + 4 * 5 * n + 8,
-                                 pairs * dense_pair_ops(lo, step=False)),
+                           in_bytes + 4 * yp.numel() + 4 * 5 * n + 8, False,
                            "unified_cvo_tpu/ops/pallas_kernels.py:398 (_flow_kernel)"),
             "dense_step": (lambda: dense.dense_step(params, lo, xp, yp_t, comp, ti, tj),
                            lambda: dense.dense_step_plain(params, lo, xp, yp_t, comp, ti, tj),
-                           bound(in_bytes + 4 * yp_t.numel() + 16,
-                                 pairs * dense_pair_ops(lo, step=True)),
+                           in_bytes + 4 * yp_t.numel() + 16, True,
                            "unified_cvo_tpu/ops/pallas_kernels.py:429 (_step_kernel)"),
         }
-        for kname, (kfn, pfn, (b_ms, b_by), replaces) in timings.items():
+        for kname, (kfn, pfn, nbytes, step, replaces) in timings.items():
+            b_ms, b_by = bound(nbytes, dense_ops(lo, pairs, gated, step))
+            every_ms, _ = bound(nbytes, pairs * dense_pair_ops(lo, step))
             ms = device_ms(kfn)
             plain_ms = device_ms(pfn, reps=3, trials=3)
             log(f"time   {kname} ({label}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by})")
+                f"bound {b_ms:.4f} ms ({b_by}; {every_ms:.4f} ms if every pair needed "
+                f"every operation)")
             if label.startswith("a"):
                 results[kname] = {
                     "name": kname, "route": "cuda",
                     "source": "unified_cvo_tpu_torch/csrc/dense.cu", "replaces": replaces,
                     "launches": None, "max_abs_err": None, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "bound_ms_every_pair": every_ms}
+        if ablation and label.startswith("a"):
+            dense_ablation(dense, (params, lo, xp, yp, yp_t, comp, ti, tj))
     for kname, err in errs.items():
         results[kname]["max_abs_err"] = err
 
@@ -508,6 +619,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=8,
                     help="timed frame pairs of the main path (after one warm-up pair)")
+    ap.add_argument("--dense-ablation", action="store_true",
+                    help="build, check and time the dense kernels and their measurement "
+                         "builds (phases 1 and 2b only), then stop without a result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -538,6 +652,8 @@ def main(argv=None) -> int:
         for line in rep.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  {name}.cu: {line.strip()}")
+            elif name == "dense" and "Compiling entry function" in line:
+                log(f"  {name}.cu: {line.split("'")[1]}")
 
     dev = torch.device("cuda")
     frames_np, T_true, feats = f2f.make_sequence(N_POINTS, args.frames + 1, features=True)
@@ -545,6 +661,9 @@ def main(argv=None) -> int:
 
     # ---- phase 2: each kernel against its plain version at bench shapes
     results = {}
+    if args.dense_ablation:
+        check_dense_kernels(frames_np, feats, guess_np, dev, results, ablation=True)
+        return 0
     check_kernels(frames_np, guess_np, params, dev, results)
     t0 = time.perf_counter()
     check_dense_kernels(frames_np, feats, guess_np, dev, results)

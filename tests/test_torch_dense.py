@@ -191,3 +191,137 @@ def test_dense_wrappers_take_the_plain_path_on_cpu(monkeypatch):
         ref = plain(tp, lo, xp, yp, comp, TI, TJ)
         assert all(torch.equal(g, r) for g, r in zip(got, ref))
     assert (t_dense.dense_flow.launches, t_dense.dense_step.launches) == before
+
+
+INSTANCE_CASES = {
+    "colour": (dict(is_using_geometry=1, is_using_intensity=1), 5, 0, "colour"),
+    "all_channels": (dict(is_using_geometry=1, is_using_intensity=1, is_using_semantics=1,
+                          is_using_geometric_type=1), 5, 19, "all_channels"),
+    "geometry": (dict(is_using_geometry=1), 0, 0, "geometry"),
+    "unlisted_width": (dict(is_using_geometry=1, is_using_intensity=1), 3, 0, "generic"),
+    "unlisted_flags": (dict(is_using_geometry=0, is_using_intensity=1), 5, 0, "generic"),
+}
+
+
+@pytest.mark.parametrize("case", list(INSTANCE_CASES), ids=list(INSTANCE_CASES))
+def test_kernel_instance_follows_the_channel_set(case):
+    flags, F, C, want = INSTANCE_CASES[case]
+    tp = convert.params_from_fields(dataclasses.asdict(JaxParams().replace(**flags)))
+    rng = np.random.default_rng(0)
+    kw = {}
+    if F:
+        kw["features"] = rng.random((12, F)).astype(np.float32)
+    if C:
+        kw["labels"] = rng.random((12, C)).astype(np.float32)
+    cloud = t_make(rng.random((12, 3)).astype(np.float32), bucket=4, device="cpu", **kw)
+    lo = t_dense.layout_for(tp, cloud)
+    assert t_dense.kernel_instance(lo) == want
+    assert want in t_dense.KERNEL_INSTANCES
+    # the flags the C entry point chooses from carry the same six values
+    assert list(t_dense._flags(lo)) == [lo.feature_dim, lo.num_classes, int(lo.use_geometry),
+                                        int(lo.use_intensity), int(lo.use_semantics),
+                                        int(lo.use_geo_type)]
+
+
+@pytest.mark.parametrize("shape", [(16384, 16384, 128, 512), (512, 1024, 256, 128),
+                                   (96, 64, 32, 32)], ids=["bench", "two_row_blocks", "small"])
+def test_scratch_shapes_cover_every_item(shape):
+    N, M, ti, tj = shape
+    pairs = (N // ti) * (M // tj)
+    shapes = t_dense.scratch_shapes(N, M, ti, tj)
+    blocks = t_dense.row_blocks(ti)
+    assert blocks * t_dense.KERNEL_ROW_BLOCK >= ti > (blocks - 1) * t_dense.KERNEL_ROW_BLOCK
+    assert shapes == {"flow": (pairs, 5, ti), "step": (pairs * blocks, 4)}
+    if shape[0] == 16384:  # 10.5 MB of flow partials at the bench shapes
+        assert 4 * int(np.prod(shapes["flow"])) == 10485760
+
+
+def _item_model(tp, lo, xp, yp, comp, ti, tj, grid, row_block):
+    """Numpy model of the CUDA passes' work split: block b takes items b,
+    b + grid, ... of the first n * row_blocks items (item = pair * row_blocks
+    + row block), writes each item's row partials into scratch by item, and
+    every source tile then sums its pairs' partials in list order."""
+    k = t_dense._consts(tp)
+    N, M = xp.shape[0], yp.shape[1]
+    nI = N // ti
+    rbn = -(-ti // row_block)
+    n = int(comp.n)
+    pair_i, pair_j = comp.pair_i.numpy(), comp.pair_j.numpy()
+    row_has = comp.row_has.numpy()
+    part = np.full(((N // ti) * (M // tj), 5, ti), np.nan, np.float32)
+    done = []
+    for b in range(grid):
+        for item in range(b, n * rbn, grid):
+            p, rb = divmod(item, rbn)
+            rows = slice(rb * row_block, min(ti, (rb + 1) * row_block))
+            i, j = int(pair_i[p]), int(pair_j[p])
+            xb = xp[i * ti:(i + 1) * ti][rows][None]
+            yb = yp[:, j * tj:(j + 1) * tj][None]
+            a = t_dense._a_tiles(lo, k, xb, yb)[0].numpy()
+            if not row_has[i]:
+                a = np.zeros_like(a)
+            y = yb[0].numpy()
+            part[p, 0, rows] = a.sum(-1)
+            for c in range(3):
+                part[p, 1 + c, rows] = (a * y[c][None, :]).sum(-1)
+            part[p, 4, rows] = (a > 0).sum(-1)
+            done.append(item)
+    assert sorted(done) == list(range(n * rbn))
+    s = np.zeros((nI, ti), np.float32)
+    wy = np.zeros((nI, ti, 3), np.float32)
+    cnt = np.zeros((nI, ti), np.int64)
+    for tile in range(nI):
+        if not row_has[tile]:
+            continue
+        lo_p, hi_p = np.searchsorted(pair_i[:n], [tile, tile + 1])
+        for p in range(lo_p, hi_p):
+            s[tile] += part[p, 0]
+            wy[tile] += part[p, 1:4].T
+            cnt[tile] += part[p, 4].astype(np.int64)
+    return s.reshape(N), wy.reshape(N, 3), int(cnt.sum())
+
+
+@pytest.mark.parametrize("grid,row_block", [(1, 16), (3, 16), (7, 8), (64, 16)],
+                         ids=["one_block", "three_blocks", "two_row_blocks", "more_blocks_than_items"])
+def test_item_split_model_reproduces_plain_flow_rows(grid, row_block):
+    # a wide colour kernel: random features leave nothing above sp_thres at
+    # the default c_ell
+    _, tp, _, _, tx, ty = _setup(dict(FLAGS[1], c_ell=3.0), seed=2)
+    lo = t_dense.layout_for(tp, tx)
+    x = t_kernels.pad_cloud_to_multiple(tx, TI)
+    y = t_kernels.pad_cloud_to_multiple(ty, TJ)
+    nI, nJ = x.capacity // TI, y.capacity // TJ
+    mask = (np.random.default_rng(5).random((nI, nJ)) < 0.6).astype(np.int32)
+    mask[1] = 0  # an empty source tile
+    mask[0, 0] = 1
+    comp = t_dense.compact_tile_mask(torch.from_numpy(mask))
+    xp = t_dense.pack_x(tp, lo, x, torch.tensor(0.45))
+    yp = t_dense.pack_y(lo, y)
+    s, wy, nz = _item_model(tp, lo, xp, yp, comp, TI, TJ, grid, row_block)
+    ref_s, ref_wy, ref_nz, _ = t_dense.dense_flow_plain(tp, lo, xp, yp, comp, TI, TJ)
+    assert int(ref_nz) > 30
+    np.testing.assert_allclose(s, ref_s.numpy(), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(wy, ref_wy.numpy(), rtol=1e-5, atol=1e-6)
+    assert nz == int(ref_nz)
+    assert not s[TI:2 * TI].any() and not wy[TI:2 * TI].any()
+    # the pairs a pass must evaluate in full are those inside the geometric gate
+    gated = t_dense.geometric_gate_count(lo, xp, yp, comp, TI, TJ)
+    assert nz <= gated <= int(comp.n) * TI * TJ
+
+
+def test_lib_path_follows_each_source_s_own_flags(tmp_path, monkeypatch):
+    assert "-fmad=false" in cuda_lib.flags_for("select") == cuda_lib.flags_for("ell")
+    assert "-fmad=false" not in cuda_lib.flags_for("dense")
+    assert not any("fast_math" in f for n in cuda_lib.SOURCES for f in cuda_lib.flags_for(n))
+    # one source, two flag sets: two libraries
+    assert cuda_lib.lib_path("dense") != cuda_lib.lib_path("dense", ("-fmad=false",))
+    assert cuda_lib.lib_path("dense", ("-DDENSE_PREFILTER=0",)) not in (
+        cuda_lib.lib_path("dense"), cuda_lib.lib_path("dense", ("-DDENSE_ASYNC=0",)))
+    # the same source text under two names differs only by its flags
+    for name in ("ell", "dense"):
+        (tmp_path / f"{name}.cu").write_text("// same text\n")
+    monkeypatch.setattr(cuda_lib, "CSRC", tmp_path)
+    monkeypatch.setitem(cuda_lib.SOURCE_FLAGS, "ell", cuda_lib.flags_for("dense"))
+    same = cuda_lib.lib_path("ell").name.split("-")[1]
+    monkeypatch.delitem(cuda_lib.SOURCE_FLAGS, "ell")
+    assert cuda_lib.lib_path("ell").name.split("-")[1] != same

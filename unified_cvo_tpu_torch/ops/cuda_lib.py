@@ -2,8 +2,8 @@
 libraries through ctypes.
 
 Each source is compiled by nvcc for sm_90a into `build/unified_cvo_tpu_torch/`
-beside the package, under a name keyed by a hash of the sources and flags,
-at first use. `build_all` starts one nvcc per source at once. Nothing here
+beside the package, under a name keyed by a hash of the sources and of the
+source's own compiler flags, at first use. `build_all` starts one nvcc per source at once. Nothing here
 runs at import time, so the CPU tests import every module without a CUDA
 toolchain.
 """
@@ -28,7 +28,17 @@ SOURCES = ("select", "ell", "dense")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
 
+# dense.cu writes the chain that decides a gate with __fmul_rn / __fadd_rn,
+# which are never contracted, and lets everything else fuse
+SOURCE_FLAGS = {"dense": tuple(f for f in NVCC_FLAGS if f != "-fmad=false")}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def flags_for(name: str, extra: Iterable[str] = ()) -> tuple:
+    """nvcc flags of csrc/<name>.cu, then `extra` (a measurement build's
+    -D switches)."""
+    return (*SOURCE_FLAGS.get(name, NVCC_FLAGS), *extra)
 
 
 def _nvcc() -> str:
@@ -42,29 +52,31 @@ def _nvcc() -> str:
     return path
 
 
-def lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def lib_path(name: str, extra: Iterable[str] = ()) -> Path:
+    h = hashlib.sha256(" ".join(flags_for(name, extra)).encode())
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+def build_all(names: Optional[Iterable[str]] = None,
+              extra: Iterable[str] = ()) -> Dict[str, str]:
     """Compile every source not yet built, all nvcc processes at once.
     Returns the compiler's resource report (ptxas -v) per source built now;
     raises RuntimeError with the compiler output if any build fails."""
+    extra = tuple(extra)
     todo = [n for n in (SOURCES if names is None else names)
-            if not lib_path(n).exists()]
+            if not lib_path(n, extra).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in todo:
-        out = lib_path(name)
+        out = lib_path(name, extra)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [nvcc, *flags_for(name, extra), "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -91,6 +103,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def load_variant(name: str, extra: Iterable[str]) -> ctypes.CDLL:
+    """A measurement build of csrc/<name>.cu with `extra` flags appended,
+    loaded beside the package's own build and never returned by `load`."""
+    extra = tuple(extra)
+    build_all([name], extra)
+    return ctypes.CDLL(str(lib_path(name, extra)))
 
 
 def check(err: int, what: str) -> None:

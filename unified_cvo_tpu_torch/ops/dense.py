@@ -4,9 +4,11 @@ left by spatial culling (port of unified_cvo_tpu/ops/pallas_kernels.py).
 
 `dense_flow` replaces pallas_kernels.py::_flow_kernel and `dense_step`
 replaces _step_kernel / _step_tile, both with _a_block. On a CUDA tensor
-each launches its kernel in csrc/dense.cu; on a CPU tensor each runs its
-plain PyTorch version below, which is also the oracle the card's kernels
-are held against. `flow_stats_tiled` and `step_coeffs_tiled` are the
+each launches its kernels in csrc/dense.cu (a persistent grid over the
+active pairs writes per-item partials into scratch allocated here, a second
+kernel sums them in list order); on a CPU tensor each runs its plain
+PyTorch version below, which is also the oracle the card's kernels are
+held against. `flow_stats_tiled` and `step_coeffs_tiled` are the
 counterparts of flow_stats_pallas and step_coeffs_pallas: they pad to tile
 multiples, centre both clouds on the source centroid, pack, run the pass,
 and restore the raw-frame wy.
@@ -35,7 +37,12 @@ from unified_cvo_tpu_torch.utils.pointcloud import PointCloud
 DEFAULT_TILE_I = 128  # narrow source tiles cull tighter (smaller boxes)
 DEFAULT_TILE_J = 512  # wide target tiles: fewer pairs to schedule
 PAD_BIG = 1e30        # additive invalid-pair sentinel (f32-safe)
-KERNEL_ROWS = 32      # source rows per CUDA block: tile_i must be a multiple
+KERNEL_ROWS = 32      # tile_i must be a multiple (a warp's rows stay in one tile)
+KERNEL_COLS = 4       # tile_j must be a multiple (16-byte copies and loads)
+KERNEL_ROW_BLOCK = 128  # source rows of one work item of the CUDA passes
+# channel sets csrc/dense.cu instantiates, by index; any other set runs the
+# generic instantiation of the same kernels
+KERNEL_INSTANCES = ("colour", "all_channels", "geometry", "generic")
 # active pairs per vectorised step of the plain versions: on the CPU a few
 # pairs keep the [B, TI, TJ] temporaries in cache (2 ran ~1.8x faster than 64
 # at 128 x 512 tiles); on the card 64 amortise the launches
@@ -328,6 +335,24 @@ def _active_batches(comp: TileCompaction, xp, yp, tile_i, tile_j):
         yield pi, xt[pi], yt[pj]
 
 
+def geometric_gate_count(lo: PackLayout, xp, yp, comp: TileCompaction,
+                         tile_i: int, tile_j: int) -> int:
+    """Point pairs of the active tile pairs that pass the geometric gate
+    d2 < d2_thres (every pair without geometry): the pairs whose channels a
+    pass has to evaluate; all others contribute exactly zero."""
+    total = 0
+    for _, xb, yb in _active_batches(comp, xp, yp, tile_i, tile_j):
+        if not lo.use_geometry:
+            total += xb.shape[0] * tile_i * tile_j
+            continue
+        d2 = yb[:, lo.y_pad:lo.y_pad + 1, :]
+        for c in range(3):
+            diff = xb[:, :, c:c + 1] - yb[:, c:c + 1, :]
+            d2 = d2 + diff * diff
+        total += int(torch.sum(d2 < xb[:, :, lo.x_d2thres:lo.x_d2thres + 1]))
+    return total
+
+
 def dense_flow_plain(params, lo: PackLayout, xp, yp, comp: TileCompaction,
                      tile_i: int, tile_j: int):
     """Plain version of the flow kernel: (s [N], wy [N, 3] centred,
@@ -398,14 +423,41 @@ def dense_step_plain(params, lo: PackLayout, xp, yp, comp: TileCompaction,
     return torch.sum(torch.where(keep, rows, torch.zeros_like(rows)), dim=(0, 1))
 
 
+def kernel_instance(lo: PackLayout) -> str:
+    """Which instantiation of the CUDA passes a channel set runs (the C
+    entry points choose the same way from the same flags)."""
+    key = (lo.use_geometry, lo.use_intensity, lo.use_semantics, lo.use_geo_type,
+           lo.feature_dim, lo.num_classes)
+    return {(True, True, False, False, 5, 0): "colour",
+            (True, True, True, True, 5, 19): "all_channels",
+            (True, False, False, False, 0, 0): "geometry"}.get(key, "generic")
+
+
+def row_blocks(tile_i: int) -> int:
+    """Work items per active tile pair: one per KERNEL_ROW_BLOCK source rows."""
+    return -(-tile_i // KERNEL_ROW_BLOCK)
+
+
+def scratch_shapes(N: int, M: int, tile_i: int, tile_j: int):
+    """Shapes of the per-item partials the CUDA passes write before their
+    fixed-order sums: flow [pairs, 5, tile_i] (s, wy, cnt as int bits per
+    row of every tile pair), step [pairs * row blocks, 4] (B..E per item).
+    Sized for every pair active: the active count stays on the device."""
+    pairs = (N // tile_i) * (M // tile_j)
+    return {"flow": (pairs, 5, tile_i), "step": (pairs * row_blocks(tile_i), 4)}
+
+
 def _checks(lo: PackLayout, xp, yp, comp: TileCompaction, tile_i, tile_j, y_dim, who):
     if xp.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {xp.device}")
     dev = xp.device
     N, M = xp.shape[0], yp.shape[1]
-    if N % tile_i or M % tile_j or tile_i % KERNEL_ROWS:
+    if N % tile_i or M % tile_j or tile_i % KERNEL_ROWS or tile_j % KERNEL_COLS:
         raise ValueError(f"{who}: N={N} must be a multiple of tile_i={tile_i}, itself a "
-                         f"multiple of {KERNEL_ROWS}, and M={M} a multiple of tile_j={tile_j}")
+                         f"multiple of {KERNEL_ROWS}, and M={M} a multiple of tile_j={tile_j}, "
+                         f"itself a multiple of {KERNEL_COLS}")
+    if yp.data_ptr() % 16:
+        raise ValueError(f"{who}: yp must be 16-byte aligned")
     P = (N // tile_i) * (M // tile_j)
     cuda_lib.check_tensor(xp, "xp", torch.float32, (N, lo.x_dim), dev, who)
     cuda_lib.check_tensor(yp, "yp", torch.float32, (y_dim, M), dev, who)
@@ -436,6 +488,8 @@ def dense_flow(params, lo: PackLayout, xp, yp, comp: TileCompaction,
         return dense_flow_plain(params, lo, xp, yp, comp, tile_i, tile_j)
     dev, N, M = _checks(lo, xp, yp, comp, tile_i, tile_j, lo.y_dim_flow, "dense_flow")
     lib = _lib()
+    part = torch.empty(scratch_shapes(N, M, tile_i, tile_j)["flow"], dtype=torch.float32,
+                       device=dev)
     s = torch.empty((N,), dtype=torch.float32, device=dev)
     wy = torch.empty((N, 3), dtype=torch.float32, device=dev)
     cnt = torch.empty((N,), dtype=torch.int32, device=dev)
@@ -444,7 +498,7 @@ def dense_flow(params, lo: PackLayout, xp, yp, comp: TileCompaction,
     err = lib.cvo_dense_flow(
         _flags(lo), _cconsts(params), xp.data_ptr(), yp.data_ptr(),
         comp.pair_i.data_ptr(), comp.pair_j.data_ptr(), comp.row_has.data_ptr(),
-        comp.n.data_ptr(), s.data_ptr(), wy.data_ptr(), cnt.data_ptr(),
+        comp.n.data_ptr(), part.data_ptr(), s.data_ptr(), wy.data_ptr(), cnt.data_ptr(),
         a_sum.data_ptr(), nz.data_ptr(), N, M, tile_i, tile_j,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(err, "dense_flow kernel launch")
@@ -463,7 +517,8 @@ def dense_step(params, lo: PackLayout, xp, yp, comp: TileCompaction,
         return dense_step_plain(params, lo, xp, yp, comp, tile_i, tile_j)
     dev, N, M = _checks(lo, xp, yp, comp, tile_i, tile_j, lo.y_dim_step, "dense_step")
     lib = _lib()
-    part = torch.empty((lib.cvo_dense_blocks(N), 4), dtype=torch.float32, device=dev)
+    part = torch.empty(scratch_shapes(N, M, tile_i, tile_j)["step"], dtype=torch.float32,
+                       device=dev)
     out = torch.empty((4,), dtype=torch.float32, device=dev)
     err = lib.cvo_dense_step(
         _flags(lo), _cconsts(params), xp.data_ptr(), yp.data_ptr(),
@@ -524,14 +579,40 @@ def step_coeffs_tiled(params, ell, x: PointCloud, y_t: PointCloud, twist,
     return B, C, D, E
 
 
+_measurement_build = None
+
+
+def use_build(lib=None) -> None:
+    """Route the CUDA passes through `lib`, a measurement build from
+    cuda_lib.load_variant("dense", ...), or back to the package's build."""
+    global _measurement_build
+    _measurement_build = lib
+
+
 def _lib():
-    lib = cuda_lib.load("dense")
+    return bind(_measurement_build or cuda_lib.load("dense"))
+
+
+def library_instance(lo: PackLayout) -> str:
+    """The instantiation the loaded CUDA library picks for this channel set."""
+    return KERNEL_INSTANCES[_lib().cvo_dense_instance(_flags(lo))]
+
+
+def library_has_first_look() -> bool:
+    """False only in a measurement build that evaluates every pair in full."""
+    return bool(_lib().cvo_dense_prefilter())
+
+
+def bind(lib):
+    """Declare the C interface of a build of csrc/dense.cu."""
     if not getattr(lib, "_argtypes_set", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         PI, PF = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
-        lib.cvo_dense_blocks.argtypes = [I]
-        lib.cvo_dense_blocks.restype = I
-        lib.cvo_dense_flow.argtypes = [PI, PF, P, P, P, P, P, P, P, P, P, P, P,
+        lib.cvo_dense_instance.argtypes = [PI]
+        lib.cvo_dense_instance.restype = I
+        lib.cvo_dense_prefilter.argtypes = []
+        lib.cvo_dense_prefilter.restype = I
+        lib.cvo_dense_flow.argtypes = [PI, PF, P, P, P, P, P, P, P, P, P, P, P, P,
                                        I, I, I, I, P]
         lib.cvo_dense_flow.restype = I
         lib.cvo_dense_step.argtypes = [PI, PF, P, P, P, P, P, P, P, P, I, I, I, I, P]
