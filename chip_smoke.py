@@ -27,7 +27,22 @@ active). `--dense-ablation` stops after phases 1 and 2b and also times
 measurement builds of csrc/dense.cu (no first look at the geometric gate,
 no queue of survivors, no overlap of staging, nothing fused); it prints no result line.
 
-Usage: python3 chip_smoke.py [--frames 8] [--dense-ablation]
+Phases 2 and 2c launch flow_reduce (every variant) and step_cached twice
+for bit-equal outputs, hold them against their plain versions at a point
+count that fills no block evenly, hold the step fed the flow's twist on
+the device against its plain version and against the host-built scalar
+block, count the device kernels of one call as the nodes of a captured
+CUDA graph, and check that the one-launch finish left its ticket counters
+at 0; every time is printed beside the launch floor (back-to-back empty
+kernels).
+`--ell-ablation` stops after phase 1: it checks, counts and times
+measurement builds of csrc/ell.cu (the two-launch finish, the runtime-K
+slot loop, two block reductions), then runs the geometric ELL path three
+times with the step's twist part built three ways (in the kernel, on the
+host by twist_scalars, on the host in matrix form) to show which one moves
+the pose errors; it prints no result line.
+
+Usage: python3 chip_smoke.py [--frames 8] [--dense-ablation | --ell-ablation]
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails. The last line of stdout is the result object.
 """
@@ -61,6 +76,9 @@ DENSE_PAIRS = 3             # timed pairs of the dense path (after one warm-up)
 N_CLASSES = 19              # semantic classes of the all-channel kernel check
 COLOUR_PAIRS = 3            # timed pairs of the colour ELL path (after one warm-up)
 CHAN_ONLY_ITER = 50         # iteration cap of the channel-only pair
+# point counts that fill no ELL block shape evenly: even (vector loads) and
+# odd (the one-point-a-thread fallback)
+N_ODD = (16100, 16099)
 
 
 def log(*a):
@@ -87,6 +105,33 @@ def device_ms(fn, reps=20, trials=5):
     return statistics.median(out)
 
 
+def launch_floor_ms():
+    """Device time of one empty kernel launched back to back, as
+    device_ms times the kernels: what any one launch costs."""
+    return device_ms(lambda: torch.cuda._sleep(0))
+
+
+def kernels_per_call(fn):
+    """Device work items (kernels, copies, fills) that one call of fn
+    enqueues: the nodes of a CUDA graph captured from one call after a
+    warm-up call. The graph is counted and dropped, never launched, so the
+    count does not depend on a trace's buffers being flushed."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(g.raw_cuda_graph()), None, ctypes.byref(n))
+    g.reset()
+    if rc != 0:
+        raise SystemExit(f"cuGraphGetNodes returned {rc}")
+    return n.value
+
+
 def bound(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS * 1e3
@@ -100,7 +145,88 @@ def sorted_rows(idx, y_xyz):
         y_xyz, 1, order[None].expand_as(y_xyz))
 
 
-def check_kernels(frames_np, guess_np, params, dev, results):
+def flow_agree(fk, fp, what):
+    """flow_reduce's result against its plain version: nonzeros exact,
+    a_sum rel 1e-5, A abs 1e-6, twist abs 1e-4. Returns (a_sum rel, A abs,
+    twist abs, joint norm rel); raises SystemExit on a disagreement."""
+    nz_k, nz_p = int(fk[2]), int(fp[2])
+    a_rel = abs(float(fk[3]) - float(fp[3])) / abs(float(fp[3]))
+    A_err = float(torch.max(torch.abs(fk[4] - fp[4])))
+    tw_err = float(torch.max(torch.abs(fk[0] - fp[0])))
+    jn_rel = abs(float(fk[1]) - float(fp[1])) / abs(float(fp[1]))
+    if not (nz_k == nz_p > 0 and a_rel <= 1e-5 and A_err <= 1e-6 and tw_err <= 1e-4):
+        raise SystemExit(f"flow kernel disagrees {what}: nonzeros {nz_k} vs {nz_p}, "
+                         f"a_sum rel {a_rel}, A abs {A_err}, twist abs {tw_err}")
+    return a_rel, A_err, tw_err, jn_rel
+
+
+def step_agree(bk, bp, what):
+    """A step kernel's B..E against the plain version's: rel 1e-3 + 1e-4."""
+    if not bool(torch.all(torch.abs(bk - bp) <= 1e-3 * torch.abs(bp) + 1e-4)):
+        raise SystemExit(f"step kernel disagrees {what}: {bk.tolist()} vs {bp.tolist()}")
+    return float(torch.max(torch.abs(bk - bp)))
+
+
+def ell_consume_checks(ell_ops, params, xp, y_xyz, scal, Rinv, Tinv, what, chan=None,
+                       use_geometry=True):
+    """The one-launch consume kernels on one list: flow_reduce, step_cached
+    and step_uncached each launched twice for bit-equal outputs, the
+    uncached step bit-equal to the cached one on the flow kernel's A, the
+    step fed the flow's twist on the device against its plain version fed
+    the same twist and within rtol 1e-4 of the step on the host-built
+    block, and flow and step (both forms) against their plain versions at
+    the first n points for each n of N_ODD. Returns the largest flow and
+    step errors."""
+    ch = dict(chan=chan, use_geometry=use_geometry)
+    fk = ell_ops.flow_reduce(xp, y_xyz, scal, params.c, params.d, **ch)
+    fk2 = ell_ops.flow_reduce(xp, y_xyz, scal, params.c, params.d, **ch)
+    scal_t = ell_ops.pack_scalars(params, Rinv, Tinv, fk[0])
+    bk = ell_ops.step_cached(xp, y_xyz, fk[4], scal_t)
+    bk2 = ell_ops.step_cached(xp, y_xyz, fk[4], scal_t)
+    bu = ell_ops.step_uncached(xp, y_xyz, scal_t, **ch)
+    bu2 = ell_ops.step_uncached(xp, y_xyz, scal_t, **ch)
+    bd = ell_ops.step_cached(xp, y_xyz, fk[4], scal, twist=fk[0])
+    bd2 = ell_ops.step_cached(xp, y_xyz, fk[4], scal, twist=fk[0])
+    bdp = ell_ops.step_cached_plain(xp, y_xyz, fk[4], scal, twist=fk[0])
+    torch.cuda.synchronize()
+    if not (all(torch.equal(a, b) for a, b in zip(fk, fk2)) and torch.equal(bk, bk2)
+            and torch.equal(bu, bu2) and torch.equal(bd, bd2)):
+        raise SystemExit(f"two launches on the same inputs differ {what}")
+    if not torch.equal(bu, bk):
+        raise SystemExit(f"step_uncached {bu.tolist()} differs from step_cached {bk.tolist()} "
+                         f"on the kernel's A {what}")
+    if not bool(torch.all(torch.abs(bd - bk) <= 1e-4 * torch.abs(bk))):
+        raise SystemExit(f"step with the twist on the device {bd.tolist()} against the "
+                         f"host-built block {bk.tolist()} {what}")
+    s_err = step_agree(bd, bdp, f"with the twist on the device {what}")
+
+    f_err = 0.0
+    for n in N_ODD:
+        xo, yo = xp[:, :n].contiguous(), y_xyz[..., :n].contiguous()
+        cho = dict(chan=None if chan is None else chan[:, :n].contiguous(),
+                   use_geometry=use_geometry)
+        fo = ell_ops.flow_reduce(xo, yo, scal, params.c, params.d, **cho)
+        fop = ell_ops.flow_reduce_plain(xo, yo, scal, params.c, params.d, **cho)
+        _, A_err, tw_err, _ = flow_agree(fo, fop, f"at N = {n} {what}")
+        scal_o = ell_ops.pack_scalars(params, Rinv, Tinv, fop[0])
+        s_err = max(s_err, step_agree(ell_ops.step_cached(xo, yo, fop[4], scal_o),
+                                      ell_ops.step_cached_plain(xo, yo, fop[4], scal_o),
+                                      f"at N = {n} {what}"),
+                    step_agree(ell_ops.step_cached(xo, yo, fop[4], scal, twist=fop[0]),
+                               ell_ops.step_cached_plain(xo, yo, fop[4], scal, twist=fop[0]),
+                               f"with the twist on the device at N = {n} {what}"))
+        f_err = max(f_err, A_err, tw_err)
+    return f_err, s_err
+
+
+def check_counters_zero(ell_ops, dev, where):
+    counters = ell_ops.finish_counters(dev)
+    if int(torch.count_nonzero(counters)):
+        raise SystemExit(f"finish counters {counters.tolist()} not back at 0 after {where}")
+    log(f"finish counters after {where}: {counters.tolist()}")
+
+
+def check_kernels(frames_np, guess_np, params, dev, results, floor):
     from unified_cvo_tpu_torch.ops import ell as ell_ops
     from unified_cvo_tpu_torch.ops import lie
     from unified_cvo_tpu_torch.ops import neighbors as nbr
@@ -139,26 +265,23 @@ def check_kernels(frames_np, guess_np, params, dev, results):
         scal = ell_ops.pack_scalars(params, Rinv, Tinv)
         fk = ell_ops.flow_reduce(xp, y_xyz, scal, params.c, params.d)
         fp = ell_ops.flow_reduce_plain(xp, y_xyz, scal, params.c, params.d)
-        nz_k, nz_p = int(fk[2]), int(fp[2])
-        a_rel = abs(float(fk[3]) - float(fp[3])) / abs(float(fp[3]))
-        A_err = float(torch.max(torch.abs(fk[4] - fp[4])))
-        tw_err = float(torch.max(torch.abs(fk[0] - fp[0])))
-        jn_rel = abs(float(fk[1]) - float(fp[1])) / abs(float(fp[1]))
-        if not (nz_k == nz_p and a_rel <= 1e-5 and A_err <= 1e-6 and tw_err <= 1e-4):
-            raise SystemExit(f"flow kernel disagrees at {name}: nonzeros {nz_k} vs {nz_p}, "
-                             f"a_sum rel {a_rel}, A abs {A_err}, twist abs {tw_err}")
-        log(f"flow   @ {name}: nonzeros {nz_k} (exact), a_sum rel {a_rel:.3g}, "
+        a_rel, A_err, tw_err, jn_rel = flow_agree(fk, fp, f"at {name}")
+        log(f"flow   @ {name}: nonzeros {int(fk[2])} (exact), a_sum rel {a_rel:.3g}, "
             f"A abs {A_err:.3g}, twist abs {tw_err:.3g}, joint norm rel {jn_rel:.3g}")
 
         scal_t = ell_ops.pack_scalars(params, Rinv, Tinv, fp[0])
         A = fp[4]
         bk = ell_ops.step_cached(xp, y_xyz, A, scal_t)
         bp = ell_ops.step_cached_plain(xp, y_xyz, A, scal_t)
-        st_err = float(torch.max(torch.abs(bk - bp)))
-        ok = torch.all(torch.abs(bk - bp) <= 1e-3 * torch.abs(bp) + 1e-4)
-        if not bool(ok):
-            raise SystemExit(f"step kernel disagrees at {name}: {bk.tolist()} vs {bp.tolist()}")
+        st_err = step_agree(bk, bp, f"at {name}")
         log(f"step   @ {name}: B..E kernel {bk.tolist()} plain {bp.tolist()}")
+        f_err, s_err = ell_consume_checks(ell_ops, params, xp, y_xyz, scal, Rinv, Tinv,
+                                          f"at {name}")
+        A_err, st_err = max(A_err, tw_err, f_err), max(st_err, s_err)
+        log(f"consume @ {name}: flow_reduce, step_cached and step_uncached reruns bit-equal, "
+            f"step_uncached equal to step_cached, device-twist step within tolerance of its "
+            f"plain version and within rtol 1e-4 of the host-built block, N = "
+            f"{' and '.join(map(str, N_ODD))} within tolerance")
 
         if name != "bench guess":
             continue
@@ -178,12 +301,13 @@ def check_kernels(frames_np, guess_np, params, dev, results):
             "flow_reduce": (lambda: ell_ops.flow_reduce(xp, y_xyz, scal, params.c, params.d),
                             lambda: ell_ops.flow_reduce_plain(xp, y_xyz, scal, params.c, params.d),
                             bound(slot_bytes + K * N * 4 + 36, FLOW_OPS_PER_SLOT * K * N),
-                            max(A_err, tw_err),
+                            A_err,
                             "unified_cvo_tpu/ops/pallas_ell.py:184 (_flow_reduce_kernel)",
                             "unified_cvo_tpu_torch/csrc/ell.cu"),
-            "step_cached": (lambda: ell_ops.step_cached(xp, y_xyz, A, scal_t),
-                            lambda: ell_ops.step_cached_plain(xp, y_xyz, A, scal_t),
-                            bound(slot_bytes + K * N * 4 + 16, STEP_OPS_PER_SLOT * K * N),
+            # the form the loop launches: the flow's own block and its twist
+            "step_cached": (lambda: ell_ops.step_cached(xp, y_xyz, A, scal, twist=fp[0]),
+                            lambda: ell_ops.step_cached_plain(xp, y_xyz, A, scal, twist=fp[0]),
+                            bound(slot_bytes + K * N * 4 + 24 + 16, STEP_OPS_PER_SLOT * K * N),
                             st_err,
                             "unified_cvo_tpu/ops/pallas_ell.py:230 (_step_kernel_cached)",
                             "unified_cvo_tpu_torch/csrc/ell.cu"),
@@ -195,8 +319,17 @@ def check_kernels(frames_np, guess_np, params, dev, results):
                 "name": kname, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-            log(f"time   {kname}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by})")
+            per_call = ""
+            if kname != "select":
+                n_dev = kernels_per_call(kfn)
+                if n_dev != 1:
+                    raise SystemExit(f"{kname}: one call launched {n_dev} device kernels, "
+                                     f"not 1")
+                results[kname].update(launches_per_call=n_dev, launch_floor_ms=floor)
+                per_call = f", {n_dev} device kernel a call (graph nodes)"
+            log(f"time   {kname}: kernel {ms:.4f} ms (launch floor {floor:.4f} ms), plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}){per_call}")
+    check_counters_zero(ell_ops, dev, "phase 2")
 
 
 def dense_pair_ops(lo, step: bool) -> int:
@@ -287,6 +420,159 @@ def dense_ablation(dense, case):
         log(f"ablation {label}: first look {dense.library_has_first_look()}, nonzeros "
             f"{got['nz']} (exact), dense_flow {f_ms:.4f} ms, dense_step {s_ms:.4f} ms")
     dense.use_build(None)
+
+
+# measurement builds of csrc/ell.cu for --ell-ablation: what each part of
+# the design is worth
+ELL_VARIANTS = (
+    ("two launches per pass (-DELL_ONE_LAUNCH=0)", ("-DELL_ONE_LAUNCH=0",)),
+    ("runtime-K slot loop (-DELL_UNROLL=0)", ("-DELL_UNROLL=0",)),
+    ("two block reductions in the flow (-DELL_FUSED_SUM=0)", ("-DELL_FUSED_SUM=0",)),
+)
+
+
+def register_counts(report):
+    """{kernel entry (mangled name): registers a thread} from a ptxas -v
+    report."""
+    out, entry = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and entry is not None:
+            out[entry] = int(line.split("Used")[1].split()[0])
+            entry = None
+    return out
+
+
+def ell_ablation(frames_np, feats, guess_np, dev, floor, package_report):
+    """--ell-ablation: the package's build of csrc/ell.cu and each
+    measurement build in turn, each checked on the geometric and the colour
+    bench list (ell_consume_checks, and flow_reduce against its plain
+    version at full N), its device kernels a call counted (2 in a
+    two-launch build, else 1), then timed: flow_reduce (geometry, geometry
+    x chan) and step_cached in the loop's form (the flow's twist) at the
+    bench shapes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH, KITTI_GEOMETRIC_BENCH
+    from unified_cvo_tpu_torch.ops import cuda_lib
+    from unified_cvo_tpu_torch.ops import ell as ell_ops
+    from unified_cvo_tpu_torch.ops import lie
+    from unified_cvo_tpu_torch.ops import neighbors as nbr
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    n = len(frames_np[0])
+    guess = torch.from_numpy(guess_np).to(dev)
+    Rinv, Tinv = lie.invert_rt(guess[:3, :3], guess[:3, 3])
+    src = make_pointcloud(frames_np[0], features=feats, bucket=n, device=dev)
+    tgt = make_pointcloud(frames_np[1], features=feats, bucket=n, device=dev)
+    lists = []
+    for params in (KITTI_GEOMETRIC_BENCH, KITTI_COLOR_BENCH):
+        ell = torch.full((), params.ell_init, dtype=torch.float32, device=dev)
+        nl = nbr.build_neighbor_list(params, ell, src, tgt, Rinv, Tinv)
+        lists.append((params, nl, ell_ops.pack_x(params, ell, src),
+                      ell_ops.pack_scalars(params, Rinv, Tinv)))
+    with ThreadPoolExecutor(len(ELL_VARIANTS)) as pool:
+        reports = list(pool.map(lambda v: cuda_lib.build_all(["ell"], v[1]).get("ell", ""),
+                                ELL_VARIANTS))
+    libs = [cuda_lib.load_variant("ell", flags) for _, flags in ELL_VARIANTS]
+    builds = [("package build", (), None, package_report)] + [
+        (label, flags, lib, rep) for (label, flags), lib, rep in zip(ELL_VARIANTS, libs, reports)]
+    for label, flags, lib, report in builds + builds[:1]:
+        ell_ops.use_build(lib)
+        design = ell_ops.library_design()
+        for flag in flags:
+            key, value = flag[2:].split("=")
+            if design[key] != int(value):
+                raise SystemExit(f"ablation {label}: the build reports {design}")
+        expect = 2 - design["ELL_ONE_LAUNCH"]
+        times, per_call = [], {}
+        for params, nl, xp, scal in lists:
+            v = ell_ops.variant(nl.chan, True)
+            fk = ell_ops.flow_reduce(xp, nl.y_xyz, scal, params.c, params.d, chan=nl.chan)
+            fp = ell_ops.flow_reduce_plain(xp, nl.y_xyz, scal, params.c, params.d,
+                                           chan=nl.chan)
+            flow_agree(fk, fp, f"({v}, {label})")
+            ell_consume_checks(ell_ops, params, xp, nl.y_xyz, scal, Rinv, Tinv,
+                               f"({v}, {label})", chan=nl.chan)
+            fns = {f"flow_reduce {v}": lambda: ell_ops.flow_reduce(
+                xp, nl.y_xyz, scal, params.c, params.d, chan=nl.chan)}
+            if v == "geo":
+                fns["step_cached"] = lambda: ell_ops.step_cached(xp, nl.y_xyz, fk[4], scal,
+                                                                 twist=fk[0])
+            for kname, fn in fns.items():
+                per_call[kname] = kernels_per_call(fn)
+                times.append((kname, device_ms(fn)))
+        if any(c != expect for c in per_call.values()):
+            raise SystemExit(f"ablation {label}: device kernels a call {per_call}, "
+                             f"expected {expect}")
+        regs = register_counts(report)
+        reg_txt = ", ".join(
+            f"{kind} <= {max(r for k, r in regs.items() if kind in k)} registers"
+            for kind in ("flow_reduce_kernel", "step_kernel") if any(kind in k for k in regs))
+        log(f"ablation {label}: " + ", ".join(f"{k} {t:.4f} ms" for k, t in times)
+            + f" (launch floor {floor:.4f} ms); {expect} device kernel(s) a call (graph nodes); "
+            f"checks passed; {reg_txt or 'registers: built before this run'}; design {design}")
+    ell_ops.use_build(None)
+    check_counters_zero(ell_ops, dev, "the ablation")
+
+
+def matrix_twist_part(twist):
+    """The twist part of the scalar block in matrix form: W = skew(omega),
+    W @ v, W @ (W v) and torch.dot. The same values as
+    ops/ell.py::twist_scalars (cross products, dots summed left to right,
+    the order the kernel follows); only the roundings may differ."""
+    from unified_cvo_tpu_torch.ops import lie
+
+    omega, v = twist[:3].to(torch.float32), twist[3:].to(torch.float32)
+    W = lie.skew(omega)
+    Wv = W @ v
+    c2 = W @ Wv
+    return torch.cat([torch.stack([torch.dot(omega, omega), torch.dot(v, v)]), omega, v, Wv, c2,
+                      torch.stack([torch.dot(v, Wv), torch.dot(Wv, Wv), torch.dot(v, c2),
+                                   torch.dot(v, omega)])])
+
+
+def pose_error_witness(frames_np, T_true, guess_np, dev):
+    """--ell-ablation: the geometric ELL path as phase 3 runs it, three
+    times: the step's twist part built in the kernel (the package's loop),
+    then on the host by ops/ell.py::twist_scalars, then on the host in
+    matrix form. The first two differ only in where the same operations
+    run, the last two only in their order; what is left between the first
+    and another build of the kernels is the kernels' own sum order."""
+    from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
+    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH
+    from unified_cvo_tpu_torch.ops import ell as ell_ops
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    frames = [make_pointcloud(f, bucket=N_POINTS, device=dev) for f in frames_np]
+    guess = torch.from_numpy(guess_np).to(dev)
+    kernel = ell_ops.step_cached
+    first = None
+    for label, twist_part in (("in the kernel", None),
+                              ("on the host, twist_scalars", ell_ops.twist_scalars),
+                              ("on the host, matrix form", matrix_twist_part)):
+        if twist_part is not None:
+            def step(xp, y_xyz, a, scal, twist=None, twist_part=twist_part):
+                if twist is not None:
+                    scal, twist = torch.cat([scal[:ell_ops.S_OM2], twist_part(twist)]), None
+                return kernel(xp, y_xyz, a, scal, twist)
+
+            step.launches = 0   # the wrapper counts its launches under the module's name
+            ell_ops.step_cached = step
+        t0 = time.perf_counter()
+        res, infos = f2f.run_sequence(frames[1:], guess, KITTI_GEOMETRIC_BENCH, device=dev,
+                                      max_iter=MAX_ITER)
+        torch.cuda.synchronize()
+        ell_ops.step_cached = kernel
+        errs = f2f.pose_errors(res, T_true[1:])
+        same = first is not None and all(torch.equal(a, b) for a, b in zip(res, first))
+        first = res if first is None else first
+        log(f"pose-error witness, twist part {label}: max {max(errs):.6f} mean "
+            f"{sum(errs) / len(errs):.6f}, per frame {[round(e, 6) for e in errs]}, "
+            f"iterations {[i.iterations for i in infos]}, "
+            f"{time.perf_counter() - t0:.1f} s"
+            + ("" if first is res else f"; transforms bit-equal to the kernel's: {same}"))
 
 
 def check_dense_kernels(frames_np, feats, guess_np, dev, results, ablation=False):
@@ -421,7 +707,7 @@ def check_dense_kernels(frames_np, feats, guess_np, dev, results, ablation=False
         results[kname]["max_abs_err"] = err
 
 
-def check_ell_channel_kernels(frames_np, feats, guess_np, dev, results):
+def check_ell_channel_kernels(frames_np, feats, guess_np, dev, results, floor):
     """Phase 2c: the ELL kernel variants at the bench shapes (frames 0 -> 1,
     bench guess, K = 32, ell_init): flow_reduce, flow_rows and
     step_uncached against their plain versions on four lists: geometry
@@ -451,7 +737,7 @@ def check_ell_channel_kernels(frames_np, feats, guess_np, dev, results):
     guess = torch.from_numpy(guess_np).to(dev)
     Rinv, Tinv = lie.invert_rt(guess[:3, :3], guess[:3, 3])
     variants = {"flow_reduce": {}, "flow_rows": {}, "step_uncached": {}}
-    errs = dict.fromkeys(variants, 0.0)
+    errs = dict.fromkeys([*variants, "step_cached"], 0.0)
     timed = []
     ell_ops.reset_launches()
     for label, params, fields, builder in sets:
@@ -470,15 +756,12 @@ def check_ell_channel_kernels(frames_np, feats, guess_np, dev, results):
         fk = ell_ops.flow_reduce(xp, nl.y_xyz, scal, params.c, params.d, **ch)
         fp = ell_ops.flow_reduce_plain(xp, nl.y_xyz, scal, params.c, params.d, **ch)
         torch.cuda.synchronize()
+        a_rel, A_err, tw_err, _ = flow_agree(fk, fp, f"({v}) on the {label} list")
         nz_k, nz_p = int(fk[2]), int(fp[2])
-        a_rel = abs(float(fk[3]) - float(fp[3])) / abs(float(fp[3]))
-        A_err = float(torch.max(torch.abs(fk[4] - fp[4])))
-        tw_err = float(torch.max(torch.abs(fk[0] - fp[0])))
-        if not (nz_k == nz_p > 0 and a_rel <= 1e-5 and A_err <= 1e-6 and tw_err <= 1e-4):
-            raise SystemExit(f"flow_reduce ({v}) disagrees on the {label} list: nonzeros "
-                             f"{nz_k} vs {nz_p}, a_sum rel {a_rel}, A abs {A_err}, "
-                             f"twist abs {tw_err}")
-        errs["flow_reduce"] = max(errs["flow_reduce"], A_err, tw_err)
+        f_err, s_err = ell_consume_checks(ell_ops, params, xp, nl.y_xyz, scal, Rinv, Tinv,
+                                          f"({v}) on the {label} list", **ch)
+        errs["flow_reduce"] = max(errs["flow_reduce"], A_err, tw_err, f_err)
+        errs["step_cached"] = max(errs["step_cached"], s_err)
 
         rk = ell_ops.flow_rows(xp, nl.y_xyz, scal, **ch)
         rp = ell_ops.flow_rows_plain(xp, nl.y_xyz, scal, **ch)
@@ -514,10 +797,13 @@ def check_ell_channel_kernels(frames_np, feats, guess_np, dev, results):
             f"overflow {int(nl.overflow)}): flow_reduce nonzeros {nz_k} (exact), a_sum rel "
             f"{a_rel:.3g}, A abs {A_err:.3g}, twist abs {tw_err:.3g}; flow_rows s, wy, cnt "
             f"within tolerance, a_sum rel {r_rel:.3g}; step_uncached B..E {bk.tolist()} "
-            f"(plain {bp.tolist()}, equal to step_cached on the kernel's A)")
+            f"(plain {bp.tolist()}, equal to step_cached on the kernel's A); reruns "
+            f"bit-equal, device-twist step within rtol 1e-4, N = "
+            f"{' and '.join(map(str, N_ODD))} within tolerance")
         if label != "all channels":
             timed.append((v, xp, nl, scal, scal_t, ch, params))
 
+    check_counters_zero(ell_ops, dev, "phase 2c")
     launches = {name: (getattr(ell_ops, name).launches, dict(getattr(ell_ops, name).variant_launches))
                 for name in ("flow_rows", "step_uncached")}
     for v, xp, nl, scal, scal_t, ch, params in timed:
@@ -542,11 +828,11 @@ def check_ell_channel_kernels(frames_np, feats, guess_np, dev, results):
             ms, plain_ms = device_ms(kfn), device_ms(pfn)
             variants[kname][v] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                                   "bound_by": b_by}
-            log(f"time   {kname} ({v}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_by})")
+            log(f"time   {kname} ({v}): kernel {ms:.4f} ms (launch floor {floor:.4f} ms), "
+                f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     results["flow_reduce"]["variants"] = variants["flow_reduce"]
-    results["flow_reduce"]["max_abs_err"] = max(results["flow_reduce"]["max_abs_err"],
-                                                errs["flow_reduce"])
+    for kname in ("flow_reduce", "step_cached"):
+        results[kname]["max_abs_err"] = max(results[kname]["max_abs_err"], errs[kname])
     for kname, replaces in (("flow_rows", "unified_cvo_tpu/ops/pallas_ell.py:168 (_flow_kernel)"),
                             ("step_uncached",
                              "unified_cvo_tpu/ops/pallas_ell.py:249 (_step_kernel, reduced)")):
@@ -619,9 +905,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=8,
                     help="timed frame pairs of the main path (after one warm-up pair)")
-    ap.add_argument("--dense-ablation", action="store_true",
-                    help="build, check and time the dense kernels and their measurement "
-                         "builds (phases 1 and 2b only), then stop without a result line")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--dense-ablation", action="store_true",
+                      help="build, check and time the dense kernels and their measurement "
+                           "builds (phases 1 and 2b only), then stop without a result line")
+    mode.add_argument("--ell-ablation", action="store_true",
+                      help="build, check and time the ELL consume kernels and their "
+                           "measurement builds (after phase 1), then stop without a "
+                           "result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -652,7 +943,7 @@ def main(argv=None) -> int:
         for line in rep.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  {name}.cu: {line.strip()}")
-            elif name == "dense" and "Compiling entry function" in line:
+            elif name in ("dense", "ell") and "Compiling entry function" in line:
                 log(f"  {name}.cu: {line.split("'")[1]}")
 
     dev = torch.device("cuda")
@@ -661,15 +952,21 @@ def main(argv=None) -> int:
 
     # ---- phase 2: each kernel against its plain version at bench shapes
     results = {}
+    floor = launch_floor_ms()
+    log(f"launch floor: {floor:.4f} ms per empty kernel, back to back")
     if args.dense_ablation:
         check_dense_kernels(frames_np, feats, guess_np, dev, results, ablation=True)
         return 0
-    check_kernels(frames_np, guess_np, params, dev, results)
+    if args.ell_ablation:
+        ell_ablation(frames_np, feats, guess_np, dev, floor, reports.get("ell", ""))
+        pose_error_witness(frames_np, T_true, guess_np, dev)
+        return 0
+    check_kernels(frames_np, guess_np, params, dev, results, floor)
     t0 = time.perf_counter()
     check_dense_kernels(frames_np, feats, guess_np, dev, results)
     log(f"phase 2b (dense kernel checks and timings): {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    check_ell_channel_kernels(frames_np, feats, guess_np, dev, results)
+    check_ell_channel_kernels(frames_np, feats, guess_np, dev, results, floor)
     log(f"phase 2c (ELL kernel variants, checks and timings): {time.perf_counter() - t0:.2f} s")
 
     # ---- phase 3: the main path

@@ -187,6 +187,33 @@ def test_explicit_ell_runs_small_clouds():
     assert bool(torch.all(torch.isfinite(T)))
 
 
+def test_ell_loop_packs_one_scalar_block_per_iteration(monkeypatch):
+    """The ELL loop builds one scalar block per iteration (pose only) and
+    hands the flow's twist to the step, which builds the twist part."""
+    from unified_cvo_tpu_torch.ops import ell as t_ell
+
+    packs, twists = [], []
+    real_pack, real_step = t_ell.pack_scalars, t_ell.step_cached
+
+    def pack_spy(*a, **kw):
+        packs.append(len(a) > 3 or "twist" in kw)
+        return real_pack(*a, **kw)
+
+    def step_spy(*a, twist=None, **kw):
+        twists.append(twist is not None)
+        return real_step(*a, twist=twist, **kw)
+
+    monkeypatch.setattr(t_ell, "pack_scalars", pack_spy)
+    monkeypatch.setattr(t_ell, "step_cached", step_spy)
+    xyz, xyz2, ig, _, jp = _case_1024()
+    tp = convert.params_from_fields(dataclasses.asdict(jp))
+    _, _, info = t_align(t_make(xyz, bucket=1024, device="cpu"),
+                         t_make(xyz2, bucket=1024, device="cpu"), ig, tp,
+                         device="cpu", backend="ell", max_iter=3, nl_k=32)
+    assert info.iterations == 3
+    assert packs == [False] * 3 and twists == [True] * 3
+
+
 @pytest.mark.parametrize("caps, flags, device, want", [
     ((1024, 1024), {}, "cpu", "jnp"),
     ((4096, 2048), {}, "cpu", "jnp"),

@@ -147,6 +147,55 @@ def test_cpu_wrappers_take_the_plain_path(setup, monkeypatch):
     assert (t_ell.flow_reduce.launches, t_ell.step_cached.launches) == (flow0, step0)
 
 
+@pytest.mark.parametrize("which", ["flow_twist", "zero"])
+def test_twist_scalars_match_jax(setup, which):
+    """twist_scalars is the twist part (S_OM2 ..) of the JAX scalar block."""
+    s = setup
+    tw = s["flow_j"][0] if which == "flow_twist" else jnp.zeros((6,), jnp.float32)
+    ref = np.asarray(pe.pack_scalars(s["jp"], s["Rinv"], s["Tinv"], tw))[t_ell.S_OM2:]
+    got = t_ell.twist_scalars(torch.from_numpy(np.array(tw)))
+    assert got.shape == (t_ell.S_LEN - t_ell.S_OM2,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-7)
+
+
+def test_step_plain_takes_the_twist(setup):
+    """step_cached_plain(..., scal without twist, twist=u) is bit-equal to
+    the step on the host-built block pack_scalars(..., u), and matches the
+    Pallas step in interpret mode at the step's tolerance."""
+    s = setup
+    unit_j, _, _, _, a_j = s["flow_j"]
+    u = torch.from_numpy(np.array(unit_j))
+    xp, a = _xp(s), torch.from_numpy(np.array(a_j))
+    got = t_ell.step_cached_plain(xp, s["t_nl"].y_xyz, a,
+                                  t_ell.pack_scalars(s["tp"], s["tR"], s["tT"]), twist=u)
+    host = t_ell.step_cached_plain(xp, s["t_nl"].y_xyz, a,
+                                   t_ell.pack_scalars(s["tp"], s["tR"], s["tT"], u))
+    assert torch.equal(got, host)
+    want = pe.step_coeffs_ell_fused_cached(
+        s["jp"], s["ell"], s["src"], s["nl"], s["Rinv"], s["Tinv"], unit_j, a_j,
+        tile_n=TILE, interpret=True)
+    for g, w in zip(got.tolist(), want):
+        np.testing.assert_allclose(g, float(w), rtol=1e-3, atol=1e-4)
+
+
+def test_cpu_step_with_twist_takes_the_plain_path(setup, monkeypatch):
+    """step_cached(..., twist=) on CPU tensors runs the plain version, never
+    loads a library and never counts a launch."""
+    s = setup
+
+    def no_build(name):
+        raise AssertionError(f"a CPU call tried to load the {name} kernel")
+
+    monkeypatch.setattr(cuda_lib, "load", no_build)
+    step0 = t_ell.step_cached.launches
+    xp = _xp(s)
+    scal = t_ell.pack_scalars(s["tp"], s["tR"], s["tT"])
+    unit, _, _, _, a = t_ell.flow_reduce(xp, s["t_nl"].y_xyz, scal, s["tp"].c, s["tp"].d)
+    got = t_ell.step_cached(xp, s["t_nl"].y_xyz, a, scal, twist=unit)
+    assert torch.equal(got, t_ell.step_cached_plain(xp, s["t_nl"].y_xyz, a, scal, unit))
+    assert t_ell.step_cached.launches == step0
+
+
 @pytest.fixture(scope="module", params=t_ell.VARIANTS)
 def case(request):
     """One list per kernel variant, consumed half-way to the true pose."""

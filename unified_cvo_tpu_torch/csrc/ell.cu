@@ -18,27 +18,45 @@
 // of them share; step_tail is the one back half of both step passes, so
 // the cached and uncached steps cannot drift apart.
 //
-// What bounds them on this card: bytes. Each slot costs a few dozen flops
-// and one expf against 16-20 bytes of slot data (raw xyz in, plus chan in
-// and A out for flow; raw xyz and A or chan in for step); at N = 16384,
-// K = 32 a pass moves about 9-11 MB, a few microseconds of HBM time, while
-// the arithmetic is far below the f32 peak. The design therefore reads
-// every slot array exactly once, coalesced, and keeps all intermediates in
-// registers:
-//   * a block is 32 source points (threadIdx.x, adjacent in memory) times
-//     8 slot groups (threadIdx.y); thread (x, y) walks slots k = y, y+8, ...
-//     of point x, so every load of y_xyz[c, k, n] / chan[k, n] / A[k, n] is
-//     a 128-byte coalesced row segment, and N/32 blocks fill the 132 SMs;
+// What bounds them on this card: bytes, and below that the fixed cost of a
+// launch. Each slot costs a few dozen flops and one expf against 16-20
+// bytes of slot data (raw xyz in, plus chan in and A out for flow; raw xyz
+// and A or chan in for step); at N = 16384, K = 32 a pass moves about 9-11
+// MB, under 3.3 us of HBM time and less from the 50 MB L2 that holds it
+// across iterations, while the arithmetic is far below the f32 peak. So:
+//   * every slot array is read exactly once, coalesced: a block is 32
+//     threads along the points times TK slot groups; thread (x, y) walks
+//     slots k = y, y + TK, ... of its points. The flow takes 8 slot groups
+//     and 4 adjacent points a thread (vector loads where N allows), the
+//     step 4 slot groups and one point, so that its ~96 registers a thread
+//     still fit all 512 blocks in one wave (the shapes that lost on the
+//     H100 are recorded in PERF.md);
+//   * at K = UNROLL_K (the builders' default) the slot count is a compile-
+//     time constant: a thread issues its point rows and all of its slot
+//     loads (y x 3, plus chan or A) before it waits at the block barrier for
+//     the scalar block, so its trips to memory overlap each other and that
+//     wait; any other K takes the runtime loop with the same arithmetic in
+//     the same order;
 //   * the per-point flow moments (x cross wy, wy - s x) are linear in the
-//     slot sums, so each thread forms them from its own partial sums and no
-//     per-point exchange is needed; the row-flow pass, which must write
-//     whole per-point rows, combines the 8 slot groups through shared
-//     memory in a fixed order instead;
-//   * the block reduces in a fixed order into per-block partials, and a
-//     one-block second stage sums them in a fixed order: no float atomics,
-//     reruns give identical bits;
-//   * the pose and twist scalars arrive as a device pointer to the [32]
-//     block built by pack_scalars, so no value crosses to the host.
+//     slot sums, so each thread forms them from its own partial sums; the
+//     block reduces its 7 floats and its integer count in one shared-memory
+//     pass into per-block partials;
+//   * one launch per pass: each block writes its partials, fences, and takes
+//     a ticket from a per-kernel counter; the block that takes the last
+//     ticket sums all partials in block-index order, writes the outputs and
+//     sets the counter back to 0 for the next launch. The order of the sums
+//     does not depend on which block comes last, so reruns give identical
+//     bits; no float atomics. The counters belong to the wrapper
+//     (ops/ell.py, one set per device) and assume one stream per device, as
+//     the port runs: two launches of one kernel in flight at once on two
+//     streams would share a counter;
+//   * the pose scalars arrive as a device pointer to the [32] block built
+//     by pack_scalars; the step can also take the flow's unit twist [6] as
+//     a device pointer and build the block's twist part itself (thread 0 of
+//     each block, in twist_scalars' operation order), so no value crosses
+//     to the host and the host builds one scalar block per iteration.
+// flow_rows keeps its two-launch shape (32 points x 8 slot groups, then a
+// one-block final stage).
 //
 // Compiled with -fmad=false (never --use_fast_math): each multiply and add
 // rounds as the plain PyTorch version's separate ops do, so the kernel
@@ -46,8 +64,27 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "reduce.cuh"
+
+// Design switches, all 1 in the package's build; measurement builds
+// (chip_smoke.py --ell-ablation) set one to 0 to time what it is worth:
+//   ELL_ONE_LAUNCH  flow_reduce, step_cached and step_uncached finish in the
+//                   last block to arrive (0: in a second, one-block kernel)
+//   ELL_UNROLL      K = UNROLL_K specialised and unrolled, every slot load in
+//                   flight before the barrier (0: the runtime-K loop)
+//   ELL_FUSED_SUM   the flow's 7 floats and its count in one block
+//                   reduction (0: one reduction each)
+#ifndef ELL_ONE_LAUNCH
+#define ELL_ONE_LAUNCH 1
+#endif
+#ifndef ELL_UNROLL
+#define ELL_UNROLL 1
+#endif
+#ifndef ELL_FUSED_SUM
+#define ELL_FUSED_SUM 1
+#endif
 
 namespace {
 
@@ -60,15 +97,50 @@ enum {
 // per-point rows, as pack_x builds them
 enum { X0 = 0, X1 = 1, X2 = 2, THRES = 3, NEGI2L2 = 4, COEF = 5 };
 
+constexpr int FLOW_NV = 7;         // omega(3), v(3), a_sum
+constexpr int STEP_NV = 4;         // B, C, D, E
+
+// flow_reduce, step_cached and step_uncached
+constexpr int TX = 32;             // threads along the points
+constexpr int UNROLL_K = 32;       // nbr.DEFAULT_K
+constexpr int FLOW_TK = 8;         // flow: slot groups per block
+constexpr int FLOW_VEC = 4;        // flow: adjacent points a thread
+constexpr int STEP_TK = 4;         // step: slot groups per block, one point a thread
+constexpr int FLOW_THREADS = TX * FLOW_TK;
+constexpr int STEP_THREADS = TX * STEP_TK;
+static_assert(UNROLL_K % FLOW_TK == 0 && UNROLL_K % STEP_TK == 0,
+              "the unrolled slot loop splits UNROLL_K evenly over the slot groups");
+static_assert(FLOW_THREADS <= 1024 && STEP_THREADS <= 1024, "at most 1024 threads a block");
+
+// flow_rows: 32 points x 8 slot groups, then a one-block final stage
 constexpr int TN = 32;             // source points per block
 constexpr int TK = 8;              // slot groups per block
 constexpr int THREADS = TN * TK;   // 256
 constexpr int FINAL_THREADS = 256;
-constexpr int FLOW_NV = 7;         // omega(3), v(3), a_sum
-constexpr int STEP_NV = 4;         // B, C, D, E
 
 // variant codes of the C interface (ops/ell.py VARIANTS)
 enum { V_GEO = 0, V_GEO_CHAN = 1, V_CHAN = 2 };
+
+// VEC adjacent floats from p (aligned to 4 * VEC bytes), read-only path.
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&r)[VEC]) {
+  static_assert(VEC == 1 || VEC == 4, "1 or 4 points a thread");
+  if constexpr (VEC == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    r[0] = t.x; r[1] = t.y; r[2] = t.z; r[3] = t.w;
+  } else {
+    r[0] = __ldg(p);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float (&r)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  } else {
+    p[0] = r[0];
+  }
+}
 
 // Raw slot coordinates moved by (R_inv, T_inv).
 __device__ __forceinline__ void move_slot(const float* s, float ya, float yb,
@@ -105,77 +177,71 @@ __device__ __forceinline__ float slot_a(const float* s, float x0, float x1,
   return (ok && a > s[S_SP]) ? a : 0.f;
 }
 
-// Flow pass with reduced moments and A written out; one launch of the
-// <GEO, CHAN> variant per call.
-template <bool GEO, bool CHAN>
-__global__ void __launch_bounds__(THREADS)
-flow_partial_kernel(const float* __restrict__ xp, const float* __restrict__ y,
-                    const float* __restrict__ chan,
-                    const float* __restrict__ scal, float* __restrict__ A,
-                    float* __restrict__ part, int* __restrict__ part_cnt,
-                    int N, int K) {
-  __shared__ float s[S_LEN];
-  __shared__ float red[FLOW_NV * THREADS / 32];
-  __shared__ int red_cnt[THREADS / 32];
-  const int tid = threadIdx.y * TN + threadIdx.x;
-  if (tid < S_LEN) s[tid] = scal[tid];
-  __syncthreads();
-
-  float acc[FLOW_NV] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  int cnt[1] = {0};
-  const int n = blockIdx.x * TN + threadIdx.x;
-  if (n < N) {
-    const float x0 = xp[X0 * N + n], x1 = xp[X1 * N + n], x2 = xp[X2 * N + n];
-    const float thres = xp[THRES * N + n], negi = xp[NEGI2L2 * N + n];
-    const size_t plane = (size_t)K * N;
-    float sa = 0.f, w0 = 0.f, w1 = 0.f, w2 = 0.f;
-    for (int k = threadIdx.y; k < K; k += TK) {
-      const size_t o = (size_t)k * N + n;
-      float t0, t1, t2;
-      move_slot(s, y[o], y[plane + o], y[2 * plane + o], t0, t1, t2);
-      const float a = slot_a<GEO, CHAN>(s, x0, x1, x2, thres, negi, t0, t1, t2,
-                                        CHAN ? chan[o] : 0.f);
-      A[o] = a;
-      sa += a;
-      w0 += a * t0;
-      w1 += a * t1;
-      w2 += a * t2;
-      cnt[0] += a > 0.f;
-    }
-    acc[0] = x1 * w2 - x2 * w1;
-    acc[1] = x2 * w0 - x0 * w2;
-    acc[2] = x0 * w1 - x1 * w0;
-    acc[3] = w0 - sa * x0;
-    acc[4] = w1 - sa * x1;
-    acc[5] = w2 - sa * x2;
-    acc[6] = sa;
-  }
-  cvo::block_sum<float, FLOW_NV>(acc, red, tid, THREADS);
-  cvo::block_sum<int, 1>(cnt, red_cnt, tid, THREADS);
-  if (tid == 0) {
-#pragma unroll
-    for (int i = 0; i < FLOW_NV; ++i) part[blockIdx.x * FLOW_NV + i] = acc[i];
-    part_cnt[blockIdx.x] = cnt[0];
-  }
+// Twist part of the scalar block (S_OM2 .. S_VOM) from the unit twist
+// (omega, v), in the operation order of ops/ell.py::twist_scalars: W v and
+// W^2 v as cross products with omega, dots summed left to right.
+__device__ __forceinline__ void twist_scalars(const float* tw, float* s) {
+  const float w0 = tw[0], w1 = tw[1], w2 = tw[2];
+  const float v0 = tw[3], v1 = tw[4], v2 = tw[5];
+  const float a0 = w1 * v2 - w2 * v1, a1 = w2 * v0 - w0 * v2, a2 = w0 * v1 - w1 * v0;
+  const float c0 = w1 * a2 - w2 * a1, c1 = w2 * a0 - w0 * a2, c2 = w0 * a1 - w1 * a0;
+  s[S_OM2] = w0 * w0 + w1 * w1 + w2 * w2;
+  s[S_VV] = v0 * v0 + v1 * v1 + v2 * v2;
+  s[S_OMEGA] = w0; s[S_OMEGA + 1] = w1; s[S_OMEGA + 2] = w2;
+  s[S_V] = v0; s[S_V + 1] = v1; s[S_V + 2] = v2;
+  s[S_WV] = a0; s[S_WV + 1] = a1; s[S_WV + 2] = a2;
+  s[S_C2] = c0; s[S_C2 + 1] = c1; s[S_C2 + 2] = c2;
+  s[S_VWV] = v0 * a0 + v1 * a1 + v2 * a2;
+  s[S_WV2] = a0 * a0 + a1 * a1 + a2 * a2;
+  s[S_VC2] = v0 * c0 + v1 * c1 + v2 * c2;
+  s[S_VOM] = v0 * w0 + v1 * w1 + v2 * w2;
 }
 
-// out[0:6] unit twist, out[6] joint norm, out[7] a_sum; out_nz[0] nonzeros
-__global__ void __launch_bounds__(FINAL_THREADS)
-flow_final_kernel(const float* __restrict__ part, const int* __restrict__ part_cnt,
-                  int nblocks, float c, float d, float* __restrict__ out,
-                  int* __restrict__ out_nz) {
-  __shared__ float red[FLOW_NV * FINAL_THREADS / 32];
-  __shared__ int red_cnt[FINAL_THREADS / 32];
-  const int tid = threadIdx.x;
+// True in every thread of the block that finishes last. Thread 0 wrote the
+// block's partials itself and takes a ticket with an acquire-release atomic
+// at device scope: its partials are visible before its ticket, and the
+// block with ticket gridDim.x - 1 sees every earlier block's partials; the
+// barrier then orders the block's loads after that acquire.
+__device__ __forceinline__ bool last_block_in(int* counter, int tid) {
+  __shared__ int last;
+  if (tid == 0) {
+    int ticket;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+                 : "=r"(ticket) : "l"(counter) : "memory");
+    last = ticket == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  return last != 0;
+}
+
+template <int NT>
+__device__ __forceinline__ void flow_block_sum(float (&acc)[FLOW_NV], int (&cnt)[1],
+                                               float* red, int* red_cnt, int tid) {
+#if ELL_FUSED_SUM
+  cvo::block_sum<float, FLOW_NV, int, 1>(acc, cnt, red, red_cnt, tid, NT);
+#else
+  cvo::block_sum<float, FLOW_NV>(acc, red, tid, NT);
+  cvo::block_sum<int, 1>(cnt, red_cnt, tid, NT);
+#endif
+}
+
+// Flow outputs from nblocks partials, run by one whole block of NT threads:
+// thread t sums blocks t, t + NT, ... in order, then the block reduces in
+// its fixed order. out[0:6] unit twist, out[6] joint norm, out[7] a_sum;
+// out_nz[0] nonzeros. Sets *counter back to 0 when given.
+template <int NT>
+__device__ __forceinline__ void flow_finish(const float* part, const int* part_cnt,
+                                            int nblocks, float c, float d,
+                                            float* out, int* out_nz, float* red,
+                                            int* red_cnt, int tid, int* counter) {
   float acc[FLOW_NV] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   int cnt[1] = {0};
-  for (int b = tid; b < nblocks; b += FINAL_THREADS) {
+  for (int b = tid; b < nblocks; b += NT) {
 #pragma unroll
-    for (int i = 0; i < FLOW_NV; ++i) acc[i] += part[b * FLOW_NV + i];
-    cnt[0] += part_cnt[b];
+    for (int i = 0; i < FLOW_NV; ++i) acc[i] += __ldcg(part + b * FLOW_NV + i);
+    cnt[0] += __ldcg(part_cnt + b);
   }
-  cvo::block_sum<float, FLOW_NV>(acc, red, tid, FINAL_THREADS);
-  cvo::block_sum<int, 1>(cnt, red_cnt, tid, FINAL_THREADS);
+  flow_block_sum<NT>(acc, cnt, red, red_cnt, tid);
   if (tid == 0) {
     float joint[6];
     for (int i = 0; i < 3; ++i) joint[i] = acc[i] / c;
@@ -188,7 +254,178 @@ flow_final_kernel(const float* __restrict__ part, const int* __restrict__ part_c
     out[6] = jn;
     out[7] = acc[6];
     out_nz[0] = cnt[0];
+    if (counter != nullptr) *counter = 0;
   }
+}
+
+// B, C, D, E from nblocks partials, as flow_finish.
+template <int NT>
+__device__ __forceinline__ void step_finish(const float* part, int nblocks,
+                                            float* out, float* red, int tid,
+                                            int* counter) {
+  float acc[STEP_NV] = {0.f, 0.f, 0.f, 0.f};
+  for (int b = tid; b < nblocks; b += NT) {
+#pragma unroll
+    for (int i = 0; i < STEP_NV; ++i) acc[i] += __ldcg(part + b * STEP_NV + i);
+  }
+  cvo::block_sum<float, STEP_NV>(acc, red, tid, NT);
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < STEP_NV; ++i) out[i] = acc[i];
+    if (counter != nullptr) *counter = 0;
+  }
+}
+
+struct FlowArgs {
+  const float* xp;    // [6, N]
+  const float* y;     // [3, K, N]
+  const float* chan;  // [K, N] (variants with a channel factor)
+  const float* scal;  // [32]
+  float* A;           // [K, N] out
+  float* part;        // [nblocks, 7] scratch
+  int* part_cnt;      // [nblocks] scratch
+  int* counter;       // finish ticket, 0 between launches
+  float* out;         // [8] out
+  int* out_nz;        // [1] out
+  int N, K;
+  float c, d;
+};
+
+// One slot of one point in the flow pass: its A, and its share of the
+// point's sums.
+template <bool GEO, bool CHAN>
+__device__ __forceinline__ float flow_slot(const float* s, float ya, float yb,
+                                           float yc, float ch, float x0, float x1,
+                                           float x2, float thres, float negi,
+                                           float& sa, float& w0, float& w1,
+                                           float& w2, int& cnt) {
+  float t0, t1, t2;
+  move_slot(s, ya, yb, yc, t0, t1, t2);
+  const float a = slot_a<GEO, CHAN>(s, x0, x1, x2, thres, negi, t0, t1, t2, ch);
+  sa += a;
+  w0 += a * t0;
+  w1 += a * t1;
+  w2 += a * t2;
+  cnt += a > 0.f;
+  return a;
+}
+
+// Flow pass: A written out, moments reduced, finished in the last block.
+// KC > 0: K == KC, unrolled. VEC points a thread (N % VEC == 0).
+template <bool GEO, bool CHAN, int KC, int VEC>
+__global__ void __launch_bounds__(FLOW_THREADS)
+flow_reduce_kernel(const FlowArgs p) {
+  constexpr int NT = FLOW_THREADS;
+  constexpr int SL = KC > 0 ? KC / FLOW_TK : 1;   // slots a thread, unrolled
+  __shared__ float s[S_LEN];
+  __shared__ float red[FLOW_NV * NT / 32];
+  __shared__ int red_cnt[NT / 32];
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  const int N = p.N;
+  const int n0 = (blockIdx.x * TX + threadIdx.x) * VEC;
+  const bool live = n0 < N;   // N % VEC == 0: a thread's points are all in range or none
+  const size_t plane = (size_t)p.K * N;
+
+  // the point rows and, unrolled, every slot: loads issued before the block
+  // waits for its scalar block
+  float x0[VEC], x1[VEC], x2[VEC], thres[VEC], negi[VEC];
+  float ya[SL][VEC], yb[SL][VEC], yc[SL][VEC], ch[SL][VEC];
+  if (live) {
+    load_vec<VEC>(p.xp + X0 * N + n0, x0);
+    load_vec<VEC>(p.xp + X1 * N + n0, x1);
+    load_vec<VEC>(p.xp + X2 * N + n0, x2);
+    load_vec<VEC>(p.xp + THRES * N + n0, thres);
+    load_vec<VEC>(p.xp + NEGI2L2 * N + n0, negi);
+    if constexpr (KC > 0) {
+#pragma unroll
+      for (int i = 0; i < SL; ++i) {
+        const size_t o = (size_t)(threadIdx.y + i * FLOW_TK) * N + n0;
+        load_vec<VEC>(p.y + o, ya[i]);
+        load_vec<VEC>(p.y + plane + o, yb[i]);
+        load_vec<VEC>(p.y + 2 * plane + o, yc[i]);
+        if (CHAN) {
+          load_vec<VEC>(p.chan + o, ch[i]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) ch[i][j] = 0.f;
+        }
+      }
+    }
+  }
+  if (tid < S_LEN) s[tid] = p.scal[tid];
+  __syncthreads();
+
+  float acc[FLOW_NV] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  int cnt[1] = {0};
+  if (live) {
+    float sa[VEC], w0[VEC], w1[VEC], w2[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) { sa[j] = 0.f; w0[j] = 0.f; w1[j] = 0.f; w2[j] = 0.f; }
+    if constexpr (KC > 0) {
+#pragma unroll
+      for (int i = 0; i < SL; ++i) {
+        float a[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          a[j] = flow_slot<GEO, CHAN>(s, ya[i][j], yb[i][j], yc[i][j], ch[i][j], x0[j],
+                                      x1[j], x2[j], thres[j], negi[j], sa[j], w0[j],
+                                      w1[j], w2[j], cnt[0]);
+        store_vec<VEC>(p.A + (size_t)(threadIdx.y + i * FLOW_TK) * N + n0, a);
+      }
+    } else {
+      // runtime K (SL = 1): each slot loaded into row 0, then used
+      for (int k = threadIdx.y; k < p.K; k += FLOW_TK) {
+        const size_t o = (size_t)k * N + n0;
+        float a[VEC];
+        load_vec<VEC>(p.y + o, ya[0]);
+        load_vec<VEC>(p.y + plane + o, yb[0]);
+        load_vec<VEC>(p.y + 2 * plane + o, yc[0]);
+        if (CHAN) {
+          load_vec<VEC>(p.chan + o, ch[0]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) ch[0][j] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < VEC; ++j)
+          a[j] = flow_slot<GEO, CHAN>(s, ya[0][j], yb[0][j], yc[0][j], ch[0][j], x0[j], x1[j],
+                                      x2[j], thres[j], negi[j], sa[j], w0[j], w1[j], w2[j],
+                                      cnt[0]);
+        store_vec<VEC>(p.A + o, a);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      acc[0] += x1[j] * w2[j] - x2[j] * w1[j];
+      acc[1] += x2[j] * w0[j] - x0[j] * w2[j];
+      acc[2] += x0[j] * w1[j] - x1[j] * w0[j];
+      acc[3] += w0[j] - sa[j] * x0[j];
+      acc[4] += w1[j] - sa[j] * x1[j];
+      acc[5] += w2[j] - sa[j] * x2[j];
+      acc[6] += sa[j];
+    }
+  }
+  flow_block_sum<NT>(acc, cnt, red, red_cnt, tid);
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < FLOW_NV; ++i) p.part[blockIdx.x * FLOW_NV + i] = acc[i];
+    p.part_cnt[blockIdx.x] = cnt[0];
+  }
+#if ELL_ONE_LAUNCH
+  if (last_block_in(p.counter, tid))
+    flow_finish<NT>(p.part, p.part_cnt, gridDim.x, p.c, p.d, p.out, p.out_nz, red,
+                    red_cnt, tid, p.counter);
+#endif
+}
+
+// The second launch of a two-launch build (ELL_ONE_LAUNCH=0).
+template <int NT>
+__global__ void __launch_bounds__(NT)
+flow_final_kernel(const FlowArgs p, int nblocks) {
+  __shared__ float red[FLOW_NV * NT / 32];
+  __shared__ int red_cnt[NT / 32];
+  flow_finish<NT>(p.part, p.part_cnt, nblocks, p.c, p.d, p.out, p.out_nz, red, red_cnt,
+                  threadIdx.x, nullptr);
 }
 
 // Row-flow pass (_flow_kernel): per-point rows s [N], wy [3, N] and
@@ -336,118 +573,215 @@ __device__ __forceinline__ void step_tail(const float* s, float a, float t0,
                  + 0.5f * gamma * gamma + b2 * b2 / 24.f);
 }
 
-// Step pass. CACHED reads A (from the flow pass) from `aux`; otherwise A is
-// recomputed by the <GEO, CHAN> front half, with `aux` the channel factor
-// (read only when CHAN).
+struct StepArgs {
+  const float* xp;     // [6, N]
+  const float* y;      // [3, K, N]
+  const float* aux;    // [K, N]: A (cached), chan (uncached with a channel factor)
+  const float* scal;   // [32]
+  const float* twist;  // [6] unit twist, or null: the twist part of scal
+  float* part;         // [nblocks, 4] scratch
+  int* counter;        // finish ticket, 0 between launches
+  float* out;          // [4] out
+  int N, K;
+};
+
+// One slot of one point in the step pass. CACHED takes A from `av`;
+// otherwise A is recomputed by the <GEO, CHAN> front half, with `av` the
+// channel factor (used only when CHAN).
 template <bool CACHED, bool GEO, bool CHAN>
-__global__ void __launch_bounds__(THREADS)
-step_partial_kernel(const float* __restrict__ xp, const float* __restrict__ y,
-                    const float* __restrict__ aux, const float* __restrict__ scal,
-                    float* __restrict__ part, int N, int K) {
+__device__ __forceinline__ void step_slot(const float* s, float ya, float yb, float yc,
+                                          float av, float x0, float x1, float x2,
+                                          float thres, float negi, float coef,
+                                          float xom, float xv, float xwv, float xc2,
+                                          float (&acc)[STEP_NV]) {
+  float t0, t1, t2;
+  move_slot(s, ya, yb, yc, t0, t1, t2);
+  const float a = CACHED ? av
+                         : slot_a<GEO, CHAN>(s, x0, x1, x2, thres, negi, t0, t1, t2,
+                                             CHAN ? av : 0.f);
+  step_tail(s, a, t0, t1, t2, x0, x1, x2, coef, xom, xv, xwv, xc2, acc);
+}
+
+// Step pass, cached (A read) or uncached (A recomputed), finished in the
+// last block; one point a thread. KC as in flow_reduce_kernel. Both modes
+// visit the slots and points in the same order, so on the same A they agree
+// bit for bit.
+template <bool CACHED, bool GEO, bool CHAN, int KC>
+__global__ void __launch_bounds__(STEP_THREADS)
+step_kernel(const StepArgs p) {
+  constexpr int NT = STEP_THREADS;
+  constexpr int SL = KC > 0 ? KC / STEP_TK : 1;   // slots a thread, unrolled
+  constexpr bool READ_AUX = CACHED || CHAN;
   __shared__ float s[S_LEN];
-  __shared__ float red[STEP_NV * THREADS / 32];
-  const int tid = threadIdx.y * TN + threadIdx.x;
-  if (tid < S_LEN) s[tid] = scal[tid];
+  __shared__ float red[STEP_NV * NT / 32];
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  const int N = p.N;
+  const int n = blockIdx.x * TX + threadIdx.x;
+  const bool live = n < N;
+  const size_t plane = (size_t)p.K * N;
+
+  // loads issued before the block waits for its scalar block, as in
+  // flow_reduce_kernel
+  float x0 = 0.f, x1 = 0.f, x2 = 0.f, coef = 0.f, thres = 0.f, negi = 0.f;
+  float ya[SL], yb[SL], yc[SL], av[SL];
+  if (live) {
+    x0 = __ldg(p.xp + X0 * N + n);
+    x1 = __ldg(p.xp + X1 * N + n);
+    x2 = __ldg(p.xp + X2 * N + n);
+    coef = __ldg(p.xp + COEF * N + n);
+    if (!CACHED) {
+      thres = __ldg(p.xp + THRES * N + n);
+      negi = __ldg(p.xp + NEGI2L2 * N + n);
+    }
+    if constexpr (KC > 0) {
+#pragma unroll
+      for (int i = 0; i < SL; ++i) {
+        const size_t o = (size_t)(threadIdx.y + i * STEP_TK) * N + n;
+        ya[i] = __ldg(p.y + o);
+        yb[i] = __ldg(p.y + plane + o);
+        yc[i] = __ldg(p.y + 2 * plane + o);
+        av[i] = READ_AUX ? __ldg(p.aux + o) : 0.f;
+      }
+    }
+  }
+  if (tid < (p.twist != nullptr ? S_OM2 : S_LEN)) s[tid] = p.scal[tid];
+  if (p.twist != nullptr && tid == 0) twist_scalars(p.twist, s);
   __syncthreads();
 
   float acc[STEP_NV] = {0.f, 0.f, 0.f, 0.f};
-  const int n = blockIdx.x * TN + threadIdx.x;
-  if (n < N) {
-    const float x0 = xp[X0 * N + n], x1 = xp[X1 * N + n], x2 = xp[X2 * N + n];
-    const float coef = xp[COEF * N + n];
-    const float thres = CACHED ? 0.f : xp[THRES * N + n];
-    const float negi = CACHED ? 0.f : xp[NEGI2L2 * N + n];
-    // per-point dots of x with the constant twist vectors
+  if (live) {
+    // the point's dots with the constant twist vectors
     const float xom = x0 * s[S_OMEGA] + x1 * s[S_OMEGA + 1] + x2 * s[S_OMEGA + 2];
     const float xv = x0 * s[S_V] + x1 * s[S_V + 1] + x2 * s[S_V + 2];
     const float xwv = x0 * s[S_WV] + x1 * s[S_WV + 1] + x2 * s[S_WV + 2];
     const float xc2 = x0 * s[S_C2] + x1 * s[S_C2 + 1] + x2 * s[S_C2 + 2];
-    const size_t plane = (size_t)K * N;
-    for (int k = threadIdx.y; k < K; k += TK) {
-      const size_t o = (size_t)k * N + n;
-      float t0, t1, t2;
-      move_slot(s, y[o], y[plane + o], y[2 * plane + o], t0, t1, t2);
-      const float a = CACHED ? aux[o]
-                             : slot_a<GEO, CHAN>(s, x0, x1, x2, thres, negi, t0,
-                                                 t1, t2, CHAN ? aux[o] : 0.f);
-      step_tail(s, a, t0, t1, t2, x0, x1, x2, coef, xom, xv, xwv, xc2, acc);
+    if constexpr (KC > 0) {
+#pragma unroll
+      for (int i = 0; i < SL; ++i)
+        step_slot<CACHED, GEO, CHAN>(s, ya[i], yb[i], yc[i], av[i], x0, x1, x2, thres, negi,
+                                     coef, xom, xv, xwv, xc2, acc);
+    } else {
+      // runtime K: each slot loaded, then used
+      for (int k = threadIdx.y; k < p.K; k += STEP_TK) {
+        const size_t o = (size_t)k * N + n;
+        step_slot<CACHED, GEO, CHAN>(s, __ldg(p.y + o), __ldg(p.y + plane + o),
+                                     __ldg(p.y + 2 * plane + o),
+                                     READ_AUX ? __ldg(p.aux + o) : 0.f, x0, x1, x2, thres,
+                                     negi, coef, xom, xv, xwv, xc2, acc);
+      }
     }
   }
-  cvo::block_sum<float, STEP_NV>(acc, red, tid, THREADS);
+  cvo::block_sum<float, STEP_NV>(acc, red, tid, NT);
   if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < STEP_NV; ++i) part[blockIdx.x * STEP_NV + i] = acc[i];
+    for (int i = 0; i < STEP_NV; ++i) p.part[blockIdx.x * STEP_NV + i] = acc[i];
   }
+#if ELL_ONE_LAUNCH
+  if (last_block_in(p.counter, tid)) step_finish<NT>(p.part, gridDim.x, p.out, red, tid, p.counter);
+#endif
 }
 
-__global__ void __launch_bounds__(FINAL_THREADS)
-step_final_kernel(const float* __restrict__ part, int nblocks,
-                  float* __restrict__ out) {
-  __shared__ float red[STEP_NV * FINAL_THREADS / 32];
-  const int tid = threadIdx.x;
-  float acc[STEP_NV] = {0.f, 0.f, 0.f, 0.f};
-  for (int b = tid; b < nblocks; b += FINAL_THREADS) {
-#pragma unroll
-    for (int i = 0; i < STEP_NV; ++i) acc[i] += part[b * STEP_NV + i];
-  }
-  cvo::block_sum<float, STEP_NV>(acc, red, tid, FINAL_THREADS);
-  if (tid == 0) {
-#pragma unroll
-    for (int i = 0; i < STEP_NV; ++i) out[i] = acc[i];
-  }
+// The second launch of a two-launch build (ELL_ONE_LAUNCH=0).
+template <int NT>
+__global__ void __launch_bounds__(NT)
+step_final_kernel(const StepArgs p, int nblocks) {
+  __shared__ float red[STEP_NV * NT / 32];
+  step_finish<NT>(p.part, nblocks, p.out, red, threadIdx.x, nullptr);
+}
+
+bool aligned(const void* q, int bytes) {
+  return q == nullptr || reinterpret_cast<uintptr_t>(q) % bytes == 0;
+}
+
+template <bool GEO, bool CHAN, int KC, int VEC>
+int launch_flow(const FlowArgs& a, cudaStream_t stream) {
+  const int nblocks = (a.N + TX * VEC - 1) / (TX * VEC);
+  flow_reduce_kernel<GEO, CHAN, KC, VEC><<<nblocks, dim3(TX, FLOW_TK), 0, stream>>>(a);
+#if !ELL_ONE_LAUNCH
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flow_final_kernel<FLOW_THREADS><<<1, FLOW_THREADS, 0, stream>>>(a, nblocks);
+#endif
+  return (int)cudaGetLastError();
+}
+
+// The slot loop (unrolled at K = UNROLL_K) and the points a thread (FLOW_VEC
+// where N and every pointer allow vector loads, else 1) of this launch.
+template <bool GEO, bool CHAN>
+int dispatch_flow(const FlowArgs& a, cudaStream_t stream) {
+  constexpr int V = FLOW_VEC;
+  const bool vec = a.N % V == 0 && aligned(a.xp, 4 * V) && aligned(a.y, 4 * V)
+                   && aligned(a.chan, 4 * V) && aligned(a.A, 4 * V);
+  if (ELL_UNROLL && a.K == UNROLL_K)
+    return vec ? launch_flow<GEO, CHAN, UNROLL_K, V>(a, stream)
+               : launch_flow<GEO, CHAN, UNROLL_K, 1>(a, stream);
+  return vec ? launch_flow<GEO, CHAN, 0, V>(a, stream) : launch_flow<GEO, CHAN, 0, 1>(a, stream);
+}
+
+template <bool CACHED, bool GEO, bool CHAN, int KC>
+int launch_step(const StepArgs& a, cudaStream_t stream) {
+  const int nblocks = (a.N + TX - 1) / TX;
+  step_kernel<CACHED, GEO, CHAN, KC><<<nblocks, dim3(TX, STEP_TK), 0, stream>>>(a);
+#if !ELL_ONE_LAUNCH
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  step_final_kernel<STEP_THREADS><<<1, STEP_THREADS, 0, stream>>>(a, nblocks);
+#endif
+  return (int)cudaGetLastError();
+}
+
+// The slot loop of this launch: unrolled at K = UNROLL_K, else the runtime
+// loop.
+template <bool CACHED, bool GEO, bool CHAN>
+int dispatch_step(const StepArgs& a, cudaStream_t stream) {
+  if (ELL_UNROLL && a.K == UNROLL_K) return launch_step<CACHED, GEO, CHAN, UNROLL_K>(a, stream);
+  return launch_step<CACHED, GEO, CHAN, 0>(a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// Rows of per-block scratch any pass of this file needs for N points (one
+// block per 32 points at most).
 int cvo_ell_blocks(int N) { return (N + TN - 1) / TN; }
+
+// The build's design switches, in the order ELL_ONE_LAUNCH, ELL_UNROLL,
+// ELL_FUSED_SUM.
+void cvo_ell_design(int* out) {
+  out[0] = ELL_ONE_LAUNCH;
+  out[1] = ELL_UNROLL;
+  out[2] = ELL_FUSED_SUM;
+}
 
 // xp [6, N], y [3, K, N], chan [K, N] (variant V_GEO_CHAN or V_CHAN, else
 // unused), scal [32] -> A [K, N]; part [nblocks, 7] and part_cnt [nblocks]
-// are scratch; out [8] = (unit twist, joint norm, a_sum), out_nz [1] =
-// nonzeros.
+// are scratch, counter [1] is 0 before and after; out [8] = (unit twist,
+// joint norm, a_sum), out_nz [1] = nonzeros.
 int cvo_flow_reduce(const float* xp, const float* y, const float* chan,
                     const float* scal, float* A, float* part, int* part_cnt,
-                    float* out, int* out_nz, int N, int K, float c, float d,
-                    int variant, cudaStream_t stream) {
-  const int nblocks = cvo_ell_blocks(N);
-  const dim3 block(TN, TK);
+                    int* counter, float* out, int* out_nz, int N, int K, float c,
+                    float d, int variant, cudaStream_t stream) {
+  if (N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const FlowArgs a{xp, y, chan, scal, A, part, part_cnt, counter, out, out_nz, N, K, c, d};
   switch (variant) {
-    case V_GEO:
-      flow_partial_kernel<true, false><<<nblocks, block, 0, stream>>>(
-          xp, y, chan, scal, A, part, part_cnt, N, K);
-      break;
-    case V_GEO_CHAN:
-      flow_partial_kernel<true, true><<<nblocks, block, 0, stream>>>(
-          xp, y, chan, scal, A, part, part_cnt, N, K);
-      break;
-    case V_CHAN:
-      flow_partial_kernel<false, true><<<nblocks, block, 0, stream>>>(
-          xp, y, chan, scal, A, part, part_cnt, N, K);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case V_GEO: return dispatch_flow<true, false>(a, stream);
+    case V_GEO_CHAN: return dispatch_flow<true, true>(a, stream);
+    case V_CHAN: return dispatch_flow<false, true>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flow_final_kernel<<<1, FINAL_THREADS, 0, stream>>>(part, part_cnt, nblocks,
-                                                     c, d, out, out_nz);
-  return (int)cudaGetLastError();
 }
 
-// xp [6, N], y [3, K, N], A [K, N], scal [32] -> out [4] = (B, C, D, E);
-// part [nblocks, 4] is scratch.
+// xp [6, N], y [3, K, N], A [K, N], scal [32], twist [6] or null -> out [4]
+// = (B, C, D, E). With twist, the twist part of scal is built from it on
+// the device and scal's own is not read. part [nblocks, 4] is scratch,
+// counter [1] is 0 before and after.
 int cvo_step_cached(const float* xp, const float* y, const float* A,
-                    const float* scal, float* part, float* out, int N, int K,
-                    cudaStream_t stream) {
-  const int nblocks = cvo_ell_blocks(N);
-  step_partial_kernel<true, false, false><<<nblocks, dim3(TN, TK), 0, stream>>>(
-      xp, y, A, scal, part, N, K);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  step_final_kernel<<<1, FINAL_THREADS, 0, stream>>>(part, nblocks, out);
-  return (int)cudaGetLastError();
+                    const float* scal, const float* twist, float* part,
+                    int* counter, float* out, int N, int K, cudaStream_t stream) {
+  if (N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const StepArgs a{xp, y, A, scal, twist, part, counter, out, N, K};
+  return dispatch_step<true, false, false>(a, stream);
 }
 
 // xp [6, N], y [3, K, N], chan [K, N] (as cvo_flow_reduce), scal [32] ->
@@ -483,32 +817,19 @@ int cvo_flow_rows(const float* xp, const float* y, const float* chan,
 }
 
 // xp [6, N], y [3, K, N], chan [K, N] (as cvo_flow_reduce), scal [32] ->
-// out [4] = (B, C, D, E) with A recomputed; part [nblocks, 4] is scratch.
+// out [4] = (B, C, D, E) with A recomputed; part [nblocks, 4] is scratch,
+// counter [1] is 0 before and after.
 int cvo_step_uncached(const float* xp, const float* y, const float* chan,
-                      const float* scal, float* part, float* out, int N, int K,
-                      int variant, cudaStream_t stream) {
-  const int nblocks = cvo_ell_blocks(N);
-  const dim3 block(TN, TK);
+                      const float* scal, float* part, int* counter, float* out,
+                      int N, int K, int variant, cudaStream_t stream) {
+  if (N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const StepArgs a{xp, y, chan, scal, nullptr, part, counter, out, N, K};
   switch (variant) {
-    case V_GEO:
-      step_partial_kernel<false, true, false><<<nblocks, block, 0, stream>>>(
-          xp, y, chan, scal, part, N, K);
-      break;
-    case V_GEO_CHAN:
-      step_partial_kernel<false, true, true><<<nblocks, block, 0, stream>>>(
-          xp, y, chan, scal, part, N, K);
-      break;
-    case V_CHAN:
-      step_partial_kernel<false, false, true><<<nblocks, block, 0, stream>>>(
-          xp, y, chan, scal, part, N, K);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case V_GEO: return dispatch_step<false, true, false>(a, stream);
+    case V_GEO_CHAN: return dispatch_step<false, true, true>(a, stream);
+    case V_CHAN: return dispatch_step<false, false, true>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  step_final_kernel<<<1, FINAL_THREADS, 0, stream>>>(part, nblocks, out);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -256,11 +256,12 @@ def _ell_loop(st: _Schedule, source, target, max_iter, nl_k, nl_skin,
         while not done and k < max_iter and not drift:
             Rinv, Tinv = st.pose_inv()
             xp = ell_ops.pack_x(params, st.ell, source)
+            # one scalar block per iteration: the step builds its twist
+            # part from the flow's twist on the device
+            scal = ell_ops.pack_scalars(params, Rinv, Tinv)
             twist, joint_norm, nz, asum, A = ell_ops.flow_reduce(
-                xp, nl.y_xyz, ell_ops.pack_scalars(params, Rinv, Tinv),
-                params.c, params.d, chan=nl.chan, use_geometry=use_geo)
-            coeffs = ell_ops.step_cached(
-                xp, nl.y_xyz, A, ell_ops.pack_scalars(params, Rinv, Tinv, twist))
+                xp, nl.y_xyz, scal, params.c, params.d, chan=nl.chan, use_geometry=use_geo)
+            coeffs = ell_ops.step_cached(xp, nl.y_xyz, A, scal, twist=twist)
             finished = st.advance(k, twist, joint_norm, nz, asum, coeffs)
             k += 1
             if use_geo:

@@ -23,7 +23,14 @@ counts its launches in total (`launches`) and per variant
 
 Inputs are the JAX package's packed layout: `pack_x` [6, N] per-point rows
 for the current ell and `pack_scalars` [32] pose and twist scalars, built on
-the device so that no value crosses to the host.
+the device so that no value crosses to the host. `step_cached` also takes
+the flow's unit twist as a device tensor and builds the block's twist part
+(`twist_scalars`) in the kernel, so the loop builds one block per iteration.
+
+flow_reduce, step_cached and step_uncached each run as one launch: the last
+block to finish sums the per-block partials and resets a ticket counter.
+The counters (`finish_counters`, one int32 per kernel) are allocated once
+per device and assume one stream per device, as the port runs.
 """
 
 from __future__ import annotations
@@ -33,7 +40,6 @@ import ctypes
 import torch
 
 from unified_cvo_tpu_torch.ops import cuda_lib
-from unified_cvo_tpu_torch.ops import lie
 from unified_cvo_tpu_torch.ops.kernels import FlowStats, geometric_constants, range_ell
 from unified_cvo_tpu_torch.utils.pointcloud import PointCloud
 
@@ -71,27 +77,44 @@ def pack_x(params, ell, x: PointCloud) -> torch.Tensor:
                         -1.0 / two_l2, coef], dim=0)
 
 
+def _dot3(a, b):
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _cross(w, u):
+    return torch.stack([w[1] * u[2] - w[2] * u[1], w[2] * u[0] - w[0] * u[2],
+                        w[0] * u[1] - w[1] * u[0]])
+
+
+def twist_scalars(twist) -> torch.Tensor:
+    """[18] f32 twist part of the scalar block (S_OM2 .. S_VOM) from the
+    unit twist (omega, v): |omega|^2, |v|^2, omega, v, W v, W^2 v, v.Wv,
+    |Wv|^2, v.W^2 v, v.omega with W = skew(omega). W v and W^2 v are cross
+    products with omega and every dot sums left to right, one rounding per
+    operation: csrc/ell.cu::twist_scalars does the same operations in the
+    same order."""
+    f = torch.float32
+    omega, v = twist[:3].to(f), twist[3:].to(f)
+    Wv = _cross(omega, v)
+    c2 = _cross(omega, Wv)
+    return torch.cat([
+        torch.stack([_dot3(omega, omega), _dot3(v, v)]), omega, v, Wv, c2,
+        torch.stack([_dot3(v, Wv), _dot3(Wv, Wv), _dot3(v, c2), _dot3(v, omega)]),
+    ])
+
+
 def pack_scalars(params, R_inv, T_inv, twist=None) -> torch.Tensor:
     """[32] f32 scalar block: pose, kernel constants, and the twist's
-    Taylor vectors (zeros when no twist is given)."""
+    Taylor vectors (`twist_scalars`; zeros when no twist is given)."""
     f = torch.float32
     sigma2, sp, _ = geometric_constants(params)
     parts = [R_inv.reshape(9).to(f), T_inv.to(f),
              R_inv.new_full((1,), sigma2, dtype=f),
              R_inv.new_full((1,), sp, dtype=f)]
     if twist is None:
-        parts.append(R_inv.new_zeros((S_LEN - 14,), dtype=f))
+        parts.append(R_inv.new_zeros((S_LEN - S_OM2,), dtype=f))
     else:
-        omega, v = twist[:3].to(f), twist[3:].to(f)
-        W = lie.skew(omega)
-        Wv = W @ v
-        c2 = W @ Wv
-        parts += [
-            torch.stack([torch.dot(omega, omega), torch.dot(v, v)]),
-            omega, v, Wv, c2,
-            torch.stack([torch.dot(v, Wv), torch.dot(Wv, Wv),
-                         torch.dot(v, c2), torch.dot(v, omega)]),
-        ]
+        parts.append(twist_scalars(twist))
     return torch.cat(parts)
 
 
@@ -161,9 +184,13 @@ def flow_rows_plain(xp, y_xyz, scal, chan=None, use_geometry: bool = True):
     return s, wy, cnt, torch.sum(cnt).to(torch.int32), torch.sum(s)
 
 
-def step_cached_plain(xp, y_xyz, a, scal) -> torch.Tensor:
+def step_cached_plain(xp, y_xyz, a, scal, twist=None) -> torch.Tensor:
     """Plain version of the step kernel: [4] = (B, C, D, E) from the cached
-    kernel matrix `a` (pallas_ell._step_kernel_cached + _step_tail)."""
+    kernel matrix `a` (pallas_ell._step_kernel_cached + _step_tail). Given
+    the unit `twist` [6], the twist part of `scal` is `twist_scalars(twist)`
+    and scal's own is ignored."""
+    if twist is not None:
+        scal = torch.cat([scal[:S_OM2], twist_scalars(twist)])
     x = _rows(xp)
     # zero y_t where A == 0: dead slots carry DEAD_COORD and beta^4 of a
     # 1e9-scale value is inf, which 0 * inf would turn into NaN
@@ -239,6 +266,28 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# finish counters, one per kernel, per device: index in the counter tensor
+FLOW_REDUCE, STEP_CACHED, STEP_UNCACHED = range(3)
+_counters = {}
+
+
+def finish_counters(dev) -> torch.Tensor:
+    """The int32 [3] ticket counters of flow_reduce, step_cached and
+    step_uncached on device `dev`, 0 between launches. Allocated once per
+    device; the kernels assume one stream per device, as the port runs."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    t = _counters.get(dev)
+    if t is None:
+        t = _counters[dev] = torch.zeros((3,), dtype=torch.int32, device=dev)
+    return t
+
+
+def _counter(dev, which):
+    return finish_counters(dev).data_ptr() + 4 * which
+
+
 def _counted(fn, v=None):
     fn.launches += 1
     if v is not None:
@@ -270,27 +319,32 @@ def flow_reduce(xp, y_xyz, scal, c: float, d: float, chan=None,
     nz = torch.empty((1,), dtype=torch.int32, device=dev)
     err = lib.cvo_flow_reduce(
         xp.data_ptr(), y_xyz.data_ptr(), _ptr(chan), scal.data_ptr(), A.data_ptr(),
-        part.data_ptr(), part_cnt.data_ptr(), out.data_ptr(), nz.data_ptr(),
-        N, K, float(c), float(d), VARIANTS.index(v), _stream(dev))
+        part.data_ptr(), part_cnt.data_ptr(), _counter(dev, FLOW_REDUCE), out.data_ptr(),
+        nz.data_ptr(), N, K, float(c), float(d), VARIANTS.index(v), _stream(dev))
     cuda_lib.check(err, "flow_reduce kernel launch")
     _counted(flow_reduce, v)
     return out[:6], out[6], nz[0], out[7], A
 
 
-def step_cached(xp, y_xyz, a, scal) -> torch.Tensor:
+def step_cached(xp, y_xyz, a, scal, twist=None) -> torch.Tensor:
     """Step pass from the cached kernel matrix: [4] = (B, C, D, E). Channels
     entered through A, so none is taken here (as _step_kernel_cached).
-    The CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    Given the flow's unit `twist` [6] on the same device, the twist part of
+    the scalar block is built from it (on the card, by the kernel) and
+    scal's own twist part is ignored. The CUDA kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
     if y_xyz.device.type == "cpu":
-        return step_cached_plain(xp, y_xyz, a, scal)
+        return step_cached_plain(xp, y_xyz, a, scal, twist)
     dev, K, N = _common_checks(xp, y_xyz, scal, None, "step_cached")
     cuda_lib.check_tensor(a, "a", torch.float32, (K, N), dev, "step_cached")
+    if twist is not None:
+        cuda_lib.check_tensor(twist, "twist", torch.float32, (6,), dev, "step_cached")
     lib = _lib()
     part = torch.empty((lib.cvo_ell_blocks(N), 4), dtype=torch.float32, device=dev)
     out = torch.empty((4,), dtype=torch.float32, device=dev)
     err = lib.cvo_step_cached(
-        xp.data_ptr(), y_xyz.data_ptr(), a.data_ptr(), scal.data_ptr(),
-        part.data_ptr(), out.data_ptr(), N, K, _stream(dev))
+        xp.data_ptr(), y_xyz.data_ptr(), a.data_ptr(), scal.data_ptr(), _ptr(twist),
+        part.data_ptr(), _counter(dev, STEP_CACHED), out.data_ptr(), N, K, _stream(dev))
     cuda_lib.check(err, "step_cached kernel launch")
     _counted(step_cached)
     return out
@@ -333,7 +387,7 @@ def step_uncached(xp, y_xyz, scal, chan=None, use_geometry: bool = True) -> torc
     out = torch.empty((4,), dtype=torch.float32, device=dev)
     err = lib.cvo_step_uncached(
         xp.data_ptr(), y_xyz.data_ptr(), _ptr(chan), scal.data_ptr(), part.data_ptr(),
-        out.data_ptr(), N, K, VARIANTS.index(v), _stream(dev))
+        _counter(dev, STEP_UNCACHED), out.data_ptr(), N, K, VARIANTS.index(v), _stream(dev))
     cuda_lib.check(err, "step_uncached kernel launch")
     _counted(step_uncached, v)
     return out
@@ -360,19 +414,45 @@ def step_coeffs_ell_fused(params, ell, x: PointCloud, nl, R_inv, T_inv, twist):
     return bcde[0], bcde[1], bcde[2], bcde[3]
 
 
+_measurement_build = None
+
+# csrc/ell.cu's design switches, in cvo_ell_design's order
+DESIGN_KEYS = ("ELL_ONE_LAUNCH", "ELL_UNROLL", "ELL_FUSED_SUM")
+
+
+def use_build(lib=None) -> None:
+    """Route the CUDA passes through `lib`, a measurement build from
+    cuda_lib.load_variant("ell", ...), or back to the package's build."""
+    global _measurement_build
+    _measurement_build = lib
+
+
+def library_design() -> dict:
+    """The loaded build's design switches."""
+    out = (ctypes.c_int * len(DESIGN_KEYS))()
+    _lib().cvo_ell_design(out)
+    return dict(zip(DESIGN_KEYS, out))
+
+
 def _lib():
-    lib = cuda_lib.load("ell")
+    return bind(_measurement_build or cuda_lib.load("ell"))
+
+
+def bind(lib):
+    """Declare the C interface of a build of csrc/ell.cu."""
     if not getattr(lib, "_argtypes_set", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cvo_ell_blocks.argtypes = [I]
         lib.cvo_ell_blocks.restype = I
-        lib.cvo_flow_reduce.argtypes = [P, P, P, P, P, P, P, P, P, I, I, F, F, I, P]
+        lib.cvo_ell_design.argtypes = [P]
+        lib.cvo_ell_design.restype = None
+        lib.cvo_flow_reduce.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, F, F, I, P]
         lib.cvo_flow_reduce.restype = I
-        lib.cvo_step_cached.argtypes = [P, P, P, P, P, P, I, I, P]
+        lib.cvo_step_cached.argtypes = [P, P, P, P, P, P, P, P, I, I, P]
         lib.cvo_step_cached.restype = I
         lib.cvo_flow_rows.argtypes = [P, P, P, P, P, P, P, P, P, P, P, I, I, I, P]
         lib.cvo_flow_rows.restype = I
-        lib.cvo_step_uncached.argtypes = [P, P, P, P, P, P, I, I, I, P]
+        lib.cvo_step_uncached.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
         lib.cvo_step_uncached.restype = I
         lib._argtypes_set = True
     return lib
