@@ -27,22 +27,36 @@ active). `--dense-ablation` stops after phases 1 and 2b and also times
 measurement builds of csrc/dense.cu (no first look at the geometric gate,
 no queue of survivors, no overlap of staging, nothing fused); it prints no result line.
 
-Phases 2 and 2c launch flow_reduce (every variant) and step_cached twice
-for bit-equal outputs, hold them against their plain versions at a point
-count that fills no block evenly, hold the step fed the flow's twist on
-the device against its plain version and against the host-built scalar
-block, count the device kernels of one call as the nodes of a captured
-CUDA graph, and check that the one-launch finish left its ticket counters
-at 0; every time is printed beside the launch floor (back-to-back empty
-kernels).
+Phase 2 holds select against select_plain output for output
+(torch.equal: the same slots in the same order) at the identity and the
+bench guess, at point counts that fill no block evenly, on a cloud with
+masked rows, on 9-cell pools, at per_cell_cap 24 and at a support where
+rows bind at K, each launched twice for bit-equal outputs; it also times
+the build's torch half (`grid_inputs`) and the whole build beside select.
+Phases 2 and 2c launch flow_reduce (every variant), flow_rows and
+step_cached twice for bit-equal outputs, hold them against their plain
+versions at a point count that fills no block evenly, hold the step fed
+the flow's twist on the device against its plain version and against the
+host-built scalar block, count the device kernels of one call as the nodes
+of a captured CUDA graph (1 for every kernel), and check that the
+one-launch finish left its ticket counters at 0; every time is printed
+beside the launch floor (back-to-back empty kernels).
+`--select-ablation` stops after phase 1: it checks, counts and times
+measurement builds of csrc/select.cu (the iterated warp argmin instead of
+the rank pick, slots stored from their lanes instead of staged); it prints
+no result line. `--compare-tree DIR` checks and times select and flow_rows
+(and flow_reduce and step_cached beside them) of the package in DIR, e.g.
+an unpacked earlier commit, and of this tree in turns, DIR, this, this,
+DIR, each in a process of its own (`--kernel-times TREE`), on one card.
 `--ell-ablation` stops after phase 1: it checks, counts and times
-measurement builds of csrc/ell.cu (the two-launch finish, the runtime-K
-slot loop, two block reductions), then runs the geometric ELL path three
-times with the step's twist part built three ways (in the kernel, on the
-host by twist_scalars, on the host in matrix form) to show which one moves
-the pose errors; it prints no result line.
+measurement builds of csrc/ell.cu (the runtime-K slot loop, two block
+reductions), then runs the geometric ELL path three times with the step's
+twist part built three ways (in the kernel, on the host by twist_scalars,
+on the host in matrix form) to show which one moves the pose errors; it
+prints no result line.
 
-Usage: python3 chip_smoke.py [--frames 8] [--dense-ablation | --ell-ablation]
+Usage: python3 chip_smoke.py [--frames 8] [--dense-ablation | --select-ablation |
+                             --ell-ablation | --compare-tree DIR]
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails. The last line of stdout is the result object.
 """
@@ -51,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -79,6 +94,7 @@ CHAN_ONLY_ITER = 50         # iteration cap of the channel-only pair
 # point counts that fill no ELL block shape evenly: even (vector loads) and
 # odd (the one-point-a-thread fallback)
 N_ODD = (16100, 16099)
+N_MASKED = 16000            # points of the select check's cloud with masked rows
 
 
 def log(*a):
@@ -138,11 +154,57 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sorted_rows(idx, y_xyz):
-    """Per-source-row slots ordered by target index: compares row SETS."""
-    order = torch.argsort(idx, dim=0)
-    return torch.gather(idx, 0, order), torch.gather(
-        y_xyz, 1, order[None].expand_as(y_xyz))
+def select_exact(sel, args, what):
+    """The select kernel against select_plain on one set of inputs: idx,
+    y_xyz and kept equal (torch.equal: the same slots in the same order),
+    two launches bit-equal. Returns (kept, live slots, rows with kept > K);
+    raises SystemExit on a disagreement."""
+    got = sel.select(*args)
+    again = sel.select(*args)
+    want = sel.select_plain(*args)
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(got, want)]
+    if not all(same):
+        idx_k, idx_p = got[0], want[0]
+        rows = torch.nonzero(torch.any(idx_k != idx_p, dim=0)).flatten()[:3].tolist()
+        raise SystemExit(f"select differs from select_plain {what}: idx, y_xyz, kept equal "
+                         f"{same}; first rows differing {rows}: kernel "
+                         f"{[idx_k[:, r].tolist() for r in rows]} plain "
+                         f"{[idx_p[:, r].tolist() for r in rows]}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"two launches of select on the same inputs differ {what}")
+    k = args[4]
+    return int(got[2].sum()), int((got[0] >= 0).sum()), int((got[2] > k).sum())
+
+
+def select_cases(sel, nbr, params, ell, src, tgt, Rinv, Tinv, what, src_masked=None):
+    """select held against select_plain (select_exact) at the bench shapes
+    and around them: the first n points for each n of N_ODD, a source cloud
+    with masked rows (`src_masked`), 9-cell pools (a single-cell y axis),
+    per_cell_cap = 24 (a 648-candidate pool) and a skin of 2.5 (rows bind
+    at K). Logs each case; returns the bench case's GridInputs."""
+    K, P, dims = nbr.DEFAULT_K, nbr.PER_CELL_CAP, nbr.GRID_DIMS
+    g = nbr.grid_inputs(params, ell, src, tgt, Rinv, Tinv)
+    cases = [("", (g.tab, g.cbase, g.xr2, g.pose, K, P, dims))]
+    for n in N_ODD:
+        cases.append((f", N = {n}", (g.tab, g.cbase[:n].contiguous(), g.xr2[:n].contiguous(),
+                                     g.pose, K, P, dims)))
+    if src_masked is not None:
+        m = nbr.grid_inputs(params, ell, src_masked, tgt, Rinv, Tinv)
+        cases.append((f", {int((src_masked.mask == 0).sum())} masked source rows",
+                      (m.tab, m.cbase, m.xr2, m.pose, K, P, dims)))
+    for label, kw in ((", 9-cell pools (grid 64 x 1 x 64)", dict(grid_dims=(64, 1, 64))),
+                      (", per_cell_cap 24", dict(per_cell_cap=24)),
+                      (", skin 2.5", dict(skin=2.5))):
+        o = nbr.grid_inputs(params, ell, src, tgt, Rinv, Tinv, **kw)
+        cases.append((label, (o.tab, o.cbase, o.xr2, o.pose, K, kw.get("per_cell_cap", P),
+                              kw.get("grid_dims", dims))))
+    for label, args in cases:
+        kept, live, binding = select_exact(sel, args, f"at {what}{label}")
+        log(f"select @ {what}{label}: idx, y_xyz and kept equal to select_plain, two launches "
+            f"bit-equal; N {args[1].shape[0]}, kept {kept}, live slots {live}, rows with kept "
+            f"> K {binding}")
+    return g
 
 
 def flow_agree(fk, fp, what):
@@ -219,6 +281,47 @@ def ell_consume_checks(ell_ops, params, xp, y_xyz, scal, Rinv, Tinv, what, chan=
     return f_err, s_err
 
 
+def graph_ms(fn):
+    """Device time of one call of fn captured as a CUDA graph, by
+    device_ms over back-to-back replays: for a call of many small ops,
+    whose host enqueue alone outlasts device_ms's sleep kernel."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return device_ms(g.replay)
+
+
+def build_timings(nbr, params, ell, src, tgt, Rinv, Tinv, reps=20):
+    """One neighbor-list build of the geometric ELL path at the bench
+    shapes, by parts: `grid_inputs` (the torch half: table fill, stable sort,
+    scatters) and the whole `build_neighbor_list` (grid_inputs, select and
+    the list's small reductions). Device ms by CUDA events over graph
+    replays (graph_ms), device work items a call as graph nodes, and wall
+    ms per call with the host included (each call synchronised)."""
+    fns = {"grid_inputs": lambda: nbr.grid_inputs(params, ell, src, tgt, Rinv, Tinv),
+           "build_neighbor_list": lambda: nbr.build_neighbor_list(params, ell, src, tgt,
+                                                                  Rinv, Tinv)}
+    out = {}
+    for name, fn in fns.items():
+        ms = graph_ms(fn)
+        nodes = kernels_per_call(fn)
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls)
+        out[name] = {"device_ms": ms, "graph_nodes": nodes, "wall_ms": wall}
+        log(f"time   build part {name}: device {ms:.4f} ms (graph replays), {nodes} device "
+            f"work items a call (graph nodes), wall {wall:.4f} ms a call with the host "
+            f"(median of {reps}, synchronised)")
+    return out
+
+
 def check_counters_zero(ell_ops, dev, where):
     counters = ell_ops.finish_counters(dev)
     if int(torch.count_nonzero(counters)):
@@ -235,32 +338,17 @@ def check_kernels(frames_np, guess_np, params, dev, results, floor):
 
     src = make_pointcloud(frames_np[0], bucket=N_POINTS, device=dev)
     tgt = make_pointcloud(frames_np[1], bucket=N_POINTS, device=dev)
+    src_masked = make_pointcloud(frames_np[0][:N_MASKED], bucket=N_POINTS, device=dev)
     K, P, dims = nbr.DEFAULT_K, nbr.PER_CELL_CAP, nbr.GRID_DIMS
     ell = torch.full((), params.ell_init, dtype=torch.float32, device=dev)
     eye = torch.eye(4, device=dev)
     for name, guess in (("identity", eye), ("bench guess", torch.from_numpy(guess_np).to(dev))):
         Rinv, Tinv = lie.invert_rt(guess[:3, :3], guess[:3, 3])
-        g = nbr.grid_inputs(params, ell, src, tgt, Rinv, Tinv)
+        g = select_cases(sel, nbr, params, ell, src, tgt, Rinv, Tinv, name,
+                         src_masked if name == "bench guess" else None)
         args = (g.tab, g.cbase, g.xr2, g.pose, K, P, dims)
-        idx_k, y_k, kept_k = sel.select(*args)
-        idx_p, y_p, kept_p = sel.select_plain(*args)
-        torch.cuda.synchronize()
-        ik, yk = sorted_rows(idx_k, y_k)
-        ip, yp = sorted_rows(idx_p, y_p)
-        ovf_k = int(kept_k.sum() - (idx_k >= 0).sum())
-        ovf_p = int(kept_p.sum() - (idx_p >= 0).sum())
-        sel_err = float(torch.max(torch.abs(yk - yp)))
-        if not (torch.equal(ik, ip) and torch.equal(kept_k, kept_p)
-                and ovf_k == ovf_p and sel_err == 0.0):
-            raise SystemExit(f"select kernel disagrees with its plain version at {name}: "
-                             f"sets equal={torch.equal(ik, ip)} kept equal="
-                             f"{torch.equal(kept_k, kept_p)} overflow {ovf_k} vs {ovf_p}, "
-                             f"max |dy| {sel_err}")
-        log(f"select @ {name}: per-row sets equal, same slot order="
-            f"{torch.equal(idx_k, idx_p)}, kept {int(kept_k.sum())}, "
-            f"valid {int((idx_k >= 0).sum())}, overflow (K cap) {ovf_k}")
-
-        y_xyz = y_k
+        sel_err = 0.0          # select_cases held every output equal
+        y_xyz = sel.select(*args)[1]
         xp = ell_ops.pack_x(params, ell, src)
         scal = ell_ops.pack_scalars(params, Rinv, Tinv)
         fk = ell_ops.flow_reduce(xp, y_xyz, scal, params.c, params.d)
@@ -293,6 +381,7 @@ def check_kernels(frames_np, guess_np, params, dev, results, floor):
         sel_bytes = (touched * 4 * P * 4 + N * (16 + 12) + 48
                      + K * N * 4 + 3 * K * N * 4 + N * 4)
         slot_bytes = 3 * K * N * 4 + 6 * N * 4 + 32 * 4
+        build = build_timings(nbr, params, ell, src, tgt, Rinv, Tinv)
         timings = {
             "select": (lambda: sel.select(*args), lambda: sel.select_plain(*args),
                        bound(sel_bytes, SELECT_OPS_PER_CANDIDATE * cands), sel_err,
@@ -319,16 +408,14 @@ def check_kernels(frames_np, guess_np, params, dev, results, floor):
                 "name": kname, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-            per_call = ""
-            if kname != "select":
-                n_dev = kernels_per_call(kfn)
-                if n_dev != 1:
-                    raise SystemExit(f"{kname}: one call launched {n_dev} device kernels, "
-                                     f"not 1")
-                results[kname].update(launches_per_call=n_dev, launch_floor_ms=floor)
-                per_call = f", {n_dev} device kernel a call (graph nodes)"
+            n_dev = kernels_per_call(kfn)
+            if n_dev != 1:
+                raise SystemExit(f"{kname}: one call launched {n_dev} device kernels, not 1")
+            results[kname].update(launches_per_call=n_dev, launch_floor_ms=floor)
             log(f"time   {kname}: kernel {ms:.4f} ms (launch floor {floor:.4f} ms), plain "
-                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}){per_call}")
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {n_dev} device kernel a "
+                f"call (graph nodes)")
+        results["select"]["build"] = build
     check_counters_zero(ell_ops, dev, "phase 2")
 
 
@@ -425,33 +512,105 @@ def dense_ablation(dense, case):
 # measurement builds of csrc/ell.cu for --ell-ablation: what each part of
 # the design is worth
 ELL_VARIANTS = (
-    ("two launches per pass (-DELL_ONE_LAUNCH=0)", ("-DELL_ONE_LAUNCH=0",)),
     ("runtime-K slot loop (-DELL_UNROLL=0)", ("-DELL_UNROLL=0",)),
     ("two block reductions in the flow (-DELL_FUSED_SUM=0)", ("-DELL_FUSED_SUM=0",)),
 )
 
 
+# measurement builds of csrc/select.cu for --select-ablation: what the pick
+# and the staged stores are worth on the same gather
+SELECT_VARIANTS = (
+    ("iterated warp argmin (-DSELECT_ITER_ARGMIN=1)", ("-DSELECT_ITER_ARGMIN=1",)),
+    ("slots stored from their lanes (-DSELECT_DIRECT_STORE=1)", ("-DSELECT_DIRECT_STORE=1",)),
+)
+
+
+def select_ablation(frames_np, guess_np, params, dev, floor):
+    """--select-ablation: the package's build of csrc/select.cu and each
+    measurement build in turn, each checked (select_cases at the bench
+    guess: every output equal to select_plain, two launches bit-equal), its
+    device kernels a call counted (1), then timed at the bench shapes
+    (N = 16384, K = 32, P = 8) and at per_cell_cap = 24, beside its
+    registers."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from unified_cvo_tpu_torch.ops import cuda_lib
+    from unified_cvo_tpu_torch.ops import lie
+    from unified_cvo_tpu_torch.ops import neighbors as nbr
+    from unified_cvo_tpu_torch.ops import select as sel
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    src = make_pointcloud(frames_np[0], bucket=N_POINTS, device=dev)
+    tgt = make_pointcloud(frames_np[1], bucket=N_POINTS, device=dev)
+    src_masked = make_pointcloud(frames_np[0][:N_MASKED], bucket=N_POINTS, device=dev)
+    ell = torch.full((), params.ell_init, dtype=torch.float32, device=dev)
+    guess = torch.from_numpy(guess_np).to(dev)
+    Rinv, Tinv = lie.invert_rt(guess[:3, :3], guess[:3, 3])
+    K, dims = nbr.DEFAULT_K, nbr.GRID_DIMS
+    timed = {}
+    for P in (nbr.PER_CELL_CAP, 24):
+        g = nbr.grid_inputs(params, ell, src, tgt, Rinv, Tinv, per_cell_cap=P)
+        timed[f"P {P}"] = (g.tab, g.cbase, g.xr2, g.pose, K, P, dims)
+    with ThreadPoolExecutor(len(SELECT_VARIANTS)) as pool:
+        list(pool.map(lambda v: cuda_lib.build_all(["select"], v[1]), SELECT_VARIANTS))
+    libs = [cuda_lib.load_variant("select", flags) for _, flags in SELECT_VARIANTS]
+    builds = [("package build", (), None, cuda_lib.build_report("select"))] + [
+        (label, flags, lib, cuda_lib.build_report("select", flags)) for (label, flags), lib in
+        zip(SELECT_VARIANTS, libs)]
+    for label, flags, lib, report in builds + builds[:1]:
+        sel.use_build(lib)
+        design = sel.library_design()
+        for flag in flags:
+            key, value = flag[2:].split("=")
+            if design[key] != int(value):
+                raise SystemExit(f"ablation {label}: the build reports {design}")
+        select_cases(sel, nbr, params, ell, src, tgt, Rinv, Tinv, f"bench guess, {label}",
+                     src_masked)
+        times = []
+        for case, args in timed.items():
+            n_dev = kernels_per_call(lambda: sel.select(*args))
+            if n_dev != 1:
+                raise SystemExit(f"ablation {label}: select launched {n_dev} device kernels "
+                                 f"a call at {case}, not 1")
+            times.append(f"{case} {device_ms(lambda: sel.select(*args)):.4f} ms")
+        regs = register_counts(report)
+        reg_txt = ", ".join(f"<{', '.join(template_ints(k))}> {r}" + (f" (spill {b} B)" if b else "")
+                            for k, (r, b) in sorted(regs.items()) if "select_kernel" in k)
+        log(f"ablation {label}: select " + ", ".join(times) + f" (launch floor {floor:.4f} "
+            f"ms); 1 device kernel a call (graph nodes); checks passed; registers by "
+            f"instantiation <P, candidates a lane>: {reg_txt or 'no compiler report'}; "
+            f"design {design}")
+    sel.use_build(None)
+
+
+def template_ints(mangled):
+    """The integer template arguments of a mangled kernel name."""
+    return re.findall(r"Li(\d+)E", mangled)
+
+
 def register_counts(report):
-    """{kernel entry (mangled name): registers a thread} from a ptxas -v
-    report."""
-    out, entry = {}, None
+    """{kernel entry (mangled name): (registers a thread, spill store
+    bytes)} from a ptxas -v report."""
+    out, entry, spill = {}, None, 0
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            entry = line.split("'")[1]
+            entry, spill = line.split("'")[1], 0
+        elif "bytes spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
         elif "Used" in line and entry is not None:
-            out[entry] = int(line.split("Used")[1].split()[0])
+            out[entry] = (int(line.split("Used")[1].split()[0]), spill)
             entry = None
     return out
 
 
-def ell_ablation(frames_np, feats, guess_np, dev, floor, package_report):
+def ell_ablation(frames_np, feats, guess_np, dev, floor):
     """--ell-ablation: the package's build of csrc/ell.cu and each
     measurement build in turn, each checked on the geometric and the colour
     bench list (ell_consume_checks, and flow_reduce against its plain
-    version at full N), its device kernels a call counted (2 in a
-    two-launch build, else 1), then timed: flow_reduce (geometry, geometry
-    x chan) and step_cached in the loop's form (the flow's twist) at the
-    bench shapes."""
+    version at full N), its device kernels a call counted (1 in every
+    build), then timed: flow_reduce (geometry, geometry x chan) and
+    step_cached in the loop's form (the flow's twist) at the bench
+    shapes."""
     from concurrent.futures import ThreadPoolExecutor
 
     from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH, KITTI_GEOMETRIC_BENCH
@@ -473,11 +632,11 @@ def ell_ablation(frames_np, feats, guess_np, dev, floor, package_report):
         lists.append((params, nl, ell_ops.pack_x(params, ell, src),
                       ell_ops.pack_scalars(params, Rinv, Tinv)))
     with ThreadPoolExecutor(len(ELL_VARIANTS)) as pool:
-        reports = list(pool.map(lambda v: cuda_lib.build_all(["ell"], v[1]).get("ell", ""),
-                                ELL_VARIANTS))
+        list(pool.map(lambda v: cuda_lib.build_all(["ell"], v[1]), ELL_VARIANTS))
     libs = [cuda_lib.load_variant("ell", flags) for _, flags in ELL_VARIANTS]
-    builds = [("package build", (), None, package_report)] + [
-        (label, flags, lib, rep) for (label, flags), lib, rep in zip(ELL_VARIANTS, libs, reports)]
+    builds = [("package build", (), None, cuda_lib.build_report("ell"))] + [
+        (label, flags, lib, cuda_lib.build_report("ell", flags)) for (label, flags), lib in
+        zip(ELL_VARIANTS, libs)]
     for label, flags, lib, report in builds + builds[:1]:
         ell_ops.use_build(lib)
         design = ell_ops.library_design()
@@ -485,7 +644,6 @@ def ell_ablation(frames_np, feats, guess_np, dev, floor, package_report):
             key, value = flag[2:].split("=")
             if design[key] != int(value):
                 raise SystemExit(f"ablation {label}: the build reports {design}")
-        expect = 2 - design["ELL_ONE_LAUNCH"]
         times, per_call = [], {}
         for params, nl, xp, scal in lists:
             v = ell_ops.variant(nl.chan, True)
@@ -503,16 +661,15 @@ def ell_ablation(frames_np, feats, guess_np, dev, floor, package_report):
             for kname, fn in fns.items():
                 per_call[kname] = kernels_per_call(fn)
                 times.append((kname, device_ms(fn)))
-        if any(c != expect for c in per_call.values()):
-            raise SystemExit(f"ablation {label}: device kernels a call {per_call}, "
-                             f"expected {expect}")
+        if any(c != 1 for c in per_call.values()):
+            raise SystemExit(f"ablation {label}: device kernels a call {per_call}, expected 1")
         regs = register_counts(report)
         reg_txt = ", ".join(
-            f"{kind} <= {max(r for k, r in regs.items() if kind in k)} registers"
-            for kind in ("flow_reduce_kernel", "step_kernel") if any(kind in k for k in regs))
+            f"{kind} <= {max(r for k, (r, _) in regs.items() if kind in k)} registers"
+            for kind in ("flow_kernel", "step_kernel") if any(kind in k for k in regs))
         log(f"ablation {label}: " + ", ".join(f"{k} {t:.4f} ms" for k, t in times)
-            + f" (launch floor {floor:.4f} ms); {expect} device kernel(s) a call (graph nodes); "
-            f"checks passed; {reg_txt or 'registers: built before this run'}; design {design}")
+            + f" (launch floor {floor:.4f} ms); 1 device kernel a call (graph nodes); "
+            f"checks passed; {reg_txt or 'registers: no compiler report'}; design {design}")
     ell_ops.use_build(None)
     check_counters_zero(ell_ops, dev, "the ablation")
 
@@ -707,6 +864,31 @@ def check_dense_kernels(frames_np, feats, guess_np, dev, results, ablation=False
         results[kname]["max_abs_err"] = err
 
 
+def rows_agree(ell_ops, rk, xp, y_xyz, scal, ch, use_geo, what, nz=None):
+    """flow_rows' result against its plain version: cnt and nonzeros
+    exact, s rtol 1e-5 atol 1e-7, wy rtol 1e-5 atol 1e-6 (channel only:
+    rtol 1e-4 atol 1e-5), a_sum rel 1e-5; nonzeros also equal to `nz` when
+    given. Returns (a_sum rel, largest row error); raises SystemExit on a
+    disagreement."""
+    rp = ell_ops.flow_rows_plain(xp, y_xyz, scal, **ch)
+    torch.cuda.synchronize()
+    # without geometry every live slot carries an O(0.1) A, so wy sums 32
+    # terms of |A y| up to ~20 and takes the JAX test's own wy tolerance
+    # (rtol 1e-4 atol 1e-5, test_neighbors.py:293)
+    wy_tol = dict(rtol=1e-5, atol=1e-6) if use_geo else dict(rtol=1e-4, atol=1e-5)
+    s_ok = torch.allclose(rk[0], rp[0], rtol=1e-5, atol=1e-7)
+    wy_ok = torch.allclose(rk[1], rp[1], **wy_tol)
+    r_rel = abs(float(rk[4]) - float(rp[4])) / abs(float(rp[4]))
+    nz_ok = int(rk[3]) == int(rp[3]) and (nz is None or int(rp[3]) == nz)
+    if not (s_ok and wy_ok and torch.equal(rk[2], rp[2]) and nz_ok and r_rel <= 1e-5):
+        raise SystemExit(f"flow_rows {what} disagrees: s ok {s_ok}, wy ok {wy_ok} (max abs "
+                         f"{float(torch.max(torch.abs(rk[1] - rp[1])))}), cnt equal "
+                         f"{torch.equal(rk[2], rp[2])}, nonzeros {int(rk[3])} vs {int(rp[3])} "
+                         f"({nz}), a_sum rel {r_rel}")
+    return r_rel, max(float(torch.max(torch.abs(rk[0] - rp[0]))),
+                      float(torch.max(torch.abs(rk[1] - rp[1]))))
+
+
 def check_ell_channel_kernels(frames_np, feats, guess_np, dev, results, floor):
     """Phase 2c: the ELL kernel variants at the bench shapes (frames 0 -> 1,
     bench guess, K = 32, ell_init): flow_reduce, flow_rows and
@@ -764,24 +946,23 @@ def check_ell_channel_kernels(frames_np, feats, guess_np, dev, results, floor):
         errs["step_cached"] = max(errs["step_cached"], s_err)
 
         rk = ell_ops.flow_rows(xp, nl.y_xyz, scal, **ch)
-        rp = ell_ops.flow_rows_plain(xp, nl.y_xyz, scal, **ch)
+        rk2 = ell_ops.flow_rows(xp, nl.y_xyz, scal, **ch)
         torch.cuda.synchronize()
-        # rows at s rtol 1e-5 atol 1e-7 and wy rtol 1e-5 atol 1e-6; without
-        # geometry every live slot carries an O(0.1) A, so wy sums 32 terms
-        # of |A y| up to ~20 and takes the JAX test's own wy tolerance
-        # (rtol 1e-4 atol 1e-5, test_neighbors.py:293)
-        wy_tol = dict(rtol=1e-5, atol=1e-6) if use_geo else dict(rtol=1e-4, atol=1e-5)
-        s_ok = torch.allclose(rk[0], rp[0], rtol=1e-5, atol=1e-7)
-        wy_ok = torch.allclose(rk[1], rp[1], **wy_tol)
-        r_rel = abs(float(rk[4]) - float(rp[4])) / abs(float(rp[4]))
-        if not (s_ok and wy_ok and torch.equal(rk[2], rp[2]) and int(rk[3]) == int(rp[3])
-                == nz_p and r_rel <= 1e-5):
-            raise SystemExit(f"flow_rows ({v}) disagrees on the {label} list: s ok {s_ok}, "
-                             f"wy ok {wy_ok} (max abs "
-                             f"{float(torch.max(torch.abs(rk[1] - rp[1])))}), cnt equal {torch.equal(rk[2], rp[2])}, "
-                             f"nonzeros {int(rk[3])} vs {int(rp[3])}, a_sum rel {r_rel}")
-        errs["flow_rows"] = max(errs["flow_rows"], float(torch.max(torch.abs(rk[0] - rp[0]))),
-                                float(torch.max(torch.abs(rk[1] - rp[1]))))
+        if not all(torch.equal(a, b) for a, b in zip(rk, rk2)):
+            raise SystemExit(f"two launches of flow_rows ({v}) differ on the {label} list")
+        r_rel, r_err = rows_agree(ell_ops, rk, xp, nl.y_xyz, scal, ch, use_geo,
+                                  f"({v}) on the {label} list", nz_p)
+        for n_odd in N_ODD:
+            cho = dict(chan=None if nl.chan is None else nl.chan[:, :n_odd].contiguous(),
+                       use_geometry=use_geo)
+            xo, yo = xp[:, :n_odd].contiguous(), nl.y_xyz[..., :n_odd].contiguous()
+            _, e = rows_agree(ell_ops, ell_ops.flow_rows(xo, yo, scal, **cho), xo, yo, scal, cho,
+                              use_geo, f"({v}) at N = {n_odd} on the {label} list")
+            r_err = max(r_err, e)
+        n_rows = kernels_per_call(lambda: ell_ops.flow_rows(xp, nl.y_xyz, scal, **ch))
+        if n_rows != 1:
+            raise SystemExit(f"flow_rows ({v}): one call launched {n_rows} device kernels, not 1")
+        errs["flow_rows"] = max(errs["flow_rows"], r_err)
 
         scal_t = ell_ops.pack_scalars(params, Rinv, Tinv, fp[0])
         bk = ell_ops.step_uncached(xp, nl.y_xyz, scal_t, **ch)
@@ -796,10 +977,10 @@ def check_ell_channel_kernels(frames_np, feats, guess_np, dev, results, floor):
         log(f"ell {v:8s} @ {label} ({builder} list, K {K}, {int(nl.valid.sum())} live slots, "
             f"overflow {int(nl.overflow)}): flow_reduce nonzeros {nz_k} (exact), a_sum rel "
             f"{a_rel:.3g}, A abs {A_err:.3g}, twist abs {tw_err:.3g}; flow_rows s, wy, cnt "
-            f"within tolerance, a_sum rel {r_rel:.3g}; step_uncached B..E {bk.tolist()} "
-            f"(plain {bp.tolist()}, equal to step_cached on the kernel's A); reruns "
-            f"bit-equal, device-twist step within rtol 1e-4, N = "
-            f"{' and '.join(map(str, N_ODD))} within tolerance")
+            f"within tolerance, a_sum rel {r_rel:.3g}, {n_rows} device kernel a call (graph "
+            f"nodes); step_uncached B..E {bk.tolist()} (plain {bp.tolist()}, equal to "
+            f"step_cached on the kernel's A); reruns bit-equal, device-twist step within "
+            f"rtol 1e-4, N = {' and '.join(map(str, N_ODD))} within tolerance")
         if label != "all channels":
             timed.append((v, xp, nl, scal, scal_t, ch, params))
 
@@ -843,7 +1024,90 @@ def check_ell_channel_kernels(frames_np, feats, guess_np, dev, results, floor):
             "max_abs_err": errs[kname], "ms": geo["ms"], "plain_ms": geo["plain_ms"],
             "bound_ms": geo["bound_ms"], "bound_by": geo["bound_by"], "library_ms": None,
             "variants": variants[kname], "launches_by_variant": launches[kname][1],
-            "launched_by": "phase 2c checks (no align path calls it, as in JAX)"}
+            "launched_by": "phase 2c checks (no align path calls it, as in JAX)",
+            "launches_per_call": 1, "launch_floor_ms": floor}
+
+
+def kernel_times(frames_np, feats, guess_np, dev, floor):
+    """--kernel-times TREE: the select and flow_rows kernels of the
+    unified_cvo_tpu_torch package found first on the path (TREE's), each
+    held against its plain version, its device kernels a call counted and
+    timed at the bench shapes: select at the bench guess, flow_rows in its
+    three variants (geometry and colour on grid lists, channel only on a
+    scan list), flow_reduce geo and step_cached (the loop's form) beside
+    them. Prints one JSON line."""
+    import unified_cvo_tpu_torch
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH, KITTI_GEOMETRIC_BENCH
+    from unified_cvo_tpu_torch.ops import ell as ell_ops
+    from unified_cvo_tpu_torch.ops import lie
+    from unified_cvo_tpu_torch.ops import neighbors as nbr
+    from unified_cvo_tpu_torch.ops import select as sel
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    guess = torch.from_numpy(guess_np).to(dev)
+    Rinv, Tinv = lie.invert_rt(guess[:3, :3], guess[:3, 3])
+    times, nodes = {}, {}
+
+    def timed(name, fn):
+        nodes[name] = kernels_per_call(fn)
+        times[name] = device_ms(fn)
+
+    params = KITTI_GEOMETRIC_BENCH
+    src = make_pointcloud(frames_np[0], features=feats, bucket=N_POINTS, device=dev)
+    tgt = make_pointcloud(frames_np[1], features=feats, bucket=N_POINTS, device=dev)
+    ell = torch.full((), params.ell_init, dtype=torch.float32, device=dev)
+    g = nbr.grid_inputs(params, ell, src, tgt, Rinv, Tinv)
+    args = (g.tab, g.cbase, g.xr2, g.pose, nbr.DEFAULT_K, nbr.PER_CELL_CAP, nbr.GRID_DIMS)
+    select_exact(sel, args, "at the bench guess")
+    timed("select", lambda: sel.select(*args))
+    for params, builder in ((KITTI_GEOMETRIC_BENCH, nbr.build_neighbor_list),
+                            (KITTI_COLOR_BENCH, nbr.build_neighbor_list),
+                            (KITTI_COLOR_BENCH.replace(is_using_geometry=0),
+                             nbr.build_neighbor_list_scan)):
+        ell = torch.full((), params.ell_init, dtype=torch.float32, device=dev)
+        nl = builder(params, ell, src, tgt, Rinv, Tinv)
+        use_geo = bool(params.is_using_geometry)
+        ch = dict(chan=nl.chan, use_geometry=use_geo)
+        v = ell_ops.variant(nl.chan, use_geo)
+        xp = ell_ops.pack_x(params, ell, src)
+        scal = ell_ops.pack_scalars(params, Rinv, Tinv)
+        rows_agree(ell_ops, ell_ops.flow_rows(xp, nl.y_xyz, scal, **ch), xp, nl.y_xyz, scal, ch,
+                   use_geo, f"({v})")
+        timed(f"flow_rows {v}", lambda: ell_ops.flow_rows(xp, nl.y_xyz, scal, **ch))
+        if v == "geo":
+            fk = ell_ops.flow_reduce(xp, nl.y_xyz, scal, params.c, params.d)
+            timed("flow_reduce geo", lambda: ell_ops.flow_reduce(xp, nl.y_xyz, scal, params.c,
+                                                                 params.d))
+            timed("step_cached", lambda: ell_ops.step_cached(xp, nl.y_xyz, fk[4], scal,
+                                                             twist=fk[0]))
+    log(json.dumps({"tree": unified_cvo_tpu_torch.__file__, "launch_floor_ms": floor,
+                    "ms": times, "graph_nodes": nodes}))
+
+
+def compare_trees(other, frames):
+    """--compare-tree DIR: kernel_times of the package in DIR and of this
+    tree's, each in a process of its own, in the order DIR, this, this,
+    DIR, on one card; then a table of the four runs."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    order = ((other, "other"), (here, "this"), (here, "this"), (other, "other"))
+    runs = []
+    for tree, _ in order:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--frames", str(frames),
+                              "--kernel-times", os.path.abspath(tree)],
+                             capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise SystemExit(f"kernel times of {tree} failed ({out.returncode}):\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        log(f"tree {tree}: " + out.stdout.strip().splitlines()[-1])
+    names = list(runs[1]["ms"])
+    log(f"{'ms (graph nodes)':20s}" + "  ".join(f"{label:>14s}" for _, label in order))
+    for name in names:
+        log(f"{name:20s}" + "  ".join(
+            f"{r['ms'].get(name, float('nan')):9.4f} ({r['graph_nodes'].get(name, 0)})"
+            for r in runs))
 
 
 def reset_launch_counts():
@@ -909,6 +1173,15 @@ def main(argv=None) -> int:
     mode.add_argument("--dense-ablation", action="store_true",
                       help="build, check and time the dense kernels and their measurement "
                            "builds (phases 1 and 2b only), then stop without a result line")
+    mode.add_argument("--select-ablation", action="store_true",
+                      help="build, check and time the select kernel and its measurement "
+                           "builds (after phase 1), then stop without a result line")
+    mode.add_argument("--kernel-times", metavar="TREE",
+                      help="check and time select and flow_rows of the package in TREE at "
+                           "the bench shapes (after phase 1), print one JSON line, stop")
+    mode.add_argument("--compare-tree", metavar="DIR",
+                      help="--kernel-times of DIR and of this tree in turns (DIR, this, "
+                           "this, DIR), each in a process of its own, then stop")
     mode.add_argument("--ell-ablation", action="store_true",
                       help="build, check and time the ELL consume kernels and their "
                            "measurement builds (after phase 1), then stop without a "
@@ -917,6 +1190,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.compare_tree:
+        compare_trees(args.compare_tree, args.frames)
+        return 0
+    if args.kernel_times:                    # this package: the one found first on the path
+        sys.path.insert(0, args.kernel_times)
     if args.frames < 8:
         print("chip_smoke: the main path needs at least 8 timed frames", file=sys.stderr)
         return 2
@@ -943,7 +1221,7 @@ def main(argv=None) -> int:
         for line in rep.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  {name}.cu: {line.strip()}")
-            elif name in ("dense", "ell") and "Compiling entry function" in line:
+            elif "Compiling entry function" in line:
                 log(f"  {name}.cu: {line.split("'")[1]}")
 
     dev = torch.device("cuda")
@@ -957,8 +1235,14 @@ def main(argv=None) -> int:
     if args.dense_ablation:
         check_dense_kernels(frames_np, feats, guess_np, dev, results, ablation=True)
         return 0
+    if args.kernel_times:
+        kernel_times(frames_np, feats, guess_np, dev, floor)
+        return 0
+    if args.select_ablation:
+        select_ablation(frames_np, guess_np, params, dev, floor)
+        return 0
     if args.ell_ablation:
-        ell_ablation(frames_np, feats, guess_np, dev, floor, reports.get("ell", ""))
+        ell_ablation(frames_np, feats, guess_np, dev, floor)
         pose_error_witness(frames_np, T_true, guess_np, dev)
         return 0
     check_kernels(frames_np, guess_np, params, dev, results, floor)

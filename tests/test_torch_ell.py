@@ -200,8 +200,18 @@ def test_cpu_step_with_twist_takes_the_plain_path(setup, monkeypatch):
 def case(request):
     """One list per kernel variant, consumed half-way to the true pose."""
     v = request.param
+    return _variant_case(v, 400 if v != "chan" else 512, 512)
+
+
+@pytest.fixture(scope="module", params=t_ell.VARIANTS)
+def odd_case(request):
+    """The same lists at N = 509 (N % 4 != 0: the kernels' one-point-a-thread
+    shape), one tile of N."""
+    return _variant_case(request.param, 509, 509)
+
+
+def _variant_case(v, n, bucket):
     rng = np.random.default_rng(0)
-    n = 400 if v != "chan" else 512
     base = dict(ell_init=0.4, ell_min=0.05, ell_decay_rate=0.9, ell_decay_start=5,
                 indicator_window_size=5, indicator_stable_threshold=0.2,
                 max_step=0.1, sp_thres=0.0006, is_using_geometry=1)
@@ -224,11 +234,12 @@ def case(request):
     xi = np.array([0.002, 0.005, -0.001, 0.05, 0.02, 0.4], np.float32)
     R_m, t_m = j_lie.se3_exp(jnp.asarray(xi), 1.0)
     xyz2 = np.asarray(xyz @ np.asarray(R_m).T + np.asarray(t_m))
-    src = j_make(xyz, bucket=512, **fields)
-    tgt = j_make(xyz2, bucket=512, **fields)
+    src = j_make(xyz, bucket=bucket, **fields)
+    tgt = j_make(xyz2, bucket=bucket, **fields)
     R_h, t_h = j_lie.se3_exp(jnp.asarray(0.5 * xi), 1.0)
     Rinv, Tinv = j_lie.invert_rt(R_h, t_h)
     ell = jnp.float32(jp.ell_init)
+    tile = TILE if bucket % TILE == 0 else bucket
     if v == "chan":
         nl = j_nbr.build_neighbor_list_scan(jp, ell, src, tgt, Rinv, Tinv, k=64)
     else:
@@ -241,9 +252,10 @@ def case(request):
     t_src = convert.pointcloud_from_numpy(np.asarray(src.xyz), np.asarray(src.mask),
                                           device="cpu")
     tR, tT = torch.from_numpy(np.array(Rinv)), torch.from_numpy(np.array(Tinv))
-    flow_j = pe.flow_twist_ell_fused(jp, ell, src, nl, Rinv, Tinv, tile_n=TILE,
-                                     interpret=True, emit_a=True)
-    return dict(v=v, jp=jp, tp=tp, src=src, nl=nl, Rinv=Rinv, Tinv=Tinv, ell=ell,
+    # the reduced flow kernel folds each tile into 128 lanes: not at N = 509
+    flow_j = pe.flow_twist_ell_fused(jp, ell, src, nl, Rinv, Tinv, tile_n=tile,
+                                     interpret=True, emit_a=True) if tile % 128 == 0 else None
+    return dict(v=v, jp=jp, tp=tp, src=src, nl=nl, Rinv=Rinv, Tinv=Tinv, ell=ell, tile=tile,
                 t_src=t_src, t_nl=t_nl, tR=tR, tT=tT, flow_j=flow_j,
                 xp=t_ell.pack_x(tp, torch.tensor(jp.ell_init), t_src),
                 use_geo=bool(jp.is_using_geometry))
@@ -265,9 +277,19 @@ def test_flow_variant_plain_matches_pallas(case):
 
 def test_flow_rows_plain_matches_pallas(case):
     """Kernel 4 (pallas_ell._flow_kernel) through flow_stats_ell_fused."""
-    c = case
+    _check_flow_rows(case)
+
+
+def test_flow_rows_plain_at_odd_n_matches_pallas(odd_case):
+    """Kernel 4 at N = 509, the point count the CUDA kernel takes one point
+    a thread for."""
+    _check_flow_rows(odd_case)
+
+
+def _check_flow_rows(c):
+    N = c["t_src"].capacity
     want = pe.flow_stats_ell_fused(c["jp"], c["ell"], c["src"], c["nl"], c["Rinv"],
-                                   c["Tinv"], tile_n=TILE, interpret=True)
+                                   c["Tinv"], tile_n=c["tile"], interpret=True)
     got = t_ell.flow_stats_ell_fused(c["tp"], torch.tensor(c["jp"].ell_init), c["t_src"],
                                      c["t_nl"], c["tR"], c["tT"])
     assert got.nonzeros.dtype == torch.int32
@@ -275,14 +297,15 @@ def test_flow_rows_plain_matches_pallas(case):
     np.testing.assert_allclose(float(got.a_sum), float(want.a_sum), rtol=1e-5)
     np.testing.assert_allclose(got.row_sum.numpy(), np.asarray(want.row_sum),
                                rtol=1e-5, atol=1e-6)
-    assert tuple(got.row_wy.shape) == (512, 3)
+    assert tuple(got.row_wy.shape) == (N, 3)
     np.testing.assert_allclose(got.row_wy.numpy(), np.asarray(want.row_wy),
                                rtol=1e-4, atol=1e-5)
     # the per-point counts add up to the nonzeros, row by row as A > 0
     s, wy, cnt, nz, asum = t_ell.flow_rows_plain(
         c["xp"], c["t_nl"].y_xyz, t_ell.pack_scalars(c["tp"], c["tR"], c["tT"]),
         c["t_nl"].chan, c["use_geo"])
-    a = c["flow_j"][4]
+    a = (c["flow_j"][4] if c["flow_j"] is not None else
+         j_nbr.flow_stats_ell(c["jp"], c["ell"], c["src"], c["nl"], c["Rinv"], c["Tinv"])[1])
     np.testing.assert_array_equal(cnt.numpy(), (np.asarray(a) > 0).sum(0))
     assert int(nz) == int(cnt.sum())
 

@@ -194,3 +194,160 @@ def test_plain_consume_passes_match_jax():
     want = j_nbr.step_coeffs_ell(jp, ell, src, a_j, yts_j, tw_j)
     for g, w in zip(got, want):
         np.testing.assert_allclose(float(g), float(w), rtol=1e-3, atol=1e-4)
+
+
+# ---- the select contract: select_plain against a numpy brute force (slot
+# order exact) and against JAX's pool_select kernel in interpret mode
+# (per-row sets, kept total exact), on inputs made by the port's
+# grid_inputs
+
+def _select_case(name):
+    """(tab, cbase, xr2, pose, k, p, grid_dims) as torch CPU tensors for one
+    contract case; 256 source rows (a block of pool_select)."""
+    rng = np.random.default_rng(11)
+    jp, tp = _params()
+    k, p, dims, skin = 32, 8, (16, 8, 16), 0.3
+    eye = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+    R, T = _pose()
+    r2 = None
+    if name == "equidistant":
+        # integer lattice, every target twice: d2 of 0 and 1 exactly, ties
+        # between duplicates and between the six lattice neighbours
+        g = np.stack(np.meshgrid(*[np.arange(5.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        xyz = (g + np.float32([0, 0, 5])).astype(np.float32)
+        xyz2 = np.concatenate([xyz, xyz])
+        (R, T), r2 = eye, 1.1 ** 2
+    elif name in ("equidistant_binding", "kept_over_k", "per_cell_cap_24"):
+        xyz = rng.uniform(-1.5, 1.5, (256, 3)).astype(np.float32) + np.float32([0, 0, 6])
+        xyz2 = xyz + rng.normal(scale=0.05, size=xyz.shape).astype(np.float32)
+        if name == "equidistant_binding":
+            xyz = np.round(xyz).astype(np.float32)
+            xyz2 = np.concatenate([xyz, xyz, xyz])
+            (R, T), r2, k = eye, 1.1 ** 2, 8
+        elif name == "kept_over_k":
+            k = 8
+        else:
+            p = 24
+    elif name == "kept_zero":
+        # half the sources 25 m from every target: their pools are empty
+        xyz = _scene(rng, 256)
+        xyz[::2, 2] = 45.0 + rng.uniform(0, 5, 128).astype(np.float32)
+        xyz2 = _scene(rng, 256)
+        xyz2[:, 2] = np.clip(xyz2[:, 2], 2, 20)
+    elif name in ("masked_rows", "nine_cell_pool"):
+        xyz = rng.uniform(-2.5, 2.5, (256, 3)).astype(np.float32) + np.float32([0, 0, 6])
+        xyz2 = xyz + rng.normal(scale=0.05, size=xyz.shape).astype(np.float32)
+        if name == "masked_rows":
+            xyz = xyz[:200]
+        else:
+            dims = (16, 1, 16)
+    else:
+        raise ValueError(name)
+    g = t_nbr.grid_inputs(tp, torch.tensor(jp.ell_init), t_make(xyz, bucket=256, device="cpu"),
+                          t_make(xyz2, bucket=max(256, len(xyz2)), device="cpu"),
+                          torch.from_numpy(np.asarray(R, np.float32)),
+                          torch.from_numpy(np.asarray(T, np.float32)), skin=skin,
+                          per_cell_cap=p, grid_dims=dims)
+    xr2 = g.xr2.clone()
+    if r2 is not None:
+        xr2[:, 3] = torch.where(xr2[:, 3] >= 0, torch.tensor(r2, dtype=torch.float32), -1.0)
+    return g.tab, g.cbase, xr2, g.pose, k, p, dims
+
+
+def _brute_select(tab, cbase, xr2, pose, k, p, dims):
+    """Row by row in numpy float32 with the plain version's operation
+    order: every candidate of the pool (cells in dx, dy, dz order, P slots
+    each), kept when its index >= 0 and d2 <= r2, ordered by (d2, pool
+    position), first k."""
+    tab, cbase, xr2, pose = (t.numpy() for t in (tab, cbase, xr2, pose))
+    N = cbase.shape[0]
+    offs = np.array([(dx, dy, dz) for dx in ((-1, 0, 1) if dims[0] > 1 else (0,))
+                     for dy in ((-1, 0, 1) if dims[1] > 1 else (0,))
+                     for dz in ((-1, 0, 1) if dims[2] > 1 else (0,))])
+    idx = np.full((k, N), -1, np.int32)
+    y = np.full((3, k, N), t_nbr.DEAD_COORD, np.float32)
+    kept = np.zeros(N, np.int32)
+    for n in range(N):
+        c = cbase[n] + offs
+        inside = np.all((c >= 0) & (c < np.array(dims)), axis=1)
+        cell = np.where(inside, (c[:, 0] * dims[1] + c[:, 1]) * dims[2] + c[:, 2],
+                        dims[0] * dims[1] * dims[2])
+        rows = tab[cell]                                     # [n_off, 4p]
+        comp = [rows[:, j * p:(j + 1) * p].reshape(-1) for j in range(4)]
+        t = [comp[0] * pose[3 * j] + comp[1] * pose[3 * j + 1] + comp[2] * pose[3 * j + 2]
+             + pose[9 + j] for j in range(3)]
+        d2 = (xr2[n, 0] - t[0]) ** 2 + (xr2[n, 1] - t[1]) ** 2 + (xr2[n, 2] - t[2]) ** 2
+        pos = np.nonzero((comp[3] >= 0) & (d2 <= xr2[n, 3]))[0]
+        kept[n] = len(pos)
+        pos = pos[np.lexsort((pos, d2[pos]))][:k]
+        idx[:len(pos), n] = comp[3][pos].astype(np.int32)
+        for j in range(3):
+            y[j, :len(pos), n] = comp[j][pos]
+    return idx, y, kept
+
+
+SELECT_CASES = ["equidistant", "equidistant_binding", "kept_over_k", "kept_zero",
+                "masked_rows", "nine_cell_pool", "per_cell_cap_24"]
+
+
+@pytest.mark.parametrize("name", SELECT_CASES)
+def test_select_plain_matches_brute_force_order(name):
+    from unified_cvo_tpu_torch.ops import select as t_sel
+
+    args = _select_case(name)
+    idx, y, kept = t_sel.select_plain(*args)
+    idx_b, y_b, kept_b = _brute_select(*args)
+    np.testing.assert_array_equal(kept.numpy(), kept_b)
+    np.testing.assert_array_equal(idx.numpy(), idx_b)
+    np.testing.assert_array_equal(y.numpy(), y_b)
+    k = args[4]
+    kept_b = kept_b[args[2].numpy()[:, 3] >= 0]
+    if name == "equidistant_binding":
+        assert (kept_b > k).any()
+    if name == "kept_zero":
+        assert (kept_b == 0).sum() >= 100 and (kept_b > 0).any()
+    if name == "masked_rows":
+        assert (kept.numpy()[200:] == 0).all() and (idx.numpy()[:, 200:] == -1).all()
+    if name == "kept_over_k":
+        assert (kept_b > k).sum() > 100
+
+
+@pytest.mark.parametrize("name", [c for c in SELECT_CASES if c != "equidistant_binding"])
+def test_select_plain_matches_pallas_select(name):
+    """JAX's pool_select (interpret mode) fed the pool JAX's grid builder
+    gathers from the same table (z-dilated rows, pallas_select.py:124):
+    per-row sets equal with their raw coordinates, kept total exact. Ties
+    straddling slot K would pick different members (pallas_select.py:16-20),
+    so the case where they do is held against the brute force only."""
+    from unified_cvo_tpu.ops import pallas_select
+    from unified_cvo_tpu_torch.ops import select as t_sel
+
+    tab, cbase, xr2, pose, k, p, dims = _select_case(name)
+    idx, y, kept = t_sel.select_plain(tab, cbase, xr2, pose, k, p, dims)
+    gx, gy, gz = dims
+    n_cells = gx * gy * gz
+    tab_np, cb = tab.numpy(), cbase.numpy()
+    tabz = np.concatenate([np.roll(tab_np, 1, 0), tab_np, np.roll(tab_np, -1, 0)], axis=1)
+    tabz[n_cells] = -1.0
+    offs2 = np.array([(dx, dy) for dx in ((-1, 0, 1) if gx > 1 else (0,))
+                      for dy in ((-1, 0, 1) if gy > 1 else (0,))])
+    cxy = cb[:, None, :2] + offs2[None]
+    in_grid = np.all((cxy >= 0) & (cxy < np.array([gx, gy])), axis=-1)
+    cid = (cxy[..., 0] * gy + cxy[..., 1]) * gz + np.clip(cb[:, 2], 1, gz - 2)[:, None]
+    cid = np.where(in_grid, cid, n_cells)
+    N = cb.shape[0]
+    pool = tabz[cid.reshape(-1)].reshape(N, len(offs2) * 12 * p)
+    pose_np = pose.numpy()
+    _, co, y0, y1, y2, kept_j = pallas_select.pool_select(
+        jnp.asarray(pool), jnp.asarray(xr2.numpy()), jnp.asarray(pose_np[:9].reshape(3, 3)),
+        jnp.asarray(pose_np[9:]), k=k, n_win=len(offs2), p=p, blk=N, interpret=True)
+    assert int(kept_j) == int(kept.sum())
+    idx_j = np.asarray(co).T.astype(np.int32)                # [K, N]
+    y_j = np.stack([np.asarray(v).T for v in (y0, y1, y2)])
+    idx_t, y_t = idx.numpy(), y.numpy()
+    oj, ot = np.argsort(idx_j, axis=0), np.argsort(idx_t, axis=0)
+    np.testing.assert_array_equal(np.take_along_axis(idx_t, ot, 0),
+                                  np.take_along_axis(idx_j, oj, 0))
+    for c in range(3):
+        np.testing.assert_array_equal(np.take_along_axis(y_t[c], ot, 0),
+                                      np.take_along_axis(y_j[c], oj, 0))

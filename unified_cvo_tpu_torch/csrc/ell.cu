@@ -26,11 +26,11 @@
 // across iterations, while the arithmetic is far below the f32 peak. So:
 //   * every slot array is read exactly once, coalesced: a block is 32
 //     threads along the points times TK slot groups; thread (x, y) walks
-//     slots k = y, y + TK, ... of its points. The flow takes 8 slot groups
-//     and 4 adjacent points a thread (vector loads where N allows), the
-//     step 4 slot groups and one point, so that its ~96 registers a thread
-//     still fit all 512 blocks in one wave (the shapes that lost on the
-//     H100 are recorded in PERF.md);
+//     slots k = y, y + TK, ... of its points. Both flow passes take 8 slot
+//     groups and 4 adjacent points a thread (vector loads and stores where
+//     N allows), the step 4 slot groups and one point, so that its ~96
+//     registers a thread still fit all 512 blocks in one wave (the shapes
+//     that lost on the H100 are recorded in PERF.md);
 //   * at K = UNROLL_K (the builders' default) the slot count is a compile-
 //     time constant: a thread issues its point rows and all of its slot
 //     loads (y x 3, plus chan or A) before it waits at the block barrier for
@@ -40,9 +40,13 @@
 //   * the per-point flow moments (x cross wy, wy - s x) are linear in the
 //     slot sums, so each thread forms them from its own partial sums; the
 //     block reduces its 7 floats and its integer count in one shared-memory
-//     pass into per-block partials;
-//   * one launch per pass: each block writes its partials, fences, and takes
-//     a ticket from a per-kernel counter; the block that takes the last
+//     pass into per-block partials. The row-flow pass is the same template
+//     (flow_kernel<ROWS = true>): the same loads and slot arithmetic, then
+//     the 8 slot groups of each point meet in shared memory, row 0 adds them
+//     in group order, stores the point's s, wy and count, and reduces the
+//     block's a_sum and nonzeros partials;
+//   * one launch per pass: each block writes its partials and takes a ticket
+//     from a per-kernel counter; the block that takes the last
 //     ticket sums all partials in block-index order, writes the outputs and
 //     sets the counter back to 0 for the next launch. The order of the sums
 //     does not depend on which block comes last, so reruns give identical
@@ -55,9 +59,6 @@
 //     a device pointer and build the block's twist part itself (thread 0 of
 //     each block, in twist_scalars' operation order), so no value crosses
 //     to the host and the host builds one scalar block per iteration.
-// flow_rows keeps its two-launch shape (32 points x 8 slot groups, then a
-// one-block final stage).
-//
 // Compiled with -fmad=false (never --use_fast_math): each multiply and add
 // rounds as the plain PyTorch version's separate ops do, so the kernel
 // matrix A and its gates match the plain version slot for slot.
@@ -68,17 +69,12 @@
 
 #include "reduce.cuh"
 
-// Design switches, all 1 in the package's build; measurement builds
+// Design switches, both 1 in the package's build; measurement builds
 // (chip_smoke.py --ell-ablation) set one to 0 to time what it is worth:
-//   ELL_ONE_LAUNCH  flow_reduce, step_cached and step_uncached finish in the
-//                   last block to arrive (0: in a second, one-block kernel)
 //   ELL_UNROLL      K = UNROLL_K specialised and unrolled, every slot load in
 //                   flight before the barrier (0: the runtime-K loop)
 //   ELL_FUSED_SUM   the flow's 7 floats and its count in one block
 //                   reduction (0: one reduction each)
-#ifndef ELL_ONE_LAUNCH
-#define ELL_ONE_LAUNCH 1
-#endif
 #ifndef ELL_UNROLL
 #define ELL_UNROLL 1
 #endif
@@ -100,23 +96,16 @@ enum { X0 = 0, X1 = 1, X2 = 2, THRES = 3, NEGI2L2 = 4, COEF = 5 };
 constexpr int FLOW_NV = 7;         // omega(3), v(3), a_sum
 constexpr int STEP_NV = 4;         // B, C, D, E
 
-// flow_reduce, step_cached and step_uncached
 constexpr int TX = 32;             // threads along the points
 constexpr int UNROLL_K = 32;       // nbr.DEFAULT_K
-constexpr int FLOW_TK = 8;         // flow: slot groups per block
-constexpr int FLOW_VEC = 4;        // flow: adjacent points a thread
+constexpr int FLOW_TK = 8;         // flow passes: slot groups per block
+constexpr int FLOW_VEC = 4;        // flow passes: adjacent points a thread
 constexpr int STEP_TK = 4;         // step: slot groups per block, one point a thread
 constexpr int FLOW_THREADS = TX * FLOW_TK;
 constexpr int STEP_THREADS = TX * STEP_TK;
 static_assert(UNROLL_K % FLOW_TK == 0 && UNROLL_K % STEP_TK == 0,
               "the unrolled slot loop splits UNROLL_K evenly over the slot groups");
 static_assert(FLOW_THREADS <= 1024 && STEP_THREADS <= 1024, "at most 1024 threads a block");
-
-// flow_rows: 32 points x 8 slot groups, then a one-block final stage
-constexpr int TN = 32;             // source points per block
-constexpr int TK = 8;              // slot groups per block
-constexpr int THREADS = TN * TK;   // 256
-constexpr int FINAL_THREADS = 256;
 
 // variant codes of the C interface (ops/ell.py VARIANTS)
 enum { V_GEO = 0, V_GEO_CHAN = 1, V_CHAN = 2 };
@@ -137,6 +126,15 @@ template <int VEC>
 __device__ __forceinline__ void store_vec(float* p, const float (&r)[VEC]) {
   if constexpr (VEC == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  } else {
+    p[0] = r[0];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(int* p, const int (&r)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<int4*>(p) = make_int4(r[0], r[1], r[2], r[3]);
   } else {
     p[0] = r[0];
   }
@@ -228,7 +226,7 @@ __device__ __forceinline__ void flow_block_sum(float (&acc)[FLOW_NV], int (&cnt)
 // Flow outputs from nblocks partials, run by one whole block of NT threads:
 // thread t sums blocks t, t + NT, ... in order, then the block reduces in
 // its fixed order. out[0:6] unit twist, out[6] joint norm, out[7] a_sum;
-// out_nz[0] nonzeros. Sets *counter back to 0 when given.
+// out_nz[0] nonzeros. Sets *counter back to 0.
 template <int NT>
 __device__ __forceinline__ void flow_finish(const float* part, const int* part_cnt,
                                             int nblocks, float c, float d,
@@ -254,7 +252,28 @@ __device__ __forceinline__ void flow_finish(const float* part, const int* part_c
     out[6] = jn;
     out[7] = acc[6];
     out_nz[0] = cnt[0];
-    if (counter != nullptr) *counter = 0;
+    *counter = 0;
+  }
+}
+
+// a_sum and nonzeros of the row-flow pass from nblocks partials, as
+// flow_finish: out[0] a_sum, out_nz[0] nonzeros.
+template <int NT>
+__device__ __forceinline__ void rows_finish(const float* part, const int* part_cnt,
+                                            int nblocks, float* out, int* out_nz,
+                                            float* red, int* red_cnt, int tid,
+                                            int* counter) {
+  float acc[1] = {0.f};
+  int cnt[1] = {0};
+  for (int b = tid; b < nblocks; b += NT) {
+    acc[0] += __ldcg(part + b);
+    cnt[0] += __ldcg(part_cnt + b);
+  }
+  cvo::block_sum<float, 1, int, 1>(acc, cnt, red, red_cnt, tid, NT);
+  if (tid == 0) {
+    out[0] = acc[0];
+    out_nz[0] = cnt[0];
+    *counter = 0;
   }
 }
 
@@ -272,7 +291,7 @@ __device__ __forceinline__ void step_finish(const float* part, int nblocks,
   if (tid == 0) {
 #pragma unroll
     for (int i = 0; i < STEP_NV; ++i) out[i] = acc[i];
-    if (counter != nullptr) *counter = 0;
+    *counter = 0;
   }
 }
 
@@ -281,17 +300,20 @@ struct FlowArgs {
   const float* y;     // [3, K, N]
   const float* chan;  // [K, N] (variants with a channel factor)
   const float* scal;  // [32]
-  float* A;           // [K, N] out
-  float* part;        // [nblocks, 7] scratch
+  float* A;           // [K, N] out (flow_reduce)
+  float* s_out;       // [N] out (flow_rows)
+  float* wy_out;      // [3, N] out (flow_rows)
+  int* cnt_out;       // [N] out (flow_rows)
+  float* part;        // [nblocks, 7] scratch ([nblocks] for flow_rows)
   int* part_cnt;      // [nblocks] scratch
   int* counter;       // finish ticket, 0 between launches
-  float* out;         // [8] out
+  float* out;         // [8] out; flow_rows: [1] a_sum
   int* out_nz;        // [1] out
   int N, K;
   float c, d;
 };
 
-// One slot of one point in the flow pass: its A, and its share of the
+// One slot of one point in a flow pass: its A, and its share of the
 // point's sums.
 template <bool GEO, bool CHAN>
 __device__ __forceinline__ float flow_slot(const float* s, float ya, float yb,
@@ -310,11 +332,13 @@ __device__ __forceinline__ float flow_slot(const float* s, float ya, float yb,
   return a;
 }
 
-// Flow pass: A written out, moments reduced, finished in the last block.
+// Flow pass, finished in the last block. ROWS = false (flow_reduce): A
+// written out, the flow moments reduced. ROWS = true (flow_rows): the
+// point rows s, wy and cnt written out, a_sum and nonzeros reduced.
 // KC > 0: K == KC, unrolled. VEC points a thread (N % VEC == 0).
-template <bool GEO, bool CHAN, int KC, int VEC>
+template <bool ROWS, bool GEO, bool CHAN, int KC, int VEC>
 __global__ void __launch_bounds__(FLOW_THREADS)
-flow_reduce_kernel(const FlowArgs p) {
+flow_kernel(const FlowArgs p) {
   constexpr int NT = FLOW_THREADS;
   constexpr int SL = KC > 0 ? KC / FLOW_TK : 1;   // slots a thread, unrolled
   __shared__ float s[S_LEN];
@@ -327,8 +351,12 @@ flow_reduce_kernel(const FlowArgs p) {
   const size_t plane = (size_t)p.K * N;
 
   // the point rows and, unrolled, every slot: loads issued before the block
-  // waits for its scalar block
+  // waits for its scalar block. The point rows start at 0: a thread past N
+  // still adds x cross wy and wy - s x (with wy = s = 0) into the block's
+  // moments, and a register left unset could hold an inf or NaN pattern
   float x0[VEC], x1[VEC], x2[VEC], thres[VEC], negi[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) { x0[j] = 0.f; x1[j] = 0.f; x2[j] = 0.f; thres[j] = 0.f; negi[j] = 0.f; }
   float ya[SL][VEC], yb[SL][VEC], yc[SL][VEC], ch[SL][VEC];
   if (live) {
     load_vec<VEC>(p.xp + X0 * N + n0, x0);
@@ -355,12 +383,11 @@ flow_reduce_kernel(const FlowArgs p) {
   if (tid < S_LEN) s[tid] = p.scal[tid];
   __syncthreads();
 
-  float acc[FLOW_NV] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  int cnt[1] = {0};
-  if (live) {
-    float sa[VEC], w0[VEC], w1[VEC], w2[VEC];
+  float sa[VEC], w0[VEC], w1[VEC], w2[VEC];
+  int pc[VEC];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) { sa[j] = 0.f; w0[j] = 0.f; w1[j] = 0.f; w2[j] = 0.f; }
+  for (int j = 0; j < VEC; ++j) { sa[j] = 0.f; w0[j] = 0.f; w1[j] = 0.f; w2[j] = 0.f; pc[j] = 0; }
+  if (live) {
     if constexpr (KC > 0) {
 #pragma unroll
       for (int i = 0; i < SL; ++i) {
@@ -369,8 +396,8 @@ flow_reduce_kernel(const FlowArgs p) {
         for (int j = 0; j < VEC; ++j)
           a[j] = flow_slot<GEO, CHAN>(s, ya[i][j], yb[i][j], yc[i][j], ch[i][j], x0[j],
                                       x1[j], x2[j], thres[j], negi[j], sa[j], w0[j],
-                                      w1[j], w2[j], cnt[0]);
-        store_vec<VEC>(p.A + (size_t)(threadIdx.y + i * FLOW_TK) * N + n0, a);
+                                      w1[j], w2[j], pc[j]);
+        if (!ROWS) store_vec<VEC>(p.A + (size_t)(threadIdx.y + i * FLOW_TK) * N + n0, a);
       }
     } else {
       // runtime K (SL = 1): each slot loaded into row 0, then used
@@ -390,10 +417,72 @@ flow_reduce_kernel(const FlowArgs p) {
         for (int j = 0; j < VEC; ++j)
           a[j] = flow_slot<GEO, CHAN>(s, ya[0][j], yb[0][j], yc[0][j], ch[0][j], x0[j], x1[j],
                                       x2[j], thres[j], negi[j], sa[j], w0[j], w1[j], w2[j],
-                                      cnt[0]);
-        store_vec<VEC>(p.A + o, a);
+                                      pc[j]);
+        if (!ROWS) store_vec<VEC>(p.A + o, a);
       }
     }
+  }
+
+  if constexpr (ROWS) {
+    // the slot groups of each point meet here; row 0 adds them in group order
+    // point j of thread x at column j * TX + x: no bank conflicts
+    __shared__ float grp[4][FLOW_TK][VEC * TX];   // s, wy0, wy1, wy2
+    __shared__ int grp_cnt[FLOW_TK][VEC * TX];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int col = j * TX + threadIdx.x;
+      grp[0][threadIdx.y][col] = sa[j];
+      grp[1][threadIdx.y][col] = w0[j];
+      grp[2][threadIdx.y][col] = w1[j];
+      grp[3][threadIdx.y][col] = w2[j];
+      grp_cnt[threadIdx.y][col] = pc[j];
+    }
+    __syncthreads();
+    if (threadIdx.y == 0) {
+      float row[4][VEC];
+      int rc[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const int col = j * TX + threadIdx.x;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float v = grp[r][0][col];
+#pragma unroll
+          for (int g = 1; g < FLOW_TK; ++g) v += grp[r][g][col];
+          row[r][j] = v;
+        }
+        int c = grp_cnt[0][col];
+#pragma unroll
+        for (int g = 1; g < FLOW_TK; ++g) c += grp_cnt[g][col];
+        rc[j] = c;
+      }
+      if (live) {
+        store_vec<VEC>(p.s_out + n0, row[0]);
+        store_vec<VEC>(p.wy_out + n0, row[1]);
+        store_vec<VEC>(p.wy_out + N + n0, row[2]);
+        store_vec<VEC>(p.wy_out + 2 * N + n0, row[3]);
+        store_vec<VEC>(p.cnt_out + n0, rc);
+      }
+      float bs[1] = {0.f};   // 0 for points past N
+      int bc[1] = {0};
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        bs[0] += row[0][j];
+        bc[0] += rc[j];
+      }
+      cvo::warp_sum<float, 1>(bs);
+      cvo::warp_sum<int, 1>(bc);
+      if (threadIdx.x == 0) {
+        p.part[blockIdx.x] = bs[0];
+        p.part_cnt[blockIdx.x] = bc[0];
+      }
+    }
+    if (last_block_in(p.counter, tid))
+      rows_finish<NT>(p.part, p.part_cnt, gridDim.x, p.out, p.out_nz, red, red_cnt, tid,
+                      p.counter);
+  } else {
+    float acc[FLOW_NV] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    int cnt[1] = {0};
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       acc[0] += x1[j] * w2[j] - x2[j] * w1[j];
@@ -403,124 +492,17 @@ flow_reduce_kernel(const FlowArgs p) {
       acc[4] += w1[j] - sa[j] * x1[j];
       acc[5] += w2[j] - sa[j] * x2[j];
       acc[6] += sa[j];
+      cnt[0] += pc[j];
     }
-  }
-  flow_block_sum<NT>(acc, cnt, red, red_cnt, tid);
-  if (tid == 0) {
+    flow_block_sum<NT>(acc, cnt, red, red_cnt, tid);
+    if (tid == 0) {
 #pragma unroll
-    for (int i = 0; i < FLOW_NV; ++i) p.part[blockIdx.x * FLOW_NV + i] = acc[i];
-    p.part_cnt[blockIdx.x] = cnt[0];
-  }
-#if ELL_ONE_LAUNCH
-  if (last_block_in(p.counter, tid))
-    flow_finish<NT>(p.part, p.part_cnt, gridDim.x, p.c, p.d, p.out, p.out_nz, red,
-                    red_cnt, tid, p.counter);
-#endif
-}
-
-// The second launch of a two-launch build (ELL_ONE_LAUNCH=0).
-template <int NT>
-__global__ void __launch_bounds__(NT)
-flow_final_kernel(const FlowArgs p, int nblocks) {
-  __shared__ float red[FLOW_NV * NT / 32];
-  __shared__ int red_cnt[NT / 32];
-  flow_finish<NT>(p.part, p.part_cnt, nblocks, p.c, p.d, p.out, p.out_nz, red, red_cnt,
-                  threadIdx.x, nullptr);
-}
-
-// Row-flow pass (_flow_kernel): per-point rows s [N], wy [3, N] and
-// cnt [N]. The 8 slot groups of a point meet in shared memory and row 0 of
-// the block adds them in group order; warp 0 (that same row) then reduces
-// the block's s and cnt into per-block partials of a_sum and nonzeros.
-template <bool GEO, bool CHAN>
-__global__ void __launch_bounds__(THREADS)
-flow_rows_kernel(const float* __restrict__ xp, const float* __restrict__ y,
-                 const float* __restrict__ chan, const float* __restrict__ scal,
-                 float* __restrict__ s_out, float* __restrict__ wy_out,
-                 int* __restrict__ cnt_out, float* __restrict__ part,
-                 int* __restrict__ part_cnt, int N, int K) {
-  __shared__ float s[S_LEN];
-  __shared__ float grp[4][TK][TN];   // s, wy0, wy1, wy2 per slot group
-  __shared__ int grp_cnt[TK][TN];
-  const int tid = threadIdx.y * TN + threadIdx.x;
-  if (tid < S_LEN) s[tid] = scal[tid];
-  __syncthreads();
-
-  const int n = blockIdx.x * TN + threadIdx.x;
-  float sa = 0.f, w0 = 0.f, w1 = 0.f, w2 = 0.f;
-  int c = 0;
-  if (n < N) {
-    const float x0 = xp[X0 * N + n], x1 = xp[X1 * N + n], x2 = xp[X2 * N + n];
-    const float thres = xp[THRES * N + n], negi = xp[NEGI2L2 * N + n];
-    const size_t plane = (size_t)K * N;
-    for (int k = threadIdx.y; k < K; k += TK) {
-      const size_t o = (size_t)k * N + n;
-      float t0, t1, t2;
-      move_slot(s, y[o], y[plane + o], y[2 * plane + o], t0, t1, t2);
-      const float a = slot_a<GEO, CHAN>(s, x0, x1, x2, thres, negi, t0, t1, t2,
-                                        CHAN ? chan[o] : 0.f);
-      sa += a;
-      w0 += a * t0;
-      w1 += a * t1;
-      w2 += a * t2;
-      c += a > 0.f;
+      for (int i = 0; i < FLOW_NV; ++i) p.part[blockIdx.x * FLOW_NV + i] = acc[i];
+      p.part_cnt[blockIdx.x] = cnt[0];
     }
-  }
-  grp[0][threadIdx.y][threadIdx.x] = sa;
-  grp[1][threadIdx.y][threadIdx.x] = w0;
-  grp[2][threadIdx.y][threadIdx.x] = w1;
-  grp[3][threadIdx.y][threadIdx.x] = w2;
-  grp_cnt[threadIdx.y][threadIdx.x] = c;
-  __syncthreads();
-  if (threadIdx.y == 0) {
-    float row[4];
-    int rc = 0;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float v = grp[r][0][threadIdx.x];
-#pragma unroll
-      for (int g = 1; g < TK; ++g) v += grp[r][g][threadIdx.x];
-      row[r] = v;
-    }
-#pragma unroll
-    for (int g = 0; g < TK; ++g) rc += grp_cnt[g][threadIdx.x];
-    if (n < N) {
-      s_out[n] = row[0];
-      wy_out[n] = row[1];
-      wy_out[N + n] = row[2];
-      wy_out[2 * N + n] = row[3];
-      cnt_out[n] = rc;
-    }
-    float bs[1] = {row[0]};   // 0 for points past N
-    int bc[1] = {rc};
-    cvo::warp_sum<float, 1>(bs);
-    cvo::warp_sum<int, 1>(bc);
-    if (threadIdx.x == 0) {
-      part[blockIdx.x] = bs[0];
-      part_cnt[blockIdx.x] = bc[0];
-    }
-  }
-}
-
-// a_sum and nonzeros from the row-flow pass's per-block partials.
-__global__ void __launch_bounds__(FINAL_THREADS)
-rows_final_kernel(const float* __restrict__ part, const int* __restrict__ part_cnt,
-                  int nblocks, float* __restrict__ out_asum,
-                  int* __restrict__ out_nz) {
-  __shared__ float red[FINAL_THREADS / 32];
-  __shared__ int red_cnt[FINAL_THREADS / 32];
-  const int tid = threadIdx.x;
-  float acc[1] = {0.f};
-  int cnt[1] = {0};
-  for (int b = tid; b < nblocks; b += FINAL_THREADS) {
-    acc[0] += part[b];
-    cnt[0] += part_cnt[b];
-  }
-  cvo::block_sum<float, 1>(acc, red, tid, FINAL_THREADS);
-  cvo::block_sum<int, 1>(cnt, red_cnt, tid, FINAL_THREADS);
-  if (tid == 0) {
-    out_asum[0] = acc[0];
-    out_nz[0] = cnt[0];
+    if (last_block_in(p.counter, tid))
+      flow_finish<NT>(p.part, p.part_cnt, gridDim.x, p.c, p.d, p.out, p.out_nz, red,
+                      red_cnt, tid, p.counter);
   }
 }
 
@@ -603,7 +585,7 @@ __device__ __forceinline__ void step_slot(const float* s, float ya, float yb, fl
 }
 
 // Step pass, cached (A read) or uncached (A recomputed), finished in the
-// last block; one point a thread. KC as in flow_reduce_kernel. Both modes
+// last block; one point a thread. KC as in flow_kernel. Both modes
 // visit the slots and points in the same order, so on the same A they agree
 // bit for bit.
 template <bool CACHED, bool GEO, bool CHAN, int KC>
@@ -621,7 +603,7 @@ step_kernel(const StepArgs p) {
   const size_t plane = (size_t)p.K * N;
 
   // loads issued before the block waits for its scalar block, as in
-  // flow_reduce_kernel
+  // flow_kernel
   float x0 = 0.f, x1 = 0.f, x2 = 0.f, coef = 0.f, thres = 0.f, negi = 0.f;
   float ya[SL], yb[SL], yc[SL], av[SL];
   if (live) {
@@ -676,57 +658,52 @@ step_kernel(const StepArgs p) {
 #pragma unroll
     for (int i = 0; i < STEP_NV; ++i) p.part[blockIdx.x * STEP_NV + i] = acc[i];
   }
-#if ELL_ONE_LAUNCH
   if (last_block_in(p.counter, tid)) step_finish<NT>(p.part, gridDim.x, p.out, red, tid, p.counter);
-#endif
-}
-
-// The second launch of a two-launch build (ELL_ONE_LAUNCH=0).
-template <int NT>
-__global__ void __launch_bounds__(NT)
-step_final_kernel(const StepArgs p, int nblocks) {
-  __shared__ float red[STEP_NV * NT / 32];
-  step_finish<NT>(p.part, nblocks, p.out, red, threadIdx.x, nullptr);
 }
 
 bool aligned(const void* q, int bytes) {
   return q == nullptr || reinterpret_cast<uintptr_t>(q) % bytes == 0;
 }
 
-template <bool GEO, bool CHAN, int KC, int VEC>
+template <bool ROWS, bool GEO, bool CHAN, int KC, int VEC>
 int launch_flow(const FlowArgs& a, cudaStream_t stream) {
   const int nblocks = (a.N + TX * VEC - 1) / (TX * VEC);
-  flow_reduce_kernel<GEO, CHAN, KC, VEC><<<nblocks, dim3(TX, FLOW_TK), 0, stream>>>(a);
-#if !ELL_ONE_LAUNCH
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flow_final_kernel<FLOW_THREADS><<<1, FLOW_THREADS, 0, stream>>>(a, nblocks);
-#endif
+  flow_kernel<ROWS, GEO, CHAN, KC, VEC><<<nblocks, dim3(TX, FLOW_TK), 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The slot loop (unrolled at K = UNROLL_K) and the points a thread (FLOW_VEC
-// where N and every pointer allow vector loads, else 1) of this launch.
-template <bool GEO, bool CHAN>
+// where N and every pointer allow vector loads and stores, else 1) of this
+// launch.
+template <bool ROWS, bool GEO, bool CHAN>
 int dispatch_flow(const FlowArgs& a, cudaStream_t stream) {
   constexpr int V = FLOW_VEC;
   const bool vec = a.N % V == 0 && aligned(a.xp, 4 * V) && aligned(a.y, 4 * V)
-                   && aligned(a.chan, 4 * V) && aligned(a.A, 4 * V);
+                   && aligned(a.chan, 4 * V) && aligned(a.A, 4 * V)
+                   && aligned(a.s_out, 4 * V) && aligned(a.wy_out, 4 * V)
+                   && aligned(a.cnt_out, 4 * V);
   if (ELL_UNROLL && a.K == UNROLL_K)
-    return vec ? launch_flow<GEO, CHAN, UNROLL_K, V>(a, stream)
-               : launch_flow<GEO, CHAN, UNROLL_K, 1>(a, stream);
-  return vec ? launch_flow<GEO, CHAN, 0, V>(a, stream) : launch_flow<GEO, CHAN, 0, 1>(a, stream);
+    return vec ? launch_flow<ROWS, GEO, CHAN, UNROLL_K, V>(a, stream)
+               : launch_flow<ROWS, GEO, CHAN, UNROLL_K, 1>(a, stream);
+  return vec ? launch_flow<ROWS, GEO, CHAN, 0, V>(a, stream)
+             : launch_flow<ROWS, GEO, CHAN, 0, 1>(a, stream);
+}
+
+template <bool ROWS>
+int dispatch_flow_variant(const FlowArgs& a, int variant, cudaStream_t stream) {
+  if (a.N <= 0 || a.K <= 0) return (int)cudaErrorInvalidValue;
+  switch (variant) {
+    case V_GEO: return dispatch_flow<ROWS, true, false>(a, stream);
+    case V_GEO_CHAN: return dispatch_flow<ROWS, true, true>(a, stream);
+    case V_CHAN: return dispatch_flow<ROWS, false, true>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <bool CACHED, bool GEO, bool CHAN, int KC>
 int launch_step(const StepArgs& a, cudaStream_t stream) {
   const int nblocks = (a.N + TX - 1) / TX;
   step_kernel<CACHED, GEO, CHAN, KC><<<nblocks, dim3(TX, STEP_TK), 0, stream>>>(a);
-#if !ELL_ONE_LAUNCH
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  step_final_kernel<STEP_THREADS><<<1, STEP_THREADS, 0, stream>>>(a, nblocks);
-#endif
   return (int)cudaGetLastError();
 }
 
@@ -744,14 +721,12 @@ extern "C" {
 
 // Rows of per-block scratch any pass of this file needs for N points (one
 // block per 32 points at most).
-int cvo_ell_blocks(int N) { return (N + TN - 1) / TN; }
+int cvo_ell_blocks(int N) { return (N + TX - 1) / TX; }
 
-// The build's design switches, in the order ELL_ONE_LAUNCH, ELL_UNROLL,
-// ELL_FUSED_SUM.
+// The build's design switches, in the order ELL_UNROLL, ELL_FUSED_SUM.
 void cvo_ell_design(int* out) {
-  out[0] = ELL_ONE_LAUNCH;
-  out[1] = ELL_UNROLL;
-  out[2] = ELL_FUSED_SUM;
+  out[0] = ELL_UNROLL;
+  out[1] = ELL_FUSED_SUM;
 }
 
 // xp [6, N], y [3, K, N], chan [K, N] (variant V_GEO_CHAN or V_CHAN, else
@@ -762,14 +737,9 @@ int cvo_flow_reduce(const float* xp, const float* y, const float* chan,
                     const float* scal, float* A, float* part, int* part_cnt,
                     int* counter, float* out, int* out_nz, int N, int K, float c,
                     float d, int variant, cudaStream_t stream) {
-  if (N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  const FlowArgs a{xp, y, chan, scal, A, part, part_cnt, counter, out, out_nz, N, K, c, d};
-  switch (variant) {
-    case V_GEO: return dispatch_flow<true, false>(a, stream);
-    case V_GEO_CHAN: return dispatch_flow<true, true>(a, stream);
-    case V_CHAN: return dispatch_flow<false, true>(a, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const FlowArgs a{xp, y, chan, scal, A, nullptr, nullptr, nullptr, part, part_cnt,
+                   counter, out, out_nz, N, K, c, d};
+  return dispatch_flow_variant<false>(a, variant, stream);
 }
 
 // xp [6, N], y [3, K, N], A [K, N], scal [32], twist [6] or null -> out [4]
@@ -786,34 +756,15 @@ int cvo_step_cached(const float* xp, const float* y, const float* A,
 
 // xp [6, N], y [3, K, N], chan [K, N] (as cvo_flow_reduce), scal [32] ->
 // s_out [N], wy_out [3, N], cnt_out [N], out_asum [1], out_nz [1];
-// part [nblocks] and part_cnt [nblocks] are scratch.
+// part [nblocks] and part_cnt [nblocks] are scratch, counter [1] is 0
+// before and after.
 int cvo_flow_rows(const float* xp, const float* y, const float* chan,
                   const float* scal, float* s_out, float* wy_out, int* cnt_out,
-                  float* part, int* part_cnt, float* out_asum, int* out_nz,
-                  int N, int K, int variant, cudaStream_t stream) {
-  const int nblocks = cvo_ell_blocks(N);
-  const dim3 block(TN, TK);
-  switch (variant) {
-    case V_GEO:
-      flow_rows_kernel<true, false><<<nblocks, block, 0, stream>>>(
-          xp, y, chan, scal, s_out, wy_out, cnt_out, part, part_cnt, N, K);
-      break;
-    case V_GEO_CHAN:
-      flow_rows_kernel<true, true><<<nblocks, block, 0, stream>>>(
-          xp, y, chan, scal, s_out, wy_out, cnt_out, part, part_cnt, N, K);
-      break;
-    case V_CHAN:
-      flow_rows_kernel<false, true><<<nblocks, block, 0, stream>>>(
-          xp, y, chan, scal, s_out, wy_out, cnt_out, part, part_cnt, N, K);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rows_final_kernel<<<1, FINAL_THREADS, 0, stream>>>(part, part_cnt, nblocks,
-                                                     out_asum, out_nz);
-  return (int)cudaGetLastError();
+                  float* part, int* part_cnt, int* counter, float* out_asum,
+                  int* out_nz, int N, int K, int variant, cudaStream_t stream) {
+  const FlowArgs a{xp, y, chan, scal, nullptr, s_out, wy_out, cnt_out, part, part_cnt,
+                   counter, out_asum, out_nz, N, K, 0.f, 0.f};
+  return dispatch_flow_variant<true>(a, variant, stream);
 }
 
 // xp [6, N], y [3, K, N], chan [K, N] (as cvo_flow_reduce), scal [32] ->

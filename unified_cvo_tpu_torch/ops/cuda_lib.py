@@ -89,10 +89,24 @@ def build_all(names: Optional[Iterable[str]] = None,
             tmp.unlink(missing_ok=True)
             continue
         os.replace(tmp, out)
+        report_path(name, extra).write_text(log)
         reports[name] = log
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return reports
+
+
+def report_path(name: str, extra: Iterable[str] = ()) -> Path:
+    """Where the compiler's resource report (ptxas -v) of a build is kept,
+    beside its library."""
+    return lib_path(name, extra).with_suffix(".ptxas.txt")
+
+
+def build_report(name: str, extra: Iterable[str] = ()) -> str:
+    """The resource report of a build of csrc/<name>.cu, built now or
+    earlier; empty if it was never built here."""
+    path = report_path(name, tuple(extra))
+    return path.read_text() if path.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -27,10 +27,10 @@ the device so that no value crosses to the host. `step_cached` also takes
 the flow's unit twist as a device tensor and builds the block's twist part
 (`twist_scalars`) in the kernel, so the loop builds one block per iteration.
 
-flow_reduce, step_cached and step_uncached each run as one launch: the last
-block to finish sums the per-block partials and resets a ticket counter.
-The counters (`finish_counters`, one int32 per kernel) are allocated once
-per device and assume one stream per device, as the port runs.
+Every pass runs as one launch: the last block to finish sums the per-block
+partials and resets a ticket counter. The counters (`finish_counters`, one
+int32 per kernel) are allocated once per device and assume one stream per
+device, as the port runs.
 """
 
 from __future__ import annotations
@@ -267,20 +267,21 @@ def _stream(dev):
 
 
 # finish counters, one per kernel, per device: index in the counter tensor
-FLOW_REDUCE, STEP_CACHED, STEP_UNCACHED = range(3)
+FLOW_REDUCE, STEP_CACHED, STEP_UNCACHED, FLOW_ROWS = range(4)
 _counters = {}
 
 
 def finish_counters(dev) -> torch.Tensor:
-    """The int32 [3] ticket counters of flow_reduce, step_cached and
-    step_uncached on device `dev`, 0 between launches. Allocated once per
-    device; the kernels assume one stream per device, as the port runs."""
+    """The int32 [4] ticket counters of flow_reduce, step_cached,
+    step_uncached and flow_rows on device `dev`, 0 between launches.
+    Allocated once per device; the kernels assume one stream per device,
+    as the port runs."""
     dev = torch.device(dev)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     t = _counters.get(dev)
     if t is None:
-        t = _counters[dev] = torch.zeros((3,), dtype=torch.int32, device=dev)
+        t = _counters[dev] = torch.zeros((4,), dtype=torch.int32, device=dev)
     return t
 
 
@@ -369,7 +370,8 @@ def flow_rows(xp, y_xyz, scal, chan=None, use_geometry: bool = True):
     err = lib.cvo_flow_rows(
         xp.data_ptr(), y_xyz.data_ptr(), _ptr(chan), scal.data_ptr(), s.data_ptr(),
         wy.data_ptr(), cnt.data_ptr(), part.data_ptr(), part_cnt.data_ptr(),
-        asum.data_ptr(), nz.data_ptr(), N, K, VARIANTS.index(v), _stream(dev))
+        _counter(dev, FLOW_ROWS), asum.data_ptr(), nz.data_ptr(), N, K,
+        VARIANTS.index(v), _stream(dev))
     cuda_lib.check(err, "flow_rows kernel launch")
     _counted(flow_rows, v)
     return s, wy, cnt, nz[0], asum[0]
@@ -417,7 +419,7 @@ def step_coeffs_ell_fused(params, ell, x: PointCloud, nl, R_inv, T_inv, twist):
 _measurement_build = None
 
 # csrc/ell.cu's design switches, in cvo_ell_design's order
-DESIGN_KEYS = ("ELL_ONE_LAUNCH", "ELL_UNROLL", "ELL_FUSED_SUM")
+DESIGN_KEYS = ("ELL_UNROLL", "ELL_FUSED_SUM")
 
 
 def use_build(lib=None) -> None:
@@ -450,7 +452,7 @@ def bind(lib):
         lib.cvo_flow_reduce.restype = I
         lib.cvo_step_cached.argtypes = [P, P, P, P, P, P, P, P, I, I, P]
         lib.cvo_step_cached.restype = I
-        lib.cvo_flow_rows.argtypes = [P, P, P, P, P, P, P, P, P, P, P, I, I, I, P]
+        lib.cvo_flow_rows.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, P]
         lib.cvo_flow_rows.restype = I
         lib.cvo_step_uncached.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
         lib.cvo_step_uncached.restype = I
