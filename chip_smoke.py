@@ -15,7 +15,19 @@ kernel of each path was launched:
                    geometry x channel flow_reduce, step_cached), phases 2c
                    and 3c;
   channel only     KITTI_COLOR_BENCH without geometry: one scan build and
-                   the channel-only flow_reduce, phase 3d.
+                   the channel-only flow_reduce, phase 3d;
+  ACVO path        KITTI_GEOMETRIC_BENCH with is_ell_adaptive: 'ell' with
+                   the scan builder, then one pair at ell_max 0.7 on the
+                   grid builder (select for the xy, xx and yy lists of each
+                   build), phase 6;
+  analysis         function_angle, compute_association and
+                   compute_association_non_isotropic on a bench pair, held
+                   against the same calls on the CPU, phase 7;
+  IRLS BA          8 frames x 32768 points, 13 edges, the ELL backend
+                   (select at K = 128, P = 32) on both engines, the dense
+                   backend, and block PCG against the dense solve on a
+                   120-frame chain, phase 8; select is also held against
+                   select_plain at K = 128 and 192 with P = 32 there.
 
 Phase 2c also holds flow_rows and step_uncached (the entry points of
 pallas_ell.flow_stats_ell_fused and step_coeffs_ell_fused, which no align
@@ -71,6 +83,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published memory rate
@@ -743,8 +756,6 @@ def check_dense_kernels(frames_np, feats, guess_np, dev, results, ablation=False
     (a) also on two other tilings (half-filled row blocks and short chunks,
     two row blocks per tile); every kernel launched twice for bit-equal
     outputs."""
-    import numpy as np
-
     from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH, KITTI_GEOMETRIC_BENCH
     from unified_cvo_tpu_torch.ops import dense, kernels, lie, morton
     from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
@@ -899,8 +910,6 @@ def check_ell_channel_kernels(frames_np, feats, guess_np, dev, results, floor):
     chan). Logs each variant's time, plain time and bound; flow_rows and
     step_uncached take the launches of these checks, since no path
     launches them."""
-    import numpy as np
-
     from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH, KITTI_GEOMETRIC_BENCH
     from unified_cvo_tpu_torch.ops import ell as ell_ops
     from unified_cvo_tpu_torch.ops import lie
@@ -1165,6 +1174,354 @@ def profile_main_path(f2f, frames, guess, params, dev, iters=200, label="", **al
         log(f"  {tot / n:8.2f} us/iter  {cnt / n:6.2f}/iter  {name[:90]}")
 
 
+ACVO_PAIRS = 2               # timed pairs of the ACVO path (after one warm-up pair)
+ACVO_GRID_ELL_MAX = 0.7      # ell_max of the extra ACVO frame: support 1.84 m, grid builder
+ACVO_POSE_ERROR_BOUND = 0.05 # bench.py's bound
+TOPK = 64                    # top_k of the association export (phase 7)
+BA_FRAMES = 8                # frames of the IRLS bundle adjustment (phase 8)
+BA_POINTS = 32768            # points per frame: the auto backend resolves to 'ell'
+BA_ROT, BA_TRANS = 0.02, 0.1 # perturbation of the initial poses (rad, m)
+BA_SELECT_K = (128, 192)     # select held against select_plain at P = 32 on one edge
+
+
+def acvo_path(f2f, frames, T_true, guess, dev, smi, results):
+    """Phase 6: the ACVO path (KITTI_GEOMETRIC_BENCH with is_ell_adaptive,
+    auto backend: 'ell' with the scan builder, since the support at ell_max
+    is 3.16 m) on bench pairs after one warm-up pair, then one more pair
+    with ell_max 0.7 (support 1.84 m), where the grid builder runs select
+    for the xy, xx and yy lists of every build. Per pair: wall ms,
+    iterations, builds, final ell, pose error, host reads, launches;
+    flow_reduce and step_cached must launch once per iteration, select three
+    times per build on the grid pair and never on the scan pairs."""
+    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH
+    from unified_cvo_tpu_torch.ops import lie
+
+    acvo = KITTI_GEOMETRIC_BENCH.replace(is_ell_adaptive=1)
+    t0 = time.perf_counter()
+    f2f.run_sequence(frames[:2], guess, acvo, device=dev, max_iter=MAX_ITER)
+    torch.cuda.synchronize()
+    log(f"ACVO warm-up pair: {time.perf_counter() - t0:.2f} s")
+    rows, g = [], guess
+    plan = [(acvo, "scan")] * ACVO_PAIRS + [(acvo.replace(ell_max=ACVO_GRID_ELL_MAX), "grid")]
+    for k, (params, builder) in enumerate(plan, start=1):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res, infos = f2f.run_sequence(frames[k:k + 2], g, params, device=dev,
+                                      max_iter=MAX_ITER)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = launch_counts()
+        info = infos[0]
+        g = lie.rt_to_mat44(*lie.invert_rt(*lie.mat44_to_rt(res[0])))
+        err = f2f.pose_errors(res, T_true[k:k + 1])[0]
+        row = {"pair": k, "ell_max": params.ell_max, "builder": info.nl_builder, "ms": ms,
+               "iterations": info.iterations, "builds": info.nl_rebuilds,
+               "final_ell": float(info.final_ell), "pose_error": err,
+               "host_reads": info.host_reads, "overflow": int(info.nl_overflow),
+               "launches": {key: n[key] for key in ("select", "flow_reduce", "step_cached")}}
+        rows.append(row)
+        log(f"ACVO pair {k} (ell_max {params.ell_max}, {info.backend} + {info.nl_builder}): "
+            f"{ms:.2f} ms, {info.iterations} iterations, {info.nl_rebuilds} builds, final ell "
+            f"{float(info.final_ell):.6f}, pose error {err:.6f}, {info.host_reads} host reads, "
+            f"overflow {int(info.nl_overflow)}, launches {row['launches']} ({smi})")
+        want_select = 3 * info.nl_rebuilds if builder == "grid" else 0
+        if not ((info.backend, info.nl_builder) == ("ell", builder)
+                and n["flow_reduce"] == n["step_cached"] == info.iterations
+                == info.host_reads
+                and n["flow_reduce_by_variant"].get("geo") == info.iterations
+                and n["select"] == want_select):
+            raise SystemExit(f"ACVO pair {k}: {info.backend}/{info.nl_builder}, launches {n}, "
+                             f"{info.iterations} iterations, {info.nl_rebuilds} builds")
+        if not err < ACVO_POSE_ERROR_BOUND:
+            raise SystemExit(f"ACVO pair {k}: pose error {err} is not below "
+                             f"{ACVO_POSE_ERROR_BOUND}")
+    for name in ("select", "flow_reduce", "step_cached"):
+        results[name]["launches_acvo"] = [r["launches"][name] for r in rows]
+    return rows
+
+
+def topk_agree(vk, ik, vc, ic, what):
+    """Top-k rows from the card against the same call on the CPU: values
+    rtol 1e-5, dead entries alike, indices equal where a row's values are
+    distinct (more than rtol 1e-5 from both neighbours), and equal as sets
+    among the entries clearly above the row's last kept value."""
+    vk, ik = vk.cpu(), ik.cpu()
+    if not (torch.allclose(vk, vc, rtol=1e-5, atol=0)
+            and torch.equal(ik < 0, ic < 0) and torch.equal(vk > 0, vc > 0)):
+        raise SystemExit(f"{what}: values differ, max abs {float((vk - vc).abs().max())}")
+    gap = 1e-5 * vc.abs()
+    distinct = torch.ones_like(vc, dtype=torch.bool)
+    distinct[:, 1:] &= (vc[:, 1:] - vc[:, :-1]).abs() > gap[:, 1:]
+    distinct[:, :-1] &= (vc[:, :-1] - vc[:, 1:]).abs() > gap[:, :-1]
+    if not torch.equal(ik[distinct], ic[distinct]):
+        raise SystemExit(f"{what}: indices differ where values are distinct")
+    above = vc > (vc[:, -1:] + gap[:, -1:])
+    for r in torch.nonzero(torch.any(above, dim=1)).flatten().tolist():
+        if set(ik[r][above[r]].tolist()) != set(ic[r][above[r]].tolist()):
+            raise SystemExit(f"{what}: row {r} keeps other targets above its cut")
+    return int(distinct.sum()), float((vk - vc).abs().max())
+
+
+def event_ms(fn):
+    """Device time of one call by CUDA events (after a warm-up call), and
+    its result."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def analysis_phase(src_np, tgt_np, T_rel, guess_np, dev, smi):
+    """Phase 7: the analysis entry points on a bench pair at the bench
+    shapes: function_angle (approximate) at the guess's transform and at the
+    main path's converged transform (it must grow), compute_association
+    at top_k 64, and compute_association_non_isotropic with a diagonal 3x3
+    kernel, each held against the same call on the CPU on the same inputs
+    (values rtol 1e-5, indices where values are distinct, inlier masks
+    equal) and timed by CUDA events."""
+    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH as params
+    from unified_cvo_tpu_torch.models import (compute_association,
+                                              compute_association_non_isotropic,
+                                              function_angle)
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    cpu = torch.device("cpu")
+    src = {d: make_pointcloud(src_np, bucket=N_POINTS, device=d) for d in (dev, cpu)}
+    tgt = {d: make_pointcloud(tgt_np, bucket=N_POINTS, device=d) for d in (dev, cpu)}
+    # the entry points move the target by the inverse of their transform,
+    # and align's result maps target to source: pass the loop's pose, which
+    # starts at the guess and ends at the inverse of the result
+    at_guess = guess_np.astype(np.float32)
+    converged = np.linalg.inv(T_rel.detach().cpu().numpy().astype(np.float64)).astype(np.float32)
+    ell = params.ell_init
+    K = np.diag([0.04, 0.04, 0.09]).astype(np.float32)
+    calls = {
+        "function_angle at the guess": lambda d: function_angle(
+            src[d], tgt[d], at_guess, ell, params, device=d),
+        "function_angle at the converged pose": lambda d: function_angle(
+            src[d], tgt[d], converged, ell, params, device=d),
+        "compute_association": lambda d: compute_association(
+            src[d], tgt[d], converged, ell, params, top_k=TOPK, device=d),
+        "compute_association_non_isotropic": lambda d: compute_association_non_isotropic(
+            src[d], tgt[d], converged, K, params, top_k=TOPK, device=d),
+    }
+    out = {}
+    for name, call in calls.items():
+        ms, got = event_ms(lambda: call(dev))
+        t0 = time.perf_counter()
+        want = call(cpu)
+        cpu_s = time.perf_counter() - t0
+        if name.startswith("function_angle"):
+            rel = abs(float(got) - float(want)) / abs(float(want))
+            if not rel <= 1e-5:
+                raise SystemExit(f"{name}: card {float(got)} against CPU {float(want)}")
+            out[name] = float(got)
+            log(f"{name}: {float(got):.6f} (CPU {float(want):.6f}, rel {rel:.3g}), card "
+                f"{ms:.3f} ms (CUDA events), CPU {cpu_s:.1f} s ({smi})")
+            continue
+        vals, idx, s_in, t_in = got
+        n_dist, v_err = topk_agree(vals, idx, want[0], want[1], name)
+        if not (torch.equal(s_in.cpu(), want[2]) and torch.equal(t_in.cpu(), want[3])):
+            raise SystemExit(f"{name}: inlier masks differ from the CPU's")
+        out[name] = {"associations": int((vals > 0).sum()), "source_inliers": int(s_in.sum()),
+                     "target_inliers": int(t_in.sum())}
+        log(f"{name}: {out[name]}, values max abs {v_err:.3g} from the CPU's, {n_dist} "
+            f"indices checked one by one, inlier masks equal; card {ms:.3f} ms (CUDA events), "
+            f"CPU {cpu_s:.1f} s ({smi})")
+    if not out["function_angle at the converged pose"] > out["function_angle at the guess"]:
+        raise SystemExit(f"function_angle did not grow from the guess to the converged pose: "
+                         f"{out}")
+    return out
+
+
+def _ba_exp(xi):
+    from unified_cvo_tpu_torch.ops import lie
+
+    R, t = lie.se3_exp(torch.from_numpy(np.asarray(xi, np.float32)), 1.0)
+    return torch.cat([R, t[:, None]], 1).numpy()
+
+
+def _compose(A, B):
+    """[3, 4] poses: A . B."""
+    return np.concatenate([A[:, :3] @ B[:, :3], (A[:, :3] @ B[:, 3:] + A[:, 3:])], 1)
+
+
+def _bunnyish(rng, n=256):
+    """test_irls.py's BA cloud: a unit sphere and a flat box."""
+    sph = rng.normal(size=(n // 2, 3))
+    sph /= np.linalg.norm(sph, axis=1, keepdims=True)
+    box = rng.uniform(-1, 1, size=(n - n // 2, 3)) * np.array([1.5, 0.2, 1.0])
+    return np.concatenate([sph, box]).astype(np.float32)
+
+
+def ate(poses, true):
+    """RMS of the frames' translation errors (m)."""
+    return float(np.sqrt(np.mean([np.sum((p[:, 3] - t[:, 3]) ** 2)
+                                  for p, t in zip(poses, true)])))
+
+
+def irls_phase(f2f, dev, smi, results, floor):
+    """Phase 8: multiframe IRLS BA. 8 frames of the bench scene at 32768
+    points, chain and skip-one edges (13), pivot frame 0, initial poses the
+    true ones moved by seeded twists of 0.02 rad and 0.1 m; the auto backend
+    ('ell': select at K = 128, P = 32, skin 0, once per edge per outer
+    iteration) on both engines, which must agree (rtol 1e-4, atol 1e-4) and
+    lower the ATE. Then select against select_plain on one edge's grid
+    inputs at K = 128 and 192, P = 32 (torch.equal, two launches
+    bit-equal, timed beside its bound), the dense backend on 4 frames of
+    4096 points, and block PCG against the dense solve on test_irls.py's
+    120-frame chain."""
+    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH as params
+    from unified_cvo_tpu_torch.models import irls
+    from unified_cvo_tpu_torch.ops import neighbors as nbr
+    from unified_cvo_tpu_torch.ops import select as sel
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    frames_np, T_true = f2f.make_sequence(BA_POINTS, BA_FRAMES - 1)
+    true = [np.eye(3, 4, dtype=np.float32)]
+    for T in T_true:                     # frame k+1 = T_k . frame k: pose_{k+1} = pose_k T_k^-1
+        Ti = np.linalg.inv(np.asarray(T, np.float64))[:3].astype(np.float32)
+        true.append(_compose(true[-1], Ti).astype(np.float32))
+    rng = np.random.default_rng(8)
+    init = [true[0]]
+    for f in range(1, BA_FRAMES):
+        w, v = rng.normal(size=3), rng.normal(size=3)
+        xi = np.concatenate([BA_ROT * w / np.linalg.norm(w), BA_TRANS * v / np.linalg.norm(v)])
+        init.append(_compose(_ba_exp(xi), true[f]).astype(np.float32))
+    init = np.stack(init)
+    edges = [(i, i + 1) for i in range(BA_FRAMES - 1)] + [(i, i + 2) for i in range(BA_FRAMES - 2)]
+    piv = [True] + [False] * (BA_FRAMES - 1)
+    clouds = irls.stack_clouds([make_pointcloud(f, bucket=BA_POINTS, device=dev)
+                                for f in frames_np])
+    backend = irls.resolve_irls_backend(params, BA_POINTS)
+    if backend != "ell":
+        raise SystemExit(f"IRLS auto backend at {BA_POINTS} points resolved to {backend}")
+    out = {}
+    for engine in ("device", "host", "device"):     # the first device solve warms up
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        poses, hist = irls.irls_solve(clouds, init, edges, piv, params, engine=engine,
+                                      device=dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out[engine] = (poses, hist, sec, sel.select.launches)
+    poses_d, hist_d, sec_d, sel_d = out["device"]
+    poses_h, hist_h, sec_h, sel_h = out["host"]
+    outer = hist_d[0]["iter"]
+    ate0, ate_d, ate_h = ate(init, true), ate(poses_d, true), ate(poses_h, true)
+    log(f"IRLS BA ({BA_FRAMES} frames x {BA_POINTS} points, {len(edges)} edges, backend "
+        f"{backend}): device engine {outer} outer iterations, {sec_d:.2f} s, "
+        f"{1e3 * sec_d / outer:.2f} ms per outer iteration, {hist_d[0]['host_reads']} host "
+        f"reads, overflow {hist_d[0]['overflow']}, select launches {sel_d}, final ell "
+        f"{hist_d[0]['ell']:.6f}, nonzeros {hist_d[0]['nonzeros']} ({smi})")
+    log(f"  host engine: {len(hist_h)} solves, last iteration {hist_h[-1]['iter'] if hist_h else None}, "
+        f"{sec_h:.2f} s, select launches {sel_h}")
+    log(f"  ATE before {ate0:.6f} m, after: device engine {ate_d:.6f} m, host engine "
+        f"{ate_h:.6f} m; engines max abs {float(np.abs(poses_d - poses_h).max()):.3g}")
+    if sel_d != len(edges) * outer:
+        raise SystemExit(f"IRLS device engine: {sel_d} select launches for {outer} outer "
+                         f"iterations of {len(edges)} edges")
+    if not np.allclose(poses_d, poses_h, rtol=1e-4, atol=1e-4):
+        raise SystemExit(f"IRLS engines disagree: max abs {float(np.abs(poses_d - poses_h).max())}")
+    if not (ate_d < ate0 and ate_h < ate0 and np.array_equal(poses_d[0], init[0])):
+        raise SystemExit(f"IRLS BA did not lower the ATE ({ate0} -> {ate_d}, {ate_h}) or moved "
+                         f"the pivot")
+    ba = {"frames": BA_FRAMES, "points": BA_POINTS, "edges": len(edges), "outer": outer,
+          "s_device": sec_d, "ms_per_outer": 1e3 * sec_d / outer, "s_host": sec_h,
+          "host_reads": hist_d[0]["host_reads"], "overflow": hist_d[0]["overflow"],
+          "ate_before": ate0, "ate_after": ate_d, "select_launches": sel_d}
+
+    # select at the BA's list shape, on edge (0, 1) at the initial poses
+    c1 = irls._frame(clouds, 0).transformed(torch.from_numpy(init[0][:, :3]).to(dev),
+                                            torch.from_numpy(init[0][:, 3]).to(dev))
+    c2 = irls._frame(clouds, 1)
+    R2, t2 = (torch.from_numpy(init[1][:, :3]).to(dev), torch.from_numpy(init[1][:, 3]).to(dev))
+    ell = torch.full((), params.multiframe_ell_init, dtype=torch.float32, device=dev)
+    P, dims = 32, nbr.GRID_DIMS
+    g = nbr.grid_inputs(params, ell, c1, c2, R2, t2, skin=0.0, per_cell_cap=P)
+    N = c1.capacity
+    cid = sel.pool_cells(g.cbase, dims)
+    touched = int(torch.unique(cid[cid < dims[0] * dims[1] * dims[2]]).numel())
+    cands = int((g.tab[cid.long()][..., 3 * P:] >= 0).sum())
+    for K in BA_SELECT_K:
+        args = (g.tab, g.cbase, g.xr2, g.pose, K, P, dims)
+        sel.select.launches = 0
+        kept, live, binding = select_exact(sel, args, f"at the BA edge (0, 1), K = {K}, P = {P}")
+        check_launches = sel.select.launches
+        n_dev = kernels_per_call(lambda: sel.select(*args))
+        if n_dev != 1:
+            raise SystemExit(f"select at K = {K}: {n_dev} device kernels a call, not 1")
+        ms, plain_ms = device_ms(lambda: sel.select(*args)), device_ms(lambda: sel.select_plain(*args))
+        nbytes = touched * 4 * P * 4 + N * (16 + 12) + 48 + K * N * 4 + 3 * K * N * 4 + N * 4
+        b_ms, b_by = bound(nbytes, SELECT_OPS_PER_CANDIDATE * cands)
+        name = f"select (K={K}, P={P})"
+        results[name] = {
+            "name": name, "route": "cuda", "source": "unified_cvo_tpu_torch/csrc/select.cu",
+            "replaces": "unified_cvo_tpu/ops/pallas_select.py:39 (_select_kernel)",
+            "launches": sel_d if K == 128 else check_launches, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches_per_call": n_dev, "launch_floor_ms": floor,
+            "launched_by": ("the IRLS BA path (phase 8, device engine)" if K == 128 else
+                            "the phase 8 check only (JAX's ELL moments test runs K = 192)")}
+        log(f"select @ BA edge (0, 1), K = {K}, P = {P} (pool 864, runtime P, direct stores): "
+            f"equal to select_plain, two launches bit-equal; kept {kept}, live slots {live}, "
+            f"rows with kept > K {binding}; kernel {ms:.4f} ms (launch floor {floor:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), 1 device kernel a call")
+
+    # the dense backend: 4 frames of 4096 points
+    small = irls.stack_clouds([make_pointcloud(f[:4096], bucket=4096, device=dev)
+                               for f in frames_np[:4]])
+    t0 = time.perf_counter()
+    poses_s, hist_s = irls.irls_solve(small, init[:4], [(0, 1), (1, 2), (2, 3), (0, 2), (1, 3)],
+                                      piv[:4], params, backend="dense", device=dev)
+    torch.cuda.synchronize()
+    sec_s = time.perf_counter() - t0
+    ate_s0, ate_s = ate(init[:4], true[:4]), ate(poses_s, true[:4])
+    log(f"IRLS dense backend (4 frames x 4096 points, 5 edges): {hist_s[0]['iter']} outer "
+        f"iterations, {sec_s:.2f} s, ATE {ate_s0:.6f} -> {ate_s:.6f} m")
+    if not (np.all(np.isfinite(poses_s)) and np.array_equal(poses_s[0], init[0])):
+        raise SystemExit("IRLS dense backend: non-finite poses or a moved pivot")
+
+    # block PCG against the dense solve: test_irls.py's 120-frame chain
+    rng = np.random.default_rng(0)
+    base = _bunnyish(rng)
+    F = 120
+    pts, truth = [], []
+    for f in range(F):
+        xi = (0.015 * rng.normal(size=6)).astype(np.float32) * (0.0 if f == 0 else 1.0)
+        T = _ba_exp(xi)
+        truth.append(T)
+        pts.append(((base - T[:, 3]) @ T[:, :3]).astype(np.float32))
+    chain = irls.stack_clouds([make_pointcloud(x, bucket=256, device=dev) for x in pts])
+    eye = np.tile(np.eye(3, 4, dtype=np.float32), (F, 1, 1))
+    cedges = [(i, i + 1) for i in range(F - 1)] + [(i, i + 3) for i in range(F - 3)]
+    short = params.replace(multiframe_max_iters=6, multiframe_iterations_per_ell=2,
+                           multiframe_iterations_per_solve=3, sp_thres=0.002,
+                           multiframe_ell_init=0.6, multiframe_ell_min=0.05,
+                           multiframe_min_nonzeros=20)
+    solved = {}
+    for solver in ("dense", "cg"):
+        t0 = time.perf_counter()
+        solved[solver], _ = irls.irls_solve(chain, eye, cedges, [True] + [False] * (F - 1), short,
+                                            chunk=256, engine="device", solver=solver,
+                                            device=dev)
+        torch.cuda.synchronize()
+        solved[solver + "_s"] = time.perf_counter() - t0
+    gap = float(np.abs(solved["cg"] - solved["dense"]).max())
+    err0 = max(np.abs(eye[f] - truth[f]).max() for f in range(F))
+    err1 = max(np.abs(solved["cg"][f] - truth[f]).max() for f in range(F))
+    log(f"IRLS PCG against dense (120 frames, {len(cedges)} edges): max abs {gap:.3g} (atol "
+        f"2e-4), error {err0:.4f} -> {err1:.4f}; dense {solved['dense_s']:.2f} s, PCG "
+        f"{solved['cg_s']:.2f} s")
+    if not (gap <= 2e-4 and err1 < 0.7 * err0):
+        raise SystemExit(f"IRLS PCG: {gap} from the dense solve, error {err0} -> {err1}")
+    return ba
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=8,
@@ -1268,6 +1625,7 @@ def main(argv=None) -> int:
     seconds = time.perf_counter() - t0
     launches = launch_counts()
     errs = f2f.pose_errors(res, T_true[1:])
+    main_pair = res[0]                       # frames 1 -> 2, for phase 7
     iters = [i.iterations for i in infos]
     builds = [i.nl_rebuilds for i in infos]
     reads = [i.host_reads for i in infos]
@@ -1391,12 +1749,29 @@ def main(argv=None) -> int:
         "geo_chan": claunches["flow_reduce_by_variant"]["geo_chan"],
         "chan": olaunches["flow_reduce_by_variant"]["chan"]}
 
+    # ---- phase 6: ACVO (adaptive ell) on the ELL path
+    t0 = time.perf_counter()
+    results["acvo"] = acvo_path(f2f, frames, T_true, guess, dev, smi, results)
+    log(f"phase 6 (ACVO, warm-up included): {time.perf_counter() - t0:.2f} s")
+
+    # ---- phase 7: the analysis entry points, card against CPU
+    t0 = time.perf_counter()
+    analysis_phase(frames_np[1], frames_np[2], main_pair, guess_np, dev, smi)
+    log(f"phase 7 (analysis entry points, CPU twins included): {time.perf_counter() - t0:.2f} s")
+
+    # ---- phase 8: multiframe IRLS bundle adjustment
+    t0 = time.perf_counter()
+    results["irls"] = irls_phase(f2f, dev, smi, results, floor)
+    log(f"phase 8 (IRLS BA): {time.perf_counter() - t0:.2f} s")
+
     # ---- phase 5: where an iteration's time goes (profiler, not counted)
     profile_main_path(f2f, frames, guess, params, dev, label=" ELL path")
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
                       label=" dense path", backend="pallas")
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
                       label=" colour ELL path")
+    paths = {name: results.pop(name) for name in ("acvo", "irls")}
+    log(json.dumps({"paths": paths}))
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

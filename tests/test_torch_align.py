@@ -128,10 +128,17 @@ def test_f2f_sequence_matches_jax_chain():
 
 @pytest.mark.parametrize("case", ["channels", "acvo", "scan", "acvo_dense", "channels_ell"])
 def test_configurations_outside_the_slice_raise(case):
-    """ACVO, on any backend, is still outside the port and raises naming its
-    ROADMAP item. The other three cases (intensity on the auto and on the
-    explicit ELL backend, the scan builder) were outside the earlier slices
-    and now run on the CPU through the ELL path, with the builder JAX picks."""
+    """Configurations that were outside earlier slices (the name dates from
+    when they raised) run on the CPU with the backend and builder JAX
+    picks: intensity on the auto and on the explicit ELL backend and the
+    scan builder go through the ELL path with the grid or scan builder;
+    ACVO on the auto backend goes to 'ell' with
+    the scan builder (the support at ell_max is 3.2 m), on the explicit
+    'pallas' backend to the dense tiles, and its ell schedule moves. The
+    ACVO cases register a moved copy of the cloud (on the cloud itself at
+    the identity the dl gradient is 0)."""
+    from unified_cvo_tpu.models.align import resolve_backend as j_resolve
+
     rng = np.random.default_rng(5)
     n = 4096
     xyz = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
@@ -149,8 +156,16 @@ def test_configurations_outside_the_slice_raise(case):
     elif case == "channels_ell":
         kw = dict(backend="ell")
     if case.startswith("acvo"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_align(pc, pc, np.eye(4, dtype=np.float32), params, device="cpu", **kw)
+        moved = t_make(xyz + np.float32([0.05, 0.0, 0.02]), features=feats, bucket=n,
+                       device="cpu")
+        T, ret, info = t_align(pc, moved, np.eye(4, dtype=np.float32), params, device="cpu",
+                               max_iter=3, **kw)
+        jp = JaxParams(**dataclasses.asdict(params))
+        want = j_resolve(jp, n, n, kw.get("backend", "auto"))
+        assert info.backend == want == ("pallas" if case == "acvo_dense" else "ell")
+        assert info.nl_builder == (None if case == "acvo_dense" else "scan")
+        assert info.iterations == 3 and float(info.final_ell) != params.ell_init
+        assert bool(torch.all(torch.isfinite(T)))
         return
     T, ret, info = t_align(pc, pc, np.eye(4, dtype=np.float32), params, device="cpu",
                            max_iter=3, **kw)
@@ -164,10 +179,12 @@ def test_configurations_outside_the_slice_raise(case):
     (dict(params=dict(is_using_geometry=0, is_using_intensity=1), backend="ell",
           nl_builder="grid"), "needs the geometric channel"),
     (dict(params={}, backend="ell", nl_builder="kdtree"), "unknown nl_builder"),
-], ids=["no_channel", "grid_without_geometry", "unknown_builder"])
+    (dict(params=dict(is_using_geometry=0, is_using_intensity=1, is_ell_adaptive=1),
+          backend="ell"), "adaptive_ell needs the geometric channel"),
+], ids=["no_channel", "grid_without_geometry", "unknown_builder", "acvo_without_geometry"])
 def test_ell_preconditions_raise_value_error(kw, match):
-    """align.py:248-256 and :274-277: the ELL path needs a ranking channel,
-    and the grid builder needs geometry."""
+    """align.py:248-256 and :274-277: the ELL path needs a ranking channel
+    and, under adaptive ell, geometry; the grid builder needs geometry."""
     xyz = np.random.default_rng(6).uniform(-5, 5, (256, 3)).astype(np.float32)
     pc = t_make(xyz, features=np.ones((256, 5), np.float32), bucket=256, device="cpu")
     params = CvoParams(**kw.pop("params"))
@@ -221,7 +238,13 @@ def test_ell_loop_packs_one_scalar_block_per_iteration(monkeypatch):
     ((4096, 4096), dict(is_using_geometry=0), "cpu", "jnp"),
     ((4096, 8192), dict(is_using_geometry=0), "cuda", "pallas"),
     ((2048, 8192), {}, "cuda", "pallas"),
-], ids=["small", "one_small", "large", "no_channel_cpu", "no_channel_card", "mixed"])
+    ((4096, 4096), dict(is_ell_adaptive=1), "cuda", "ell"),
+    ((4096, 4096), dict(is_ell_adaptive=1, is_using_geometry=0, is_using_intensity=1),
+     "cuda", "pallas"),
+    ((4096, 4096), dict(is_ell_adaptive=1, is_using_geometry=0, is_using_intensity=1),
+     "cpu", "jnp"),
+], ids=["small", "one_small", "large", "no_channel_cpu", "no_channel_card", "mixed",
+        "acvo", "acvo_colour_only_card", "acvo_colour_only_cpu"])
 def test_auto_backend_policy_matches_jax(caps, flags, device, want):
     """JAX's auto policy (align.py:94-122), with the port's device in place of
     jax.default_backend(); resolving needs no card."""
@@ -238,17 +261,22 @@ def test_auto_backend_policy_matches_jax(caps, flags, device, want):
     (dict(), (4096, 1024), "scan"),
     (dict(is_using_geometry=0, is_using_intensity=1), (16384, 16384), "scan"),
     (dict(sigma=1.0), (4096, 4096), "scan"),
+    (dict(is_ell_adaptive=1), (16384, 16384), "scan"),
+    (dict(is_ell_adaptive=1, ell_max=0.7), (16384, 16384), "grid"),
 ], ids=["bench", "bench_16k", "colour", "support_1.85m", "support_2.11m", "small_source",
-        "small_target", "no_geometry", "wide_sigma"])
+        "small_target", "no_geometry", "wide_sigma", "acvo_3.16m", "acvo_ell_max_0.7"])
 def test_nl_builder_rule_matches_jax(flags, caps, want):
     """JAX's default builder (align.py:257-273): 'grid' for geometric
     configurations whose static support radius is at most 2 m with both
-    clouds at 4096 points or more, else 'scan'. The radius is JAX's own."""
+    clouds at 4096 points or more, else 'scan'; under adaptive ell the
+    radius is scaled by ell_max / ell_init. The radius is JAX's own."""
     from unified_cvo_tpu.ops.neighbors import static_support_radius as j_radius
 
     params = CvoParams(**flags)
     jp = JaxParams(**dataclasses.asdict(params))
-    jax_rule = "grid" if (bool(jp.is_using_geometry) and j_radius(jp) <= 2.0
+    radius = j_radius(jp) * (float(jp.ell_max) / max(float(jp.ell_init), 1e-6)
+                             if jp.is_ell_adaptive else 1.0)
+    jax_rule = "grid" if (bool(jp.is_using_geometry) and radius <= 2.0
                           and min(caps) >= 4096) else "scan"
     assert jax_rule == want
     assert resolve_nl_builder(params, *caps) == want

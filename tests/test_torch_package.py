@@ -81,6 +81,28 @@ def test_align_without_cuda_raises_instead_of_falling_back():
         make_pointcloud(np.zeros((8, 3), np.float32))
 
 
+def test_analysis_and_irls_entry_points_raise_without_cuda():
+    """function_angle, compute_association(_non_isotropic), inner_product
+    and irls_solve default to the card too."""
+    _needs_no_card()
+    from unified_cvo_tpu_torch import models
+    from unified_cvo_tpu_torch.models import irls
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    pc = make_pointcloud(np.zeros((8, 3), np.float32), device="cpu")
+    eye = np.eye(4, dtype=np.float32)
+    for call in (lambda: models.function_angle(pc, pc, eye, 0.5, KITTI_GEOMETRIC_BENCH),
+                 lambda: models.inner_product(pc, pc, eye, 0.5, KITTI_GEOMETRIC_BENCH),
+                 lambda: models.compute_association(pc, pc, eye, 0.5, KITTI_GEOMETRIC_BENCH),
+                 lambda: models.compute_association_non_isotropic(
+                     pc, pc, eye, np.eye(3, dtype=np.float32), KITTI_GEOMETRIC_BENCH),
+                 lambda: irls.irls_solve(irls.stack_clouds([pc, pc]),
+                                         np.tile(np.eye(3, 4, dtype=np.float32), (2, 1, 1)),
+                                         [(0, 1)], [True, False], KITTI_GEOMETRIC_BENCH)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 def test_chip_smoke_fails_without_cuda():
     _needs_no_card()
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,

@@ -62,3 +62,41 @@ def neighbor_list_from_numpy(idx, valid, y_xyz, y_t_build, overflow,
         overflow=_t(overflow, torch.int32, device),
         pose_build=_t(pose_build, f32, device), r_max_t=_t(r_max_t, f32, device),
         ell_build=_t(ell_build, f32, device), k_lin=_t(k_lin, f32, device))
+
+
+def irls_state_from_numpy(xyz, mask, init_poses, edges, pivot_flags, features=None,
+                          device=None):
+    """The inputs of models/irls.py::irls_solve from the JAX package's: the
+    stacked clouds' padded arrays ([F, N, 3] xyz and [F, N] mask, as
+    numpy.asarray gives them from irls.stack_clouds), the [F, 3, 4] poses,
+    the edges ([E, 2] or pairs) and the pivot flags. Returns (clouds,
+    init_poses [F, 3, 4] float32 numpy, edges as a list of int pairs,
+    pivot flags as a list of bools)."""
+    device = resolve_device(device)
+    f32 = torch.float32
+    clouds = PointCloud(xyz=_t(xyz, f32, device), mask=_t(mask, f32, device),
+                        features=_t(features, f32, device))
+    poses = np.asarray(init_poses, np.float32)
+    if poses.ndim != 3 or poses.shape[1:] != (3, 4) or poses.shape[0] != clouds.xyz.shape[0]:
+        raise ValueError(f"init_poses must be [F, 3, 4] for F = {clouds.xyz.shape[0]} frames, "
+                         f"got {poses.shape}")
+    pairs = [(int(i), int(j)) for i, j in np.asarray(edges).reshape(-1, 2)]
+    return clouds, poses, pairs, [bool(f) for f in np.asarray(pivot_flags).reshape(-1)]
+
+
+IRLS_CHECKPOINT_KEYS = ("poses", "ell", "iter", "last_nonzeros")
+
+
+def irls_checkpoint_from_npz(path: str) -> dict:
+    """The outer-loop state in a checkpoint written by either package's
+    host engine (irls_solve with checkpoint_path, numpy.savez): poses
+    [F, 3, 4], ell, iter, last_nonzeros and world_center [3] (None when a
+    snapshot has none, as JAX allows). models/irls.py::irls_solve reads its
+    resume state through this. Raises ValueError when a key is missing."""
+    with np.load(path) as snap:
+        missing = [k for k in IRLS_CHECKPOINT_KEYS if k not in snap]
+        if missing:
+            raise ValueError(f"{path}: not an IRLS checkpoint, missing {missing}")
+        out = {k: np.array(snap[k]) for k in IRLS_CHECKPOINT_KEYS}
+        out["world_center"] = np.array(snap["world_center"]) if "world_center" in snap else None
+    return out

@@ -6,8 +6,10 @@ unified_cvo_tpu/ops/kernels.py that the ported slices run).
 matrix over target chunks without materialising it; they run on any device,
 as the JAX package runs its blocked-XLA passes outside Pallas. They are the
 'jnp' backend of models/align.py and the oracle of the dense tiled kernels
-(ops/dense.py). `kernel_block_dense`, `weighted_d2_sum`, `least_square_flow`
-and `association_topk(_dense)` are not ported yet (ROADMAP queue 1, item 3).
+(ops/dense.py). `weighted_d2_sum` feeds the adaptive-ell gradient of the
+dense backends; `kernel_block_dense`, `association_topk(_dense)` and
+`least_square_flow` serve the analysis entry points of models/align.py and
+the tests. JAX computes every one of them in jnp, outside Pallas.
 """
 
 from __future__ import annotations
@@ -213,3 +215,150 @@ def step_coeffs(params, ell, x: PointCloud, y_t: PointCloud, twist,
         E = E + torch.sum(a * (epsil + beta * delta + 0.5 * b2 * gamma
                                + 0.5 * gamma * gamma + b2 * b2 / 24.0))
     return B, C, D, E
+
+
+def kernel_block_dense(params, kernel_inv, x: PointCloud, yb: PointCloud) -> torch.Tensor:
+    """Non-isotropic (Mahalanobis) kernel tile
+    (fill_in_A_mat_gpu_dense_mat_kernel, CvoGPU.cu:217-327):
+    k = sigma^2 exp(-(x-y)^T K^-1 (x-y) / 2) with no geometric distance
+    gate; the colour, semantic and geometric-type channels as in
+    kernel_block."""
+    xp, yp = x.xyz, yb.xyz
+    a = torch.ones((xp.shape[0], yp.shape[0]), dtype=torch.float32, device=xp.device)
+    ok = (x.mask[:, None] > 0) & (yb.mask[None, :] > 0)
+    sigma2, sp, _ = geometric_constants(params)
+
+    if params.is_using_geometric_type:
+        xg, yg = x.geometric_types, yb.geometric_types
+        dot = _mm(xg, yg.T)
+        n2 = torch.sum(xg * xg, -1)[:, None] * torch.sum(yg * yg, -1)[None, :]
+        geo = dot * dot / torch.clamp(n2, min=1e-12)
+        ok = ok & (geo >= 0.01)
+        a = a * geo
+
+    if params.is_using_geometry:
+        K = torch.as_tensor(kernel_inv, dtype=torch.float32).to(xp.device)
+        # d2 = sum_pq K[p, q] (x_p - y_p)(x_q - y_q), in JAX's term order
+        d2 = torch.zeros_like(a)
+        for p in range(3):
+            for q in range(3):
+                d2 = d2 + K[p, q] * ((xp[:, p:p + 1] - yp[None, :, p])
+                                     * (xp[:, q:q + 1] - yp[None, :, q]))
+        a = a * sigma2 * torch.exp(-d2 / 2.0)
+
+    for on, f_x, f_y, ell_c, sigma_c in (
+            (params.is_using_intensity, x.features, yb.features, params.c_ell, params.c_sigma),
+            (params.is_using_semantics, x.labels, yb.labels, params.s_ell, params.s_sigma)):
+        if not on:
+            continue
+        sig2, thres, two_ell2 = channel_constants(ell_c, sigma_c, params.sp_thres)
+        d2c = torch.clamp(torch.sum(f_x * f_x, -1)[:, None] + torch.sum(f_y * f_y, -1)[None, :]
+                          - 2.0 * _mm(f_x, f_y.T), min=0.0)
+        ok = ok & (d2c < thres)
+        a = a * sig2 * torch.exp(-d2c / two_ell2)
+
+    return torch.where(ok & (a > sp), a, torch.zeros_like(a))
+
+
+def _topk_rows(block_fn, x: PointCloud, y_t: PointCloud, k: int, chunk: int):
+    """Per-source-row top-k of a kernel streamed over target chunks: each
+    chunk's tile is merged with the running top-k, as JAX merges
+    [vals | tile] with lax.top_k. Returns (values [N, k], target index
+    [N, k]), index -1 where the value is 0."""
+    chunk = min(chunk, y_t.capacity)
+    y_t = pad_cloud_to_multiple(y_t, chunk)
+    N, dev = x.capacity, x.xyz.device
+    vals = torch.zeros((N, k), dtype=torch.float32, device=dev)
+    idx = torch.full((N, k), -1, dtype=torch.int32, device=dev)
+    for lo in range(0, y_t.capacity, chunk):
+        a = block_fn(x, _slice_cloud(y_t, lo, chunk))
+        cols = torch.arange(lo, lo + chunk, dtype=torch.int32, device=dev).expand(N, chunk)
+        vals, sel = torch.topk(torch.cat([vals, a], dim=1), k, dim=1, sorted=True)
+        idx = torch.gather(torch.cat([idx, cols], dim=1), 1, sel)
+    return vals, torch.where(vals > 0, idx, -1)
+
+
+def association_topk(params, ell, x: PointCloud, y_t: PointCloud, k: int,
+                     chunk: int = DEFAULT_CHUNK):
+    """Per-source-row top-k kernel entries: (values [N, k], target index
+    [N, k]), 0 / -1 padded: the fixed-width form of the reference's sparse
+    association export (compute_association_gpu, CvoGPU.cu:1876-1995)."""
+    return _topk_rows(lambda xb, yb: kernel_block(params, ell, xb, yb), x, y_t, k, chunk)
+
+
+def association_topk_dense(params, kernel_inv, x: PointCloud, y_t: PointCloud, k: int,
+                           chunk: int = DEFAULT_CHUNK):
+    """Top-k association under the non-isotropic kernel
+    (compute_association_gpu's 3x3-kernel overload, CvoGPU.cu:1908-1995)."""
+    return _topk_rows(lambda xb, yb: kernel_block_dense(params, kernel_inv, xb, yb),
+                      x, y_t, k, chunk)
+
+
+def _d2_block(x: PointCloud, yb: PointCloud) -> torch.Tensor:
+    d2 = torch.zeros((x.capacity, yb.capacity), dtype=torch.float32, device=x.xyz.device)
+    for c in range(3):
+        diff = x.xyz[:, c:c + 1] - yb.xyz[None, :, c]
+        d2 = d2 + diff * diff
+    return d2
+
+
+def least_square_flow(params, ell, x: PointCloud, y_t: PointCloud,
+                      chunk: int = DEFAULT_CHUNK, dist_gate: float = 0.2):
+    """Gauss-Newton 6x6 flow (the is_using_least_square path,
+    fill_in_residual_and_jacobian + compute_flow_least_square,
+    CvoGPU.cu:851-951): residuals r = (x - y) / ell with J = [-y^x I] / ell,
+    pairs gated at |x - y| < dist_gate, reduced through kernel-weighted
+    moments. Returns (omega, v) = -H^-1 b. Pairs are gated one by one, as
+    in JAX (the reference aborts a whole row at its first far pair)."""
+    chunk = min(chunk, y_t.capacity)
+    y_t = pad_cloud_to_multiple(y_t, chunk)
+    dev = x.xyz.device
+    f32 = torch.float32
+    S = torch.zeros((), dtype=f32, device=dev)
+    m_y = torch.zeros((3,), dtype=f32, device=dev)
+    M_yy = torch.zeros((3, 3), dtype=f32, device=dev)
+    M_xy = torch.zeros((3, 3), dtype=f32, device=dev)
+    m_x = torch.zeros((3,), dtype=f32, device=dev)
+    for lo in range(0, y_t.capacity, chunk):
+        yb = _slice_cloud(y_t, lo, chunk)
+        a = kernel_block(params, ell, x, yb)
+        a = torch.where(_d2_block(x, yb) < dist_gate * dist_gate, a, torch.zeros_like(a))
+        S = S + torch.sum(a)
+        col_w = torch.sum(a, dim=0)
+        row_w = torch.sum(a, dim=1)
+        m_y = m_y + _mm(col_w[None, :], yb.xyz)[0]
+        M_yy = M_yy + _mm((yb.xyz * col_w[:, None]).T, yb.xyz)
+        M_xy = M_xy + _mm(x.xyz.T, _mm(a, yb.xyz))           # sum a x y^T
+        m_x = m_x + torch.stack([torch.sum(row_w * x.xyz[:, c]) for c in range(3)])
+    ell = torch.as_tensor(ell, dtype=f32).to(dev)
+    inv_l2 = 1.0 / (ell * ell)
+    I3 = torch.eye(3, dtype=f32, device=dev)
+    # H = 1/l^2 [[sum a (|y|^2 I - y y^T), sum a y^x], [-sum a y^x, S I]]
+    H_tl = (torch.trace(M_yy) * I3 - M_yy) * inv_l2
+    my_hat = lie.skew(m_y) * inv_l2
+    H = torch.cat([torch.cat([H_tl, my_hat], dim=1),
+                   torch.cat([-my_hat, S * I3 * inv_l2], dim=1)], dim=0)
+    # b = 1/l^2 [sum a (y cross x); sum a (x - y)]
+    cross = torch.stack([M_xy[2, 1] - M_xy[1, 2], M_xy[0, 2] - M_xy[2, 0],
+                         M_xy[1, 0] - M_xy[0, 1]])
+    b = torch.cat([cross, m_x - m_y]) * inv_l2
+    eps = torch.linalg.solve(H + 1e-8 * torch.eye(6, dtype=f32, device=dev), -b)
+    return eps[:3], eps[3:]
+
+
+def weighted_d2_sum(params, ell, x: PointCloud, y: PointCloud, chunk: int = DEFAULT_CHUNK):
+    """(sum_ij A_ij d2_ij, nonzeros) over the kernel support: the
+    ingredients of the adaptive-ell gradient (reference AdaptiveCvoGPU.cu,
+    the dl accumulation of compute_flow_gpu_no_eigen, :548-720); d2 is the
+    geometric squared distance."""
+    chunk = min(chunk, y.capacity)
+    y = pad_cloud_to_multiple(y, chunk)
+    dev = x.xyz.device
+    acc = torch.zeros((), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((), dtype=torch.int64, device=dev)
+    for lo in range(0, y.capacity, chunk):
+        yb = _slice_cloud(y, lo, chunk)
+        a = kernel_block(params, ell, x, yb)
+        acc = acc + torch.sum(a * _d2_block(x, yb))
+        cnt = cnt + torch.sum(a > 0)
+    return acc, cnt.to(torch.int32)

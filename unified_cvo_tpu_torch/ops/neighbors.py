@@ -368,15 +368,41 @@ def build_neighbor_list_scan(
     )
 
 
+def _drift_bound(nl: NeighborList, R_inv, T_inv):
+    dR = R_inv.reshape(9).to(torch.float32) - nl.pose_build[:9]
+    dT = T_inv.to(torch.float32) - nl.pose_build[9:]
+    return (torch.sqrt(torch.sum(dR * dR)) * nl.r_max_t
+            + torch.sqrt(torch.sum(dT * dT)))
+
+
 def drift_bound_exceeded(nl: NeighborList, R_inv, T_inv, skin: float):
     """O(1) Verlet rebuild trigger: a sound upper bound on the largest
     target displacement since the build, from the pose delta alone:
       |dR y + dT| <= ||dR||_F r_max + |dT|."""
-    dR = R_inv.reshape(9).to(torch.float32) - nl.pose_build[:9]
-    dT = T_inv.to(torch.float32) - nl.pose_build[9:]
-    bound = (torch.sqrt(torch.sum(dR * dR)) * nl.r_max_t
-             + torch.sqrt(torch.sum(dT * dT)))
-    return bound > skin
+    return _drift_bound(nl, R_inv, T_inv) > skin
+
+
+def stale_bound_exceeded(nl: NeighborList, R_inv, T_inv, ell_now, skin: float):
+    """O(1) staleness trigger of the adaptive-ell (ACVO) loop
+    (neighbors.py:593-608): a list built with radius r_i(ell_build) + skin
+    stays a superset of the support while
+      drift_bound + k_lin * max(ell_now - ell_build, 0) <= skin
+    (the support radius is linear in ell, so a shrinking ell only adds
+    margin). Without growth it is drift_bound_exceeded."""
+    growth = nl.k_lin * torch.clamp(
+        torch.as_tensor(ell_now, dtype=torch.float32) - nl.ell_build, min=0.0)
+    return _drift_bound(nl, R_inv, T_inv) + growth > skin
+
+
+def weighted_d2_sum_ell(params, ell, x: PointCloud, nl: NeighborList, R_inv, T_inv):
+    """(sum A d2, nonzeros) over the candidate list: the adaptive-ell
+    gradient's ingredients (AdaptiveCvoGPU.cu, the dl accumulation,
+    :548-720) without a dense N x M scan (neighbors.py:611-623). Dead slots
+    have A == 0 exactly, so their sentinel d2 adds nothing."""
+    y_t = _slots_t(nl, R_inv, T_inv)
+    a = kernel_slots(params, ell, x, y_t, nl)
+    d2 = sum((x.xyz[:, c][None, :] - y_t[c]) ** 2 for c in range(3))
+    return torch.sum(a * d2), torch.sum(a > 0).to(torch.int32)
 
 
 def _slots_t(nl: NeighborList, R_inv, T_inv):
