@@ -27,7 +27,20 @@ kernel of each path was launched:
                    (select at K = 128, P = 32) on both engines, the dense
                    backend, and block PCG against the dense solve on a
                    120-frame chain, phase 8; select is also held against
-                   select_plain at K = 128 and 192 with P = 32 there.
+                   select_plain at K = 128 and 192 with P = 32 there;
+  KITTI stereo     5 rendered frames at 1241 x 376 (KITTI seq-00's camera),
+                   kitti_odometry.run_frames with the device frontend
+                   (census-SGM, DSO selection, backprojection) and
+                   KITTI_COLOR_BENCH on the colour ELL path, phase 9;
+  TUM RGB-D        5 rendered frames at 640 x 480 with uint16 depth,
+                   tum_odometry.run_frames with the device frontend and
+                   NL-means, phase 10. Phases 9-10 hold each frontend stage
+                   on the card against the same call on the CPU, hold
+                   select, flow_reduce and step_cached against their plain
+                   versions on the drivers' own clouds (frames 0 and 1, at
+                   the drivers' capacities, most slots masked), time the
+                   stages and count their launches, and bound each pair's
+                   pose error against the rendered trajectory.
 
 Phase 2c also holds flow_rows and step_uncached (the entry points of
 pallas_ell.flow_stats_ell_fused and step_coeffs_ell_fused, which no align
@@ -1522,6 +1535,443 @@ def irls_phase(f2f, dev, smi, results, floor):
     return ba
 
 
+# ---- phases 9-10: images to trajectory, the device frontends and drivers
+STEREO_FRAMES = 5            # phase 9: rendered stereo frames (4 pairs)
+RGBD_FRAMES = 5              # phase 10: rendered RGB-D frames (4 pairs)
+# KITTI odometry sequence 00's left camera and stereo baseline, full width
+KITTI00 = {"fx": 718.856, "cx": 607.1928, "cy": 185.2157, "baseline": 0.5372,
+           "cols": 1241, "rows": 376}
+# the TUM RGB-D camera the reference's calibration files give (fr1 defaults)
+TUM_CAMERA = {"fx": 525.0, "cx": 319.5, "cy": 239.5, "depth_scale": 5000.0,
+              "cols": 640, "rows": 480}
+# Pairs that JAX's own frontend and driver, fed the same rendered frames with
+# the same settings on the CPU, also end above the bench bound: the first
+# stereo pair runs the first-frame schedule from the identity and stops at the
+# cap at ell 0.33, mid-descent. Each entry: (JAX's pose error, the se(3) log
+# of JAX's relative pose, {list builds: spread}). The spread is the farthest
+# any CPU run of either package with that many builds ended from JAX's pose,
+# the guess moved by +-1e-6 m or the source cloud by one ulp: last-bit
+# changes move this pair by up to that much, and a change in whether the
+# drift bound triggers one more build moves it further. From `JAX_PLATFORMS=cpu
+# python tests/test_torch_odometry.py stereo --spread --port` (ROADMAP section
+# 3). The card's run must make a number of builds seen there, and end within
+# that number's spread of JAX's pose.
+JAX_MISSES = {
+    "phase 9": {0: (0.074307, (-1.614563080e-04, 9.696566500e-03, -7.273391238e-04,
+                               4.112411290e-03, 3.883998143e-03, 2.759748101e-01),
+                    {2: 8.49e-4, 3: 0.0167})},
+    "phase 10": {}}
+DISP_TOL = 1e-5              # disparity, card against CPU (abs; masks equal)
+CLOUD_TOL = 1e-5             # cloud xyz (rtol and atol) and features (abs)
+NLM_TOL = 1e-3               # NL-means output on the 0-255 scale (abs)
+
+
+def _camera(Calibration, fx, cx, cy, cols, rows, **kw):
+    K = np.array([[fx, 0.0, cx], [0.0, fx, cy], [0.0, 0.0, 1.0]], np.float32)
+    return Calibration(K, cols=cols, rows=rows, **kw)
+
+
+def dso_cells(image, capacity):
+    """The DSO selection of an image, from its grey level on."""
+    from unified_cvo_tpu_torch.frontend import device as fe
+
+    gs = fe.device_gray_and_gradients(image)[2]
+    return fe.dso_select_device(gs, fe.dso_block_thresholds(gs), 3, capacity)
+
+
+def stereo_frames():
+    """KITTI seq-00's camera, scripts/bench_driver.py's scene and step:
+    (calibration, [(left BGR, right BGR)], camera-to-world poses)."""
+    from unified_cvo_tpu_torch.frontend.calibration import Calibration
+    from unified_cvo_tpu_torch.utils import synth
+
+    calib = _camera(Calibration, **KITTI00)
+    scene = synth.corridor_scene(seed=3)
+    traj = synth.corridor_trajectory(STEREO_FRAMES, step=0.35)
+    return calib, [synth.render_stereo(scene, calib, T)[:2] for T in traj], traj
+
+
+def rgbd_frames():
+    """The TUM camera in the TUM fixture's corridor (test_e2e_accuracy.py),
+    depth quantised to uint16 at depth_scale; a depth past the uint16
+    range (13.1 m at depth_scale 5000) is 0, no measurement, as a TUM depth
+    map marks it (clipped, it would be a false wall at 13.1 m):
+    (calibration, [(BGR, depth, timestamp)], poses)."""
+    from unified_cvo_tpu_torch.frontend.calibration import Calibration
+    from unified_cvo_tpu_torch.utils import synth
+
+    calib = _camera(Calibration, **TUM_CAMERA)
+    scene = synth.corridor_scene(5, half_width=2.5, floor_y=1.2, ceil_y=-1.2, length=30.0)
+    traj = synth.corridor_trajectory(RGBD_FRAMES, step=0.08, yaw_rate=0.015, bob=0.005)
+    frames = []
+    for i, T in enumerate(traj):
+        bgr, depth = synth.render_frame(scene, calib, T)
+        q = depth * calib.depth_scale
+        d16 = np.where((q > 0) & (q <= 65535), q, 0).astype(np.uint16)
+        frames.append((bgr, d16, f"{1000.0 + 0.1 * i:.4f}"))
+    return calib, frames, traj
+
+
+def profiled(fn):
+    """(device kernels and copies, device busy ms) of one call of fn after a
+    warm-up call, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n, busy_us = 0, 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += 1
+            busy_us += e.time_range.elapsed_us()
+    return n, busy_us / 1e3
+
+
+def stage_times(stages, smi):
+    """Card ms (CUDA events, one call after a warm-up) and launches per call
+    (torch.profiler) of each frontend stage."""
+    out = {}
+    for name, fn in stages.items():
+        ms, _ = event_ms(fn)
+        n, busy = profiled(fn)
+        out[name] = {"ms": ms, "launches": n, "device_busy_ms": busy}
+        log(f"  {name}: {ms:.2f} ms (CUDA events), {n} device kernels+copies a call, "
+            f"device busy {busy:.2f} ms ({smi})" if n else
+            f"  {name}: {ms:.2f} ms (CUDA events), launches not measured (the profiler "
+            f"recorded no device activity) ({smi})")
+    return out
+
+
+def clouds_agree(pk, pc, what):
+    """A cloud from the card against the same call on the CPU: masks equal,
+    xyz rtol/atol 1e-5, features abs 1e-5. Returns the largest xyz error."""
+    pk = pk.to("cpu")
+    if not torch.equal(pk.mask, pc.mask):
+        raise SystemExit(f"{what}: masks differ in {int((pk.mask != pc.mask).sum())} slots")
+    if not (torch.allclose(pk.xyz, pc.xyz, rtol=CLOUD_TOL, atol=CLOUD_TOL)
+            and torch.allclose(pk.features, pc.features, rtol=0, atol=CLOUD_TOL)):
+        raise SystemExit(f"{what}: xyz or features differ, max abs "
+                         f"{float((pk.xyz - pc.xyz).abs().max())} / "
+                         f"{float((pk.features - pc.features).abs().max())}")
+    return float((pk.xyz - pc.xyz).abs().max())
+
+
+def selection_agrees(gs, dev, capacity, what):
+    """Block thresholds and DSO selection on the card against the CPU on the
+    same gradients: thresholds equal, uv and valid equal, slot order included."""
+    from unified_cvo_tpu_torch.frontend import device as fe
+
+    ths = fe.dso_block_thresholds(gs)
+    ths_k = fe.dso_block_thresholds(gs.to(dev))
+    uv, valid = fe.dso_select_device(gs, ths, 3, capacity)
+    uv_k, valid_k = fe.dso_select_device(gs.to(dev), ths_k, 3, capacity)
+    if not (torch.equal(ths_k.cpu(), ths) and torch.equal(uv_k.cpu(), uv)
+            and torch.equal(valid_k.cpu(), valid)):
+        raise SystemExit(f"{what}: the DSO selection on the card differs from the CPU's")
+    return int(valid.sum())
+
+
+def driver_kernel_checks(src, tgt, T_rel, params, dev, results, what):
+    """select, flow_reduce (geometry x channel) and step_cached against their
+    plain versions on a driver's own clouds: frames 0 and 1 from the device
+    frontend at the driver's capacity, most slots masked, the list built as
+    align builds it (grid builder, K = 32), at the first pair's start (the
+    identity, the first-frame ell) and at the rendered relative pose (the
+    preset's ell). select output for output (select_exact); flow_agree;
+    step_agree on the step in the loop's form (the flow's twist on the
+    device) and on the host-built block. Folds the errors into the kernels'
+    max_abs_err; raises SystemExit on a disagreement."""
+    from unified_cvo_tpu_torch.ops import ell as ell_ops
+    from unified_cvo_tpu_torch.ops import lie
+    from unified_cvo_tpu_torch.ops import neighbors as nbr
+    from unified_cvo_tpu_torch.ops import select as sel
+
+    K, P, dims = nbr.DEFAULT_K, nbr.PER_CELL_CAP, nbr.GRID_DIMS
+    use_geo = bool(params.is_using_geometry)
+    masked = int((src.mask == 0).sum())
+    for label, p, T in (("identity, first-frame ell", params.first_frame(), np.eye(4)),
+                        ("rendered relative pose", params, T_rel)):
+        Tk = torch.from_numpy(np.asarray(T, np.float32)).to(dev)
+        Rinv, Tinv = lie.invert_rt(Tk[:3, :3], Tk[:3, 3])
+        ell = torch.full((), p.ell_init, dtype=torch.float32, device=dev)
+        at = f"{what}, {label}"
+        g = nbr.grid_inputs(p, ell, src, tgt, Rinv, Tinv)
+        kept, live, binding = select_exact(sel, (g.tab, g.cbase, g.xr2, g.pose, K, P, dims), at)
+        nl = nbr.build_neighbor_list(p, ell, src, tgt, Rinv, Tinv)
+        v = ell_ops.variant(nl.chan, use_geo)
+        if v != "geo_chan":
+            raise SystemExit(f"{at}: the list runs the {v} variant, not geo_chan")
+        xp = ell_ops.pack_x(p, ell, src)
+        scal = ell_ops.pack_scalars(p, Rinv, Tinv)
+        ch = dict(chan=nl.chan, use_geometry=use_geo)
+        fk = ell_ops.flow_reduce(xp, nl.y_xyz, scal, p.c, p.d, **ch)
+        fp = ell_ops.flow_reduce_plain(xp, nl.y_xyz, scal, p.c, p.d, **ch)
+        torch.cuda.synchronize()
+        a_rel, A_err, tw_err, _ = flow_agree(fk, fp, f"({v}) at {at}")
+        scal_t = ell_ops.pack_scalars(p, Rinv, Tinv, fp[0])
+        steps = [(ell_ops.step_cached(xp, nl.y_xyz, fp[4], scal, twist=fp[0]),
+                  ell_ops.step_cached_plain(xp, nl.y_xyz, fp[4], scal, twist=fp[0]),
+                  f"with the twist on the device at {at}"),
+                 (ell_ops.step_cached(xp, nl.y_xyz, fp[4], scal_t),
+                  ell_ops.step_cached_plain(xp, nl.y_xyz, fp[4], scal_t), f"at {at}")]
+        s_err = max(step_agree(*st) for st in steps)
+        s_rel = max(float(torch.max(torch.abs(bk - bp) / torch.abs(bp).clamp_min(1e-30)))
+                    for bk, bp, _ in steps)
+        results["flow_reduce"]["max_abs_err"] = max(results["flow_reduce"]["max_abs_err"],
+                                                    A_err, tw_err)
+        results["step_cached"]["max_abs_err"] = max(results["step_cached"]["max_abs_err"], s_err)
+        log(f"kernels @ {at}: N {src.capacity}, {masked} masked source rows; select equal to "
+            f"select_plain, two launches bit-equal (kept {kept}, live slots {live}, rows with "
+            f"kept > K {binding}); flow_reduce ({v}) nonzeros {int(fk[2])} (exact), a_sum rel "
+            f"{a_rel:.3g}, A abs {A_err:.3g}, twist abs {tw_err:.3g}; step_cached within "
+            f"tolerance in both forms (max abs {s_err:.3g}, rel {s_rel:.3g})")
+
+
+def jax_gap(xi, T):
+    """|log(exp(xi)^-1 T)|: how far the transform T lies from JAX's."""
+    from unified_cvo_tpu_torch.ops import lie
+
+    R, t = lie.se3_exp(torch.tensor(xi, dtype=torch.float64), 1.0)
+    E = np.linalg.inv(lie.rt_to_mat44(R, t).numpy()) @ T
+    return float(torch.linalg.vector_norm(lie.se3_log(torch.from_numpy(E[:3, :3]),
+                                                      torch.from_numpy(E[:3, 3]))))
+
+
+def driver_report(phase, label, poses, traj, records, seconds, launches, smi):
+    """Pose errors against the rendered trajectory, ATE and RPE, align ms,
+    iterations and builds per pair, fps; raises unless every pair is below
+    the bench bound (or, on a pair of JAX_MISSES, within the CPU runs' spread
+    of JAX's pose for its number of builds) and every align kernel went
+    through the path."""
+    from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
+    from unified_cvo_tpu_torch.utils import metrics
+
+    n = len(records)
+    rel = [np.linalg.inv(poses[k]) @ poses[k + 1] for k in range(n)]
+    true = [np.linalg.inv(traj[k + 1]) @ traj[k] for k in range(n)]
+    errs = f2f.pose_errors(rel, true)
+    iters = [r.info.iterations for r in records]
+    builds = [r.info.nl_rebuilds for r in records]
+    row = {"pairs": n, "seconds": seconds, "fps": n / seconds,
+           "align_ms": [1e3 * r.wait_seconds for r in records],
+           "frontend_enqueue_ms": [1e3 * r.frontend_seconds for r in records],
+           "iterations": iters, "builds": builds,
+           "final_ell": [float(r.info.final_ell) for r in records],
+           "host_reads": [r.info.host_reads for r in records],
+           "overflow": [int(r.info.nl_overflow) for r in records],
+           "pose_errors": errs,
+           "ate_m": metrics.ate_rmse(traj[:len(poses)], poses),
+           "rpe_m": metrics.rpe_rmse(traj[:len(poses)], poses),
+           "launches": {k: launches[k] for k in ("select", "flow_reduce", "step_cached")},
+           "backend": sorted({(r.info.backend, r.info.nl_builder) for r in records})}
+    log(f"{label}: {n} pairs in {seconds:.3f} s, {n / seconds:.4f} aligned frames/s "
+        f"(driver, frontend included) ({smi})")
+    log(f"  align ms/pair {[round(x, 2) for x in row['align_ms']]}, iterations {iters}, "
+        f"final ell {[round(x, 6) for x in row['final_ell']]}, builds {builds}, host reads "
+        f"{row['host_reads']}, overflow {row['overflow']}, backend {row['backend']}")
+    log(f"  pose error |xi| per pair {[round(e, 6) for e in errs]}; trajectory ATE "
+        f"{row['ate_m']:.6f} m, RPE {row['rpe_m']:.6f} m")
+    log(f"  launches {launches}")
+    if not all(r.ret == 0 and (r.info.backend, r.info.nl_builder) == ("ell", "grid")
+               for r in records):
+        raise SystemExit(f"{label}: a pair did not run 'ell' with the grid builder, or "
+                         f"its flow was degenerate")
+    if not (launches["select"] >= sum(builds) > 0
+            and launches["flow_reduce_by_variant"].get("geo_chan") == launches["flow_reduce"]
+            == launches["step_cached"] == sum(iters)):
+        raise SystemExit(f"{label}: launch counts {launches} do not match {sum(builds)} "
+                         f"builds and {sum(iters)} iterations")
+    row["jax_misses"] = {}
+    for k, err in enumerate(errs):
+        if err < f2f.POSE_ERROR_BOUND:
+            continue
+        if k not in JAX_MISSES[phase]:
+            raise SystemExit(f"{label}: pair {k}'s pose error {err} is not below "
+                             f"{f2f.POSE_ERROR_BOUND}")
+        jax_err, xi, spreads = JAX_MISSES[phase][k]
+        gap = jax_gap(xi, rel[k])
+        spread = spreads.get(builds[k])
+        row["jax_misses"][k] = {"jax_pose_error": jax_err, "pose_error": err, "gap": gap,
+                                "builds": builds[k], "spread": spread}
+        log(f"  pair {k}: pose error {err:.6f} is above {f2f.POSE_ERROR_BOUND} as JAX's "
+            f"({jax_err:.6f} on the same frames, CPU); the poses lie {gap:.3g} apart, "
+            f"{builds[k]} builds, whose last-bit spread on the CPU is {spread}")
+        if spread is None or not gap <= spread:
+            raise SystemExit(f"{label}: pair {k} ends {gap} from JAX's pose after {builds[k]} "
+                             f"builds, not within the spread that CPU runs with as many "
+                             f"builds show ({spreads})")
+    return row
+
+
+def stereo_phase(dev, smi, results):
+    """Phase 9: the KITTI stereo path at full width, images to trajectory on
+    the card. Frame 0's frontend on the card is held against the port's call
+    on the CPU (disparity: masks equal, abs 1e-5; block thresholds and
+    selection equal, slot order included; the cloud: masks equal, xyz
+    rtol/atol 1e-5, features abs 1e-5); each stage is timed by CUDA events
+    and its launches counted; then kitti_odometry.run_frames registers the
+    4 pairs (KITTI_COLOR_BENCH, bench.py's 1500-iteration cap, capacity
+    32768, max_disp by the width rule: 128) and every pair must end below
+    the bench bound with select, flow_reduce and step_cached launched. Those
+    three kernels are first held against their plain versions on the
+    driver's clouds of frames 0 and 1 (driver_kernel_checks)."""
+    from unified_cvo_tpu_torch.apps import kitti_odometry
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH
+    from unified_cvo_tpu_torch.frontend import device as fe
+    from unified_cvo_tpu_torch.ops import sgm
+
+    t0 = time.perf_counter()
+    calib, frames, traj = stereo_frames()
+    log(f"phase 9: {len(frames)} stereo frames rendered at {calib.cols} x {calib.rows} "
+        f"in {time.perf_counter() - t0:.2f} s (host)")
+    cap, md = kitti_odometry.CAPACITY, kitti_odometry.max_disp_for(calib.cols)
+    cpu = torch.device("cpu")
+    left, right = frames[0]
+    gray_l, _, gs = fe.device_gray_and_gradients(torch.from_numpy(left))
+    gray_r = fe.device_gray_and_gradients(torch.from_numpy(right))[0]
+    t0 = time.perf_counter()
+    disp = sgm.sgm_disparity_device(gray_l, gray_r, max_disp=md)
+    cpu_s = time.perf_counter() - t0
+    gl_k, gr_k = gray_l.to(dev), gray_r.to(dev)
+    disp_k = sgm.sgm_disparity_device(gl_k, gr_k, max_disp=md).cpu()
+    if not (torch.equal(disp_k > 0, disp > 0)
+            and float((disp_k - disp).abs().max()) <= DISP_TOL):
+        raise SystemExit(f"phase 9: the disparity on the card differs from the CPU's, max abs "
+                         f"{float((disp_k - disp).abs().max())}, "
+                         f"{int(((disp_k > 0) != (disp > 0)).sum())} masks differ")
+    n_sel = selection_agrees(gs, dev, cap, "phase 9")
+
+    def cloud(d, pair=frames[0]):
+        return fe.device_pointcloud_from_stereo(*pair, calib, capacity=cap, max_disp=md,
+                                                device=d)
+
+    xyz_err = clouds_agree(cloud(dev), cloud(cpu), "phase 9 cloud")
+    clouds = [cloud(dev, pair) for pair in frames]
+    valid = [int(c.mask.sum()) for c in clouds]
+    driver_kernel_checks(clouds[0], clouds[1], np.linalg.inv(traj[0]) @ traj[1],
+                         KITTI_COLOR_BENCH, dev, results, "phase 9 frames 0 -> 1")
+    del clouds
+    log(f"phase 9 frontend, card against CPU on frame 0: disparity masks equal "
+        f"({float((disp > 0).float().mean()):.4f} valid), abs {float((disp_k - disp).abs().max())}"
+        f" (CPU SGM {cpu_s:.1f} s); selection equal ({n_sel} cells); cloud masks equal, xyz "
+        f"max abs {xyz_err:.3g}")
+    log(f"  valid points per frame {valid} of {cap}")
+    lk = torch.from_numpy(left).to(dev)
+    cost = sgm._cost_volume(sgm.census_5x5(gl_k), sgm.census_5x5(gr_k), md)
+    stages = stage_times({
+        "frontend (device_pointcloud_from_stereo, upload included)": lambda: cloud(dev),
+        "SGM (sgm_disparity_device)": lambda: sgm.sgm_disparity_device(gl_k, gr_k, max_disp=md),
+        "SGM scans (_aggregate)": lambda: sgm._aggregate(cost, md, 10, 120),
+        "DSO selection (gray, gradients, thresholds, select)": lambda: dso_cells(lk, cap),
+    }, smi)
+    del cost
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    poses, records = kitti_odometry.run_frames(
+        frames, calib, KITTI_COLOR_BENCH, capacity=cap, max_iter=MAX_ITER, frontend="device",
+        device=dev, log=lambda *a: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    out = driver_report("phase 9", "phase 9 KITTI stereo driver (kitti_odometry.run_frames, "
+                        "--device-frontend)", poses, traj, records, seconds, launches, smi)
+    out.update(valid_points=valid, frontend=stages, cpu_sgm_s=cpu_s,
+               frontend_checks={"disparity_max_abs": float((disp_k - disp).abs().max()),
+                                "selected_cells": n_sel, "cloud_xyz_max_abs": xyz_err})
+    for name in ("select", "flow_reduce", "step_cached"):
+        results[name]["launches_kitti_stereo"] = launches[name]
+    return out
+
+
+def rgbd_phase(dev, smi, results):
+    """Phase 10: the TUM RGB-D path at 640 x 480 with NL-means, images to
+    trajectory on the card. On frame 0: NL-means on the card against the
+    CPU (abs 1e-3 on the 0-255 scale); then the rest of the chain on the
+    card's denoised image, on the card and on the CPU (thresholds and
+    selection equal, slot order included; cloud masks equal, xyz rtol/atol
+    1e-5). The whole entry point with NL-means is compared too, and the
+    slots where its two clouds differ are printed: NL-means' last bits
+    differ between the devices, and the fixed-point grey level floors
+    them. Then tum_odometry.run_frames registers the 4 pairs
+    (KITTI_COLOR_BENCH, the 1500-iteration cap, capacity 16384,
+    denoise=True) under the same bound and launch checks as phase 9, after
+    the same kernel checks on its clouds of frames 0 and 1."""
+    from unified_cvo_tpu_torch.apps import tum_odometry
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH
+    from unified_cvo_tpu_torch.frontend import device as fe
+    from unified_cvo_tpu_torch.ops import nlm
+
+    t0 = time.perf_counter()
+    calib, frames, traj = rgbd_frames()
+    log(f"phase 10: {len(frames)} RGB-D frames rendered at {calib.cols} x {calib.rows} in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    cap = tum_odometry.CAPACITY
+    cpu = torch.device("cpu")
+    bgr, depth, _ = frames[0]
+    img = torch.from_numpy(bgr).to(torch.float32)
+    t0 = time.perf_counter()
+    dn = nlm.nlm_denoise(img)
+    cpu_s = time.perf_counter() - t0
+    dn_k = nlm.nlm_denoise(img.to(dev))
+    nlm_err = float((dn_k.cpu() - dn).abs().max())
+    if not nlm_err <= NLM_TOL:
+        raise SystemExit(f"phase 10: NL-means on the card differs from the CPU's by {nlm_err}")
+    dn_host = dn_k.cpu()
+    n_sel = selection_agrees(fe.device_gray_and_gradients(dn_host)[2], dev, cap, "phase 10")
+
+    def cloud(d, image, denoise, dmap=depth):
+        return fe.device_pointcloud_from_rgbd(image, dmap, calib, capacity=cap,
+                                              denoise=denoise, device=d)
+
+    xyz_err = clouds_agree(cloud(dev, dn_host, False), cloud(cpu, dn_host, False),
+                           "phase 10 cloud on the card's denoised image")
+    whole_k, whole_c = cloud(dev, bgr, True).to("cpu"), cloud(cpu, bgr, True)
+    differ = int((whole_k.mask != whole_c.mask).sum()
+                 + ((whole_k.mask == whole_c.mask) & (whole_k.mask > 0)
+                    & ~torch.isclose(whole_k.xyz, whole_c.xyz, rtol=CLOUD_TOL,
+                                     atol=CLOUD_TOL).all(1)).sum())
+    clouds = [cloud(dev, f[0], True, f[1]) for f in frames]
+    valid = [int(c.mask.sum()) for c in clouds]
+    driver_kernel_checks(clouds[0], clouds[1], np.linalg.inv(traj[0]) @ traj[1],
+                         KITTI_COLOR_BENCH, dev, results, "phase 10 frames 0 -> 1")
+    del clouds
+    log(f"phase 10 frontend, card against CPU on frame 0: NL-means max abs {nlm_err:.3g} "
+        f"(CPU {cpu_s:.1f} s); on the card's denoised image selection equal ({n_sel} cells), "
+        f"cloud masks equal, xyz max abs {xyz_err:.3g}; the whole entry point with NL-means "
+        f"on each device: {differ} of {cap} slots differ")
+    log(f"  valid points per frame {valid} of {cap}")
+    img_k = img.to(dev)
+    stages = stage_times({
+        "frontend (device_pointcloud_from_rgbd, NL-means, upload included)":
+            lambda: cloud(dev, bgr, True),
+        "NL-means (nlm_denoise)": lambda: nlm.nlm_denoise(img_k),
+        "DSO selection (gray, gradients, thresholds, select)": lambda: dso_cells(dn_k, cap),
+    }, smi)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    poses, _, records = tum_odometry.run_frames(
+        frames, calib, KITTI_COLOR_BENCH, capacity=cap, max_iter=MAX_ITER, denoise=True,
+        device_frontend=True, device=dev, log=lambda *a: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    out = driver_report("phase 10", "phase 10 TUM RGB-D driver (tum_odometry.run_frames, "
+                        "--device-frontend, NL-means)", poses, traj, records, seconds,
+                        launches, smi)
+    out.update(valid_points=valid, frontend=stages, cpu_nlm_s=cpu_s,
+               frontend_checks={"nlm_max_abs": nlm_err, "selected_cells": n_sel,
+                                "cloud_xyz_max_abs": xyz_err,
+                                "whole_entry_point_slots_differing": differ})
+    for name in ("select", "flow_reduce", "step_cached"):
+        results[name]["launches_tum_rgbd"] = launches[name]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=8,
@@ -1764,13 +2214,21 @@ def main(argv=None) -> int:
     results["irls"] = irls_phase(f2f, dev, smi, results, floor)
     log(f"phase 8 (IRLS BA): {time.perf_counter() - t0:.2f} s")
 
+    # ---- phases 9-10: images to trajectory (device frontends, odometry drivers)
+    t0 = time.perf_counter()
+    results["kitti_stereo"] = stereo_phase(dev, smi, results)
+    log(f"phase 9 (KITTI stereo path, CPU checks included): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    results["tum_rgbd"] = rgbd_phase(dev, smi, results)
+    log(f"phase 10 (TUM RGB-D path, CPU checks included): {time.perf_counter() - t0:.2f} s")
+
     # ---- phase 5: where an iteration's time goes (profiler, not counted)
     profile_main_path(f2f, frames, guess, params, dev, label=" ELL path")
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
                       label=" dense path", backend="pallas")
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
                       label=" colour ELL path")
-    paths = {name: results.pop(name) for name in ("acvo", "irls")}
+    paths = {name: results.pop(name) for name in ("acvo", "irls", "kitti_stereo", "tum_rgbd")}
     log(json.dumps({"paths": paths}))
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

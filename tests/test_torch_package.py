@@ -1,5 +1,6 @@
 """Package rules of the PyTorch port (unified_cvo_tpu_torch): it imports
-neither jax nor the JAX package, it never falls back to the CPU unasked,
+neither jax nor the JAX package, importing it loads no OpenCV (the card's
+machine has none), it never falls back to the CPU unasked,
 its kernel wrappers take the plain path only for CPU tensors, and its CUDA
 build is configured for Hopper without fast math."""
 
@@ -25,6 +26,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "unified_cvo_tpu_torch"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "unified_cvo_tpu")
+# importing the port loads none of these; cv2 is imported only inside the
+# functions that read or write PNGs
+NOT_LOADED = FORBIDDEN + ("cv2",)
 
 
 def _module_names():
@@ -46,7 +50,7 @@ def test_importing_the_port_loads_no_jax():
         f"for m in {_module_names()!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {NOT_LOADED!r}]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -99,6 +103,30 @@ def test_analysis_and_irls_entry_points_raise_without_cuda():
                  lambda: irls.irls_solve(irls.stack_clouds([pc, pc]),
                                          np.tile(np.eye(3, 4, dtype=np.float32), (2, 1, 1)),
                                          [(0, 1)], [True, False], KITTI_GEOMETRIC_BENCH)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_frontends_and_drivers_raise_without_cuda(tmp_path):
+    """The device frontends, NL-means and the odometry drivers default to
+    the card too."""
+    _needs_no_card()
+    from unified_cvo_tpu_torch.apps import kitti_odometry, tum_odometry
+    from unified_cvo_tpu_torch.frontend import device as t_dev
+    from unified_cvo_tpu_torch.frontend.calibration import Calibration
+    from unified_cvo_tpu_torch.ops import nlm
+
+    img = np.zeros((64, 96, 3), np.uint8)
+    calib = Calibration(np.array([[50.0, 0, 48], [0, 50.0, 32], [0, 0, 1]], np.float32),
+                        baseline=0.5, depth_scale=1000.0, cols=96, rows=64)
+    for call in (lambda: t_dev.device_pointcloud_from_stereo(img, img, calib, max_disp=16),
+                 lambda: t_dev.device_pointcloud_from_rgbd(img, np.ones((64, 96), np.uint16),
+                                                           calib),
+                 lambda: nlm.nlm_denoise_uint8(img),
+                 lambda: kitti_odometry.run_frames([(img, img)], calib, KITTI_GEOMETRIC_BENCH,
+                                                   frontend="device"),
+                 lambda: tum_odometry.run_frames([(img, img[..., 0], "0")], calib,
+                                                 KITTI_GEOMETRIC_BENCH, device_frontend=True)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

@@ -1,7 +1,7 @@
 """Carry state from the JAX package into the port.
 
-CVO learns nothing, so its state is the parameters, the clouds and the
-neighbor list. These take the JAX package's state as plain numpy arrays and
+CVO learns nothing, so its state is the parameters, the clouds, the
+neighbor list and the camera calibration. These take the JAX package's state as plain numpy arrays and
 dicts (the caller converts with `numpy.asarray` and `dataclasses.asdict`),
 so this module imports nothing of the JAX package.
 """
@@ -16,6 +16,7 @@ import torch
 
 from unified_cvo_tpu_torch.config import CvoParams
 from unified_cvo_tpu_torch.device import resolve_device
+from unified_cvo_tpu_torch.frontend.calibration import Calibration
 from unified_cvo_tpu_torch.ops.neighbors import NeighborList
 from unified_cvo_tpu_torch.utils.pointcloud import PointCloud
 
@@ -28,6 +29,17 @@ def params_from_fields(fields: Mapping) -> CvoParams:
     if unknown:
         raise ValueError(f"unknown CvoParams fields: {sorted(unknown)}")
     return CvoParams(**dict(fields))
+
+
+def calibration_from_fields(intrinsic, baseline: float = 0.0, depth_scale: float = 1.0,
+                            cols: int = 0, rows: int = 0) -> Calibration:
+    """The port's Calibration from the JAX Calibration's fields (intrinsic
+    [3, 3] as numpy, baseline, depth_scale, cols, rows)."""
+    K = np.array(intrinsic, np.float32)
+    if K.shape != (3, 3):
+        raise ValueError(f"intrinsic must be [3, 3], got {K.shape}")
+    return Calibration(K, baseline=float(baseline), depth_scale=float(depth_scale),
+                       cols=int(cols), rows=int(rows))
 
 
 def _t(a, dtype, device):

@@ -1,0 +1,214 @@
+"""Census / semi-global stereo matching in torch ops (port of
+unified_cvo_tpu/ops/sgm.py): the stereo frontend's disparity on the device.
+
+census -> hamming cost volume -> 6-path SGM aggregation (two batched
+scans) -> WTA + uniqueness + subpixel -> left/right consistency -> 3x3
+valid-median -> density speckle test, with the JAX package's semantics
+(which transcribe native/cvo_native.cpp):
+  - 5x5 edge-clamped census, 24-bit signature
+  - cost(y,x,d) = popcount(cl[y,x] ^ cr[y,x-d]), 24 where x-d < 0
+  - per-direction recurrence Lc = c + min(Lp[d], Lp[d+-1]+P1, minprev+P2)
+    - minprev over dirs {(1,0),(-1,0),(0,1),(0,-1),(1,1),(-1,-1)}
+  - WTA first-min, uniqueness test vs second-best outside |d-best|<=1,
+    parabolic subpixel
+  - right disparity from the same volume: argmin_d agg[y, x+d, d]
+  - LR check: keep d >= 0.5 with |disp_r[x - round(d)] - d| <= 1.5
+  - 3x3 median over valid neighbors when self valid and n >= 5
+  - speckle: a valid pixel needs `speckle_density` valid neighbours within
+    |Delta d| <= 2 in its 9x9 window
+
+Every cost and aggregate is int32, as in JAX: the census signature has 24
+bits, so it fits an int32 and its popcount is a SWAR sum of bytes. Every
+float step rounds as JAX's does (float32 throughout, ties broken at the
+first minimum by `argmin`), so a disparity agrees with JAX's to f32
+division and with the same call on another device exactly.
+
+The scans are plain torch ops on [G, lines, D] states: one step of the
+horizontal scan and one of the vertical scan are each ~15 launches, W and
+H steps a frame. A hand kernel for them is a later candidate (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+INF = 1 << 28
+MAX_COST = 24          # 24-bit census: hamming <= 24
+
+
+def _clamped(n: int, pad: int, device) -> torch.Tensor:
+    return torch.clamp(torch.arange(-pad, n + pad, device=device), 0, n - 1)
+
+
+def census_5x5(gray: torch.Tensor) -> torch.Tensor:
+    """[H, W] integer-valued -> int32 24-bit census signature (bit set where
+    the edge-clamped neighbour is darker, neighbours in row-major order)."""
+    g = torch.as_tensor(gray).to(torch.int32)
+    h, w = g.shape
+    p = g.index_select(0, _clamped(h, 2, g.device)).index_select(1, _clamped(w, 2, g.device))
+    sig = torch.zeros_like(g)
+    for dy in range(-2, 3):
+        for dx in range(-2, 3):
+            if dy == 0 and dx == 0:
+                continue
+            bit = (p[2 + dy:2 + dy + h, 2 + dx:2 + dx + w] < g).to(torch.int32)
+            sig = (sig << 1) | bit
+    return sig
+
+
+def _popcount24(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of non-negative int32 values below 2**24 (SWAR: pairs,
+    nibbles, bytes, then the three bytes summed)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x & 0xFF) + ((x >> 8) & 0xFF) + ((x >> 16) & 0xFF)
+
+
+def _cost_volume(cl: torch.Tensor, cr: torch.Tensor, D: int) -> torch.Tensor:
+    """[H, W, D] int32 hamming costs; 24 where the right pixel is off-frame."""
+    h, w = cl.shape
+    xd = (torch.arange(w, device=cl.device)[:, None]
+          - torch.arange(D, device=cl.device)[None, :])        # [W, D]: x - d
+    crd = F.pad(cr, (D, 0))[:, xd + D]                          # [H, W, D]
+    ham = _popcount24(cl[:, :, None] ^ crd)
+    return torch.where(xd >= 0, ham, MAX_COST)
+
+
+def _shift_lines(a: torch.Tensor, fill: int) -> torch.Tensor:
+    """a [g, L, X] moved one line along L (line l takes line l - 1), `fill`
+    in line 0."""
+    return F.pad(a[:, :-1], (0, 0, 1, 0), value=fill)
+
+
+def _sgm_scan(costs: torch.Tensor, has_prev_masks, n_shift: int,
+              P1: int, P2: int) -> torch.Tensor:
+    """Batched SGM recurrence.
+
+    costs: [S, G, L, D] int32, contiguous: S scan steps of G direction
+    members over L lines. has_prev_masks: [G, L] bool, lines whose in-step
+    predecessor exists (applied from step 1; step 0 always starts a
+    scanline), or None when every line has one. The last `n_shift`
+    members shift their state +1 along L between steps (the diagonal
+    directions: the predecessor is one line over). Returns the per-step Lc
+    volume [S, G, L, D] int32."""
+    S, G, L, D = costs.shape
+    out = torch.empty_like(costs)
+    out[0] = costs[0]
+    Lp = costs[0]
+    minprev = Lp.amin(-1, keepdim=True)
+    hp = None if has_prev_masks is None else has_prev_masks[:, :, None]
+    for s in range(1, S):
+        if n_shift:
+            k = G - n_shift
+            Lp = torch.cat([Lp[:k], _shift_lines(Lp[k:], INF)])
+            minprev = torch.cat([minprev[:k], _shift_lines(minprev[k:], 0)])
+        pd = F.pad(Lp, (1, 1), value=INF)
+        best = torch.minimum(
+            Lp, torch.minimum(torch.minimum(pd[..., :-2], pd[..., 2:]) + P1,
+                              minprev + P2))
+        Lc = costs[s] + best - minprev
+        if hp is not None:
+            Lc = torch.where(hp, Lc, costs[s])
+        out[s] = Lc
+        Lp = Lc
+        minprev = Lc.amin(-1, keepdim=True)
+    return out
+
+
+def _aggregate(cost: torch.Tensor, max_disp: int, p1: int, p2: int) -> torch.Tensor:
+    """Sum of the six path costs, [H, W, D] int32."""
+    h, w, D = cost.shape
+    # ---- horizontal scan over x: members (1,0) and (-1,0) (x-flipped)
+    xs = torch.stack([cost, cost.flip(1)]).permute(2, 0, 1, 3).contiguous()  # [W,2,H,D]
+    out_h = _sgm_scan(xs, None, 0, p1, p2)
+    agg = torch.empty_like(cost)
+    torch.add(out_h[:, 0].permute(1, 0, 2), out_h[:, 1].flip(0).permute(1, 0, 2), out=agg)
+    del out_h, xs
+    # ---- vertical/diagonal scan over y: members (0,1), (0,-1) (y-flip),
+    # (1,1) (x-shift), (-1,-1) (y+x flip, x-shift)
+    ys = torch.stack([cost, cost.flip(0), cost, cost.flip(0, 1)], 1)      # [H,4,W,D]
+    xcols = torch.arange(w, device=cost.device)
+    hp = torch.stack([torch.ones_like(xcols, dtype=torch.bool)] * 2 + [xcols >= 1] * 2)
+    out_v = _sgm_scan(ys, hp, 2, p1, p2)
+    agg += out_v[:, 0]
+    agg += out_v[:, 1].flip(0)
+    agg += out_v[:, 2]
+    agg += out_v[:, 3].flip(0, 1)
+    return agg
+
+
+# optimal 9-element sorting network (25 compare-exchanges)
+_MEDIAN9 = ((0, 1), (3, 4), (6, 7), (1, 2), (4, 5), (7, 8), (0, 1), (3, 4), (6, 7),
+            (0, 3), (3, 6), (0, 3), (1, 4), (4, 7), (1, 4), (2, 5), (5, 8), (2, 5),
+            (1, 3), (5, 7), (2, 6), (4, 6), (2, 4), (2, 3), (5, 6))
+
+
+def _windows(a: torch.Tensor, r: int, fill: float) -> torch.Tensor:
+    """[(2r+1)^2, H, W]: a's (2r+1)x(2r+1) neighbourhoods, `fill` outside,
+    offsets in row-major order (dy outer, dx inner)."""
+    h, w = a.shape
+    p = F.pad(a, (r, r, r, r), value=fill)
+    return p.unfold(0, h, 1).unfold(1, w, 1).reshape(-1, h, w)
+
+
+def sgm_disparity_device(left, right, max_disp: int = 128, p1: int = 10,
+                         p2: int = 120, uniqueness: float = 0.1,
+                         speckle_density: int = 12) -> torch.Tensor:
+    """Left disparity [H, W] float32 on the inputs' device; <= 0 where
+    invalid. left/right: [H, W] integer-valued grayscale tensors."""
+    f32 = torch.float32
+    cl = census_5x5(left)
+    cr = census_5x5(right)
+    dev = cl.device
+    D = max_disp
+    agg = _aggregate(_cost_volume(cl, cr, D), D, p1, p2)                 # [H, W, D]
+    h, w = cl.shape
+
+    # ---- WTA (first minimum) + uniqueness + subpixel
+    bc, best = agg.amin(-1), agg.argmin(-1)
+    rel = torch.arange(D, device=dev) - best[..., None]
+    second = torch.where(rel.abs() <= 1, INF, agg).amin(-1)
+    c1 = bc.to(f32)
+    ambiguous = (second < INF) & (c1 * torch.tensor(1.0 + uniqueness, dtype=f32)
+                                  > second.to(f32))
+    c0 = agg.gather(-1, (best - 1).clamp(min=0)[..., None])[..., 0].to(f32)
+    c2 = agg.gather(-1, (best + 1).clamp(max=D - 1)[..., None])[..., 0].to(f32)
+    c0 = torch.where(best > 0, c0, 0.0)
+    c2 = torch.where(best < D - 1, c2, 0.0)
+    denom = c0 - 2.0 * c1 + c2
+    interior = (best > 0) & (best < D - 1) & (denom > 1e-6)
+    disp_l = best.to(f32) + torch.where(
+        interior, 0.5 * (c0 - c2) / torch.where(denom > 1e-6, denom, 1.0), 0.0)
+    disp_l = torch.where(ambiguous, -1.0, disp_l)
+
+    # ---- right disparity from the same volume: argmin_d agg[y, x+d, d],
+    # read through a sheared view of the volume padded with INF past W
+    aggp = F.pad(agg, (0, 0, 0, D), value=INF)                          # [H, W+D, D]
+    sheared = aggp.as_strided((h, w, D), ((w + D) * D, D, D + 1))
+    disp_r = sheared.argmin(-1).to(f32)
+    disp_r = torch.where(sheared.amin(-1) >= INF, -1.0, disp_r)
+    del aggp, sheared
+
+    # ---- LR consistency
+    xr = torch.arange(w, device=dev)[None, :] - torch.floor(disp_l + 0.5).to(torch.int64)
+    dr = disp_r.gather(1, xr.clamp(0, w - 1))
+    keep = (disp_l >= 0.5) & (xr >= 0) & (dr >= 0) & ((dr - disp_l).abs() <= 1.5)
+    disp = torch.where(keep, disp_l, -1.0)
+
+    # ---- 3x3 median over valid neighbors (self valid and n >= 5)
+    neigh = _windows(disp, 1, -1.0)
+    n = (neigh > 0).sum(0)
+    vals = list(torch.where(neigh > 0, neigh, 1e9).unbind(0))
+    for a, b in _MEDIAN9:
+        vals[a], vals[b] = torch.minimum(vals[a], vals[b]), torch.maximum(vals[a], vals[b])
+    med = torch.stack(vals).gather(0, (n // 2)[None])[0]
+    disp = torch.where((disp > 0) & (n >= 5), med, disp)
+
+    # ---- density speckle suppression
+    v = disp > 0
+    nb = _windows(torch.where(v, disp, 0.0), 4, 0.0)
+    nv = _windows(v.to(f32), 4, 0.0) > 0
+    cnt = (nv & ((nb - disp).abs() <= 2.0)).sum(0)
+    return torch.where(v & (cnt < speckle_density), -1.0, disp)
