@@ -28,11 +28,11 @@ kernel of each path was launched:
                    backend, and block PCG against the dense solve on a
                    120-frame chain, phase 8; select is also held against
                    select_plain at K = 128 and 192 with P = 32 there;
-  KITTI stereo     5 rendered frames at 1241 x 376 (KITTI seq-00's camera),
+  KITTI stereo     3 rendered frames at 1241 x 376 (KITTI seq-00's camera),
                    kitti_odometry.run_frames with the device frontend
                    (census-SGM, DSO selection, backprojection) and
                    KITTI_COLOR_BENCH on the colour ELL path, phase 9;
-  TUM RGB-D        5 rendered frames at 640 x 480 with uint16 depth,
+  TUM RGB-D        3 rendered frames at 640 x 480 with uint16 depth,
                    tum_odometry.run_frames with the device frontend and
                    NL-means, phase 10. Phases 9-10 hold each frontend stage
                    on the card against the same call on the CPU, hold
@@ -40,7 +40,20 @@ kernel of each path was launched:
                    versions on the drivers' own clouds (frames 0 and 1, at
                    the drivers' capacities, most slots masked), time the
                    stages and count their launches, and bound each pair's
-                   pose error against the rendered trajectory.
+                   pose error against the rendered trajectory;
+  TUM RGB-D host   phase 10's frames and two more through the host
+                   frontend's port (FAST selection, frontend/pipeline.py),
+                   card against CPU exact, and tum_odometry.run_frames with
+                   it, phase 11;
+  SLAM back end    local_mapping.run_frames online (6 frames at 640 x 480,
+                   one of them still: keyframes, a sliding window with its
+                   marginal, frames fused into keyframe maps) and offline,
+                   the loop closure of test_e2e_accuracy.py (72 frames,
+                   pose graph, BKI map), the BKI map at size and the pose
+                   graph (200-keyframe CG loop, 1000 incremental keyframes),
+                   each card against CPU, phase 12. Phases 11 and 12a-b also
+                   hold select, flow_reduce and step_cached against their
+                   plain versions on their own clouds.
 
 Phase 2c also holds flow_rows and step_uncached (the entry points of
 pallas_ell.flow_stats_ell_fused and step_coeffs_ell_fused, which no align
@@ -80,8 +93,15 @@ twist part built three ways (in the kernel, on the host by twist_scalars,
 on the host in matrix form) to show which one moves the pose errors; it
 prints no result line.
 
-Usage: python3 chip_smoke.py [--frames 8] [--dense-ablation | --select-ablation |
-                             --ell-ablation | --compare-tree DIR]
+`--slam-only` builds, then runs phases 11-12 alone and prints their JSON
+line, no result line.
+
+`--posegraph-ablation` runs phase 12d's incremental run, card against CPU,
+with each subgraph solved in its own frame and in the world frame.
+
+Usage: python3 chip_smoke.py [--frames 4] [--dense-ablation | --select-ablation |
+                             --ell-ablation | --posegraph-ablation |
+                             --compare-tree DIR | --slam-only]
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails. The last line of stdout is the result object.
 """
@@ -113,9 +133,14 @@ A_OPS_PER_SLOT = {"geo": 32, "geo_chan": 34, "chan": 21}
 
 N_POINTS = 16384
 MAX_ITER = 1500             # bench.py's iteration cap
-DENSE_PAIRS = 3             # timed pairs of the dense path (after one warm-up)
+# Phases 3, 3b, 3c, 6, 9 and 10 run at a cut depth, and warm-up pairs stop
+# at WARM_ITER iterations, to leave room for phases 11-12 in the time limit
+# (PERF.md section 4 lists the cuts)
+MAIN_FRAMES = 3             # timed frames of the main path (after one warm-up pair)
+DENSE_PAIRS = 1             # timed pairs of the dense path (after one warm-up)
 N_CLASSES = 19              # semantic classes of the all-channel kernel check
-COLOUR_PAIRS = 3            # timed pairs of the colour ELL path (after one warm-up)
+COLOUR_PAIRS = 1            # timed pairs of the colour ELL path (after one warm-up)
+WARM_ITER = 50              # iteration cap of a warm-up pair
 CHAN_ONLY_ITER = 50         # iteration cap of the channel-only pair
 # point counts that fill no ELL block shape evenly: even (vector loads) and
 # odd (the one-point-a-thread fallback)
@@ -1187,7 +1212,8 @@ def profile_main_path(f2f, frames, guess, params, dev, iters=200, label="", **al
         log(f"  {tot / n:8.2f} us/iter  {cnt / n:6.2f}/iter  {name[:90]}")
 
 
-ACVO_PAIRS = 2               # timed pairs of the ACVO path (after one warm-up pair)
+ACVO_PAIRS = 1               # timed scan-builder pairs of the ACVO path (after one
+#                              warm-up pair)
 ACVO_GRID_ELL_MAX = 0.7      # ell_max of the extra ACVO frame: support 1.84 m, grid builder
 ACVO_POSE_ERROR_BOUND = 0.05 # bench.py's bound
 TOPK = 64                    # top_k of the association export (phase 7)
@@ -1211,7 +1237,7 @@ def acvo_path(f2f, frames, T_true, guess, dev, smi, results):
 
     acvo = KITTI_GEOMETRIC_BENCH.replace(is_ell_adaptive=1)
     t0 = time.perf_counter()
-    f2f.run_sequence(frames[:2], guess, acvo, device=dev, max_iter=MAX_ITER)
+    f2f.run_sequence(frames[:2], guess, acvo, device=dev, max_iter=WARM_ITER)
     torch.cuda.synchronize()
     log(f"ACVO warm-up pair: {time.perf_counter() - t0:.2f} s")
     rows, g = [], guess
@@ -1536,8 +1562,9 @@ def irls_phase(f2f, dev, smi, results, floor):
 
 
 # ---- phases 9-10: images to trajectory, the device frontends and drivers
-STEREO_FRAMES = 5            # phase 9: rendered stereo frames (4 pairs)
-RGBD_FRAMES = 5              # phase 10: rendered RGB-D frames (4 pairs)
+STEREO_FRAMES = 3            # phase 9: rendered stereo frames (2 pairs)
+RGBD_FRAMES = 5              # phase 11: rendered RGB-D frames (4 pairs)
+TUM_DEVICE_FRAMES = 3        # phase 10: the first 3 of them (2 pairs)
 # KITTI odometry sequence 00's left camera and stereo baseline, full width
 KITTI00 = {"fx": 718.856, "cx": 607.1928, "cy": 185.2157, "baseline": 0.5372,
            "cols": 1241, "rows": 376}
@@ -1560,7 +1587,7 @@ JAX_MISSES = {
     "phase 9": {0: (0.074307, (-1.614563080e-04, 9.696566500e-03, -7.273391238e-04,
                                4.112411290e-03, 3.883998143e-03, 2.759748101e-01),
                     {2: 8.49e-4, 3: 0.0167})},
-    "phase 10": {}}
+    "phase 10": {}, "phase 11": {}}
 DISP_TOL = 1e-5              # disparity, card against CPU (abs; masks equal)
 CLOUD_TOL = 1e-5             # cloud xyz (rtol and atol) and features (abs)
 NLM_TOL = 1e-3               # NL-means output on the 0-255 scale (abs)
@@ -1591,18 +1618,21 @@ def stereo_frames():
     return calib, [synth.render_stereo(scene, calib, T)[:2] for T in traj], traj
 
 
-def rgbd_frames():
+def rgbd_frames(poses=range(RGBD_FRAMES)):
     """The TUM camera in the TUM fixture's corridor (test_e2e_accuracy.py),
-    depth quantised to uint16 at depth_scale; a depth past the uint16
-    range (13.1 m at depth_scale 5000) is 0, no measurement, as a TUM depth
-    map marks it (clipped, it would be a false wall at 13.1 m):
+    at the given indices of its trajectory (an index repeated holds the
+    camera still), depth quantised to uint16 at depth_scale; a depth past
+    the uint16 range (13.1 m at depth_scale 5000) is 0, no measurement, as
+    a TUM depth map marks it (clipped, it would be a false wall at 13.1 m):
     (calibration, [(BGR, depth, timestamp)], poses)."""
     from unified_cvo_tpu_torch.frontend.calibration import Calibration
     from unified_cvo_tpu_torch.utils import synth
 
+    poses = list(poses)
     calib = _camera(Calibration, **TUM_CAMERA)
     scene = synth.corridor_scene(5, half_width=2.5, floor_y=1.2, ceil_y=-1.2, length=30.0)
-    traj = synth.corridor_trajectory(RGBD_FRAMES, step=0.08, yaw_rate=0.015, bob=0.005)
+    traj = synth.corridor_trajectory(max(poses) + 1, step=0.08, yaw_rate=0.015,
+                                     bob=0.005)[poses]
     frames = []
     for i, T in enumerate(traj):
         bgr, depth = synth.render_frame(scene, calib, T)
@@ -1674,13 +1704,13 @@ def selection_agrees(gs, dev, capacity, what):
     return int(valid.sum())
 
 
-def driver_kernel_checks(src, tgt, T_rel, params, dev, results, what):
+def driver_kernel_checks(src, tgt, T_rel, params, dev, results, what, first=None):
     """select, flow_reduce (geometry x channel) and step_cached against their
-    plain versions on a driver's own clouds: frames 0 and 1 from the device
-    frontend at the driver's capacity, most slots masked, the list built as
-    align builds it (grid builder, K = 32), at the first pair's start (the
-    identity, the first-frame ell) and at the rendered relative pose (the
-    preset's ell). select output for output (select_exact); flow_agree;
+    plain versions on a driver's own clouds: frames 0 and 1 from its
+    frontend at its capacity, most slots masked, the list built as align
+    builds it (grid builder, K = 32), at the first pair's start (the
+    identity, the ell of the first pair's params `first`, by default the
+    first-frame swap) and at the rendered relative pose (the preset's ell). select output for output (select_exact); flow_agree;
     step_agree on the step in the loop's form (the flow's twist on the
     device) and on the host-built block. Folds the errors into the kernels'
     max_abs_err; raises SystemExit on a disagreement."""
@@ -1692,7 +1722,8 @@ def driver_kernel_checks(src, tgt, T_rel, params, dev, results, what):
     K, P, dims = nbr.DEFAULT_K, nbr.PER_CELL_CAP, nbr.GRID_DIMS
     use_geo = bool(params.is_using_geometry)
     masked = int((src.mask == 0).sum())
-    for label, p, T in (("identity, first-frame ell", params.first_frame(), np.eye(4)),
+    first = params.first_frame() if first is None else first
+    for label, p, T in (("identity, first pair's ell", first, np.eye(4)),
                         ("rendered relative pose", params, T_rel)):
         Tk = torch.from_numpy(np.asarray(T, np.float32)).to(dev)
         Rinv, Tinv = lie.invert_rt(Tk[:3, :3], Tk[:3, 3])
@@ -1813,7 +1844,7 @@ def stereo_phase(dev, smi, results):
     selection equal, slot order included; the cloud: masks equal, xyz
     rtol/atol 1e-5, features abs 1e-5); each stage is timed by CUDA events
     and its launches counted; then kitti_odometry.run_frames registers the
-    4 pairs (KITTI_COLOR_BENCH, bench.py's 1500-iteration cap, capacity
+    2 pairs (KITTI_COLOR_BENCH, bench.py's 1500-iteration cap, capacity
     32768, max_disp by the width rule: 128) and every pair must end below
     the bench bound with select, flow_reduce and step_cached launched. Those
     three kernels are first held against their plain versions on the
@@ -1896,7 +1927,7 @@ def rgbd_phase(dev, smi, results):
     1e-5). The whole entry point with NL-means is compared too, and the
     slots where its two clouds differ are printed: NL-means' last bits
     differ between the devices, and the fixed-point grey level floors
-    them. Then tum_odometry.run_frames registers the 4 pairs
+    them. Then tum_odometry.run_frames registers the 2 pairs
     (KITTI_COLOR_BENCH, the 1500-iteration cap, capacity 16384,
     denoise=True) under the same bound and launch checks as phase 9, after
     the same kernel checks on its clouds of frames 0 and 1."""
@@ -1906,7 +1937,7 @@ def rgbd_phase(dev, smi, results):
     from unified_cvo_tpu_torch.ops import nlm
 
     t0 = time.perf_counter()
-    calib, frames, traj = rgbd_frames()
+    calib, frames, traj = rgbd_frames(range(TUM_DEVICE_FRAMES))
     log(f"phase 10: {len(frames)} RGB-D frames rendered at {calib.cols} x {calib.rows} in "
         f"{time.perf_counter() - t0:.2f} s (host)")
     cap = tum_odometry.CAPACITY
@@ -1972,9 +2003,584 @@ def rgbd_phase(dev, smi, results):
     return out
 
 
+# ---- phases 11-12: the host RGB-D frontend (FAST) and the SLAM back end
+# phase 12a: the corridor poses of its 6 frames at 640 x 480; the camera holds
+# still at frame 3
+LM_POSES = (0, 1, 2, 2, 3, 4)
+LM_CAPACITY = 8192           # local_mapping.CAPACITY
+LM_CLASSES = 19
+# the keyframe threshold on the approximate function angle: a pair that
+# moves 0.08 m scores about 0.04, a still pair more, so the 5 frames that
+# moved become keyframes and the still one is fused into its keyframe's map
+LM_KEYFRAME_ANGLE = 0.05
+LM_WINDOW = 3                # the pose graph's window: 5 keyframes slide it twice
+LM_ATE_BOUND = 0.05          # test_apps_drivers.py's bound on the online trajectory
+LOOP_FRAMES = 72             # phase 12b: test_e2e_accuracy.py's loop through the room
+LOOP_CAPACITY = 4096
+LOOP_ITER = 300              # iterations a pair (500 for the closure)
+LOOP_ATE_BOUND = 0.05        # test_e2e_accuracy.py's bound after the closure
+# JAX's own pipeline, fed phase 12b's frames and settings on the CPU, also
+# ends above LOOP_ATE_BOUND: every pair stops at the 300-iteration cap and
+# the 71-pair chain drifts (keyframe ATE 0.362 m, 0.158 m after the closure).
+# (JAX's closed ATE, the farthest any CPU run ended from it: JAX's 8 runs
+# with the first guess moved by +-1e-6 or +-2e-6 m along x or z, 0.1605 to
+# 0.1700, and the port's unmoved run, 0.1639), from `JAX_PLATFORMS=cpu
+# python tests/test_torch_local_mapping.py [--spread DX,DZ ...]` (ROADMAP
+# section 3). The card's closed ATE must lie within that spread of JAX's.
+LOOP_JAX_MISS = (0.157647, 0.012315)
+BKI_FRAMES = 4               # phase 12c: BKI inserts of 8192-point frames, 19 classes
+BKI_RTOL = 1e-5
+PG_LOOP = 200                # phase 12d: test_posegraph_bki.py's CG loop
+PG_INCREMENTAL = 1000        # keyframes of the incremental run
+PG_TOL = 1e-4                # poses, card against the CPU
+
+
+def colour_yaml_params():
+    """The params YAML tests/test_torch_odometry.py writes (the reference's
+    cvo_rgbd_params.yaml is not in the repo): the colour preset with ell
+    0.5 (first frame 0.5), ell_min 0.05, ell_max 1.0."""
+    from unified_cvo_tpu_torch.config import CvoParams
+
+    return CvoParams().replace(ell_init=0.5, ell_init_first_frame=0.5, ell_min=0.05,
+                               ell_max=1.0, is_using_intensity=1)
+
+
+def check_path_launches(label, launches, iters, builds):
+    """Every kernel of the align path went through the run: select at least
+    once a build, flow_reduce (geometry x channel) and step_cached once an
+    iteration."""
+    if not (launches["select"] >= sum(builds) > 0
+            and launches["flow_reduce_by_variant"].get("geo_chan") == launches["flow_reduce"]
+            == launches["step_cached"] == sum(iters)):
+        raise SystemExit(f"{label}: launch counts {launches} do not match {sum(builds)} "
+                         f"builds and {sum(iters)} iterations")
+
+
+def tum_host_phase(dev, smi, results):
+    """Phase 11: the host frontend's port (FAST selection, frontend/
+    pipeline.py) on 5 frames of the rendered 640 x 480 corridor (phase
+    10's 3 and two more). Frame 0 on the
+    card against the port's CPU call: grey level and gradients, FAST scores,
+    the chosen threshold and uv (order included) exact; the cloud's masks
+    equal, xyz rtol/atol 1e-5, features abs 1e-5. FAST and the whole
+    pointcloud_from_rgbd are timed by CUDA events and their launches
+    counted; select, flow_reduce and step_cached are held against their
+    plain versions on the clouds of frames 0 and 1; then
+    tum_odometry.run_frames with its default frontend (denoise=False: the
+    card's machine has no OpenCV) registers the 4 pairs under phase 10's
+    bound and launch checks."""
+    from unified_cvo_tpu_torch.apps import tum_odometry
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH
+    from unified_cvo_tpu_torch.frontend import image as fimg
+    from unified_cvo_tpu_torch.frontend import pipeline
+    from unified_cvo_tpu_torch.frontend import selector as sel
+
+    t0 = time.perf_counter()
+    calib, frames, traj = rgbd_frames()
+    cap = tum_odometry.CAPACITY
+    cpu = torch.device("cpu")
+    bgr, depth, _ = frames[0]
+    raw_c = fimg.make_raw_image(bgr, denoise=False, device=cpu)
+    raw_k = fimg.make_raw_image(bgr, denoise=False, device=dev)
+    for name in ("intensity", "gradient", "gradient_square"):
+        if not torch.equal(getattr(raw_k, name).cpu(), getattr(raw_c, name)):
+            raise SystemExit(f"phase 11: make_raw_image's {name} on the card differs from the CPU's")
+    score_c, score_k = sel.fast_scores(raw_c.intensity), sel.fast_scores(raw_k.intensity)
+    uv_c, _, thr_c = sel.fast_select(raw_c.intensity, "rgbd", 0)
+    uv_k, _, thr_k = sel.fast_select(raw_k.intensity, "rgbd", 0)
+    if not (torch.equal(score_k.cpu(), score_c) and thr_k == thr_c
+            and torch.equal(uv_k.cpu(), uv_c)):
+        raise SystemExit(f"phase 11: FAST on the card differs from the CPU's (threshold "
+                         f"{thr_k} / {thr_c}, {len(uv_k)} / {len(uv_c)} keypoints)")
+
+    def cloud(d, frame=frames[0]):
+        return pipeline.pointcloud_from_rgbd(frame[0], frame[1], calib, denoise=False,
+                                             capacity=cap, device=d)
+
+    xyz_err = clouds_agree(cloud(dev), cloud(cpu), "phase 11 cloud")
+    clouds = [cloud(dev, f) for f in frames]
+    valid = [int(c.mask.sum()) for c in clouds]
+    driver_kernel_checks(clouds[0], clouds[1], np.linalg.inv(traj[0]) @ traj[1],
+                         KITTI_COLOR_BENCH, dev, results, "phase 11 frames 0 -> 1")
+    del clouds
+    log(f"phase 11 frontend, card against CPU on frame 0: grey level, gradients and FAST "
+        f"scores equal, threshold {thr_k} (both), {len(uv_k)} keypoints equal in raster "
+        f"order; cloud masks equal, xyz max abs {xyz_err:.3g} ({time.perf_counter() - t0:.1f} s "
+        f"with the CPU calls)")
+    log(f"  valid points per frame {valid} of {cap}")
+    gray_k = raw_k.intensity
+    stages = stage_times({
+        "frontend (pointcloud_from_rgbd: FAST, backprojection, upload included)":
+            lambda: cloud(dev),
+        "FAST scores (fast_scores)": lambda: sel.fast_scores(gray_k),
+        "FAST selection (scores, histogram read, threshold search, raster compaction)":
+            lambda: sel.fast_select(gray_k, "rgbd", 0),
+    }, smi)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    poses, _, records = tum_odometry.run_frames(
+        frames, calib, KITTI_COLOR_BENCH, capacity=cap, max_iter=MAX_ITER, denoise=False,
+        device=dev, log=lambda *a: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    out = driver_report("phase 11", "phase 11 TUM RGB-D driver (tum_odometry.run_frames, host "
+                        "frontend: FAST)", poses, traj, records, seconds, launches, smi)
+    out.update(valid_points=valid, frontend=stages, fast_threshold=thr_k,
+               frontend_checks={"keypoints": len(uv_k), "cloud_xyz_max_abs": xyz_err})
+    for name in ("select", "flow_reduce", "step_cached"):
+        results[name]["launches_tum_host"] = launches[name]
+    return out
+
+
+def bki_gap(mk, mc):
+    """(keys equal, alpha's largest relative gap, semantics equal, alpha
+    bit-equal) of a BKI map on the card against one on the CPU."""
+    keys_eq = torch.equal(mk.keys.cpu(), mc.keys)
+    if not keys_eq:
+        return False, float("nan"), False, False
+    ak = mk.alpha.cpu()
+    return (True, float(((ak - mc.alpha).abs() / mc.alpha.abs()).max()),
+            torch.equal(ak.argmax(1), mc.alpha.argmax(1)), torch.equal(ak, mc.alpha))
+
+
+def local_mapping_part(dev, smi, results):
+    """Phase 12a: local_mapping.run_frames online (odometry, keyframing,
+    the windowed pose graph with its marginal, per-keyframe BKI maps) and
+    offline along the rendered trajectory, on the 6 frames of LM_POSES at
+    640 x 480. select, flow_reduce and step_cached are first held against
+    their plain versions on the clouds of frames 0 and 1. The frames that
+    moved must become keyframes and the still ones must not; the window
+    must slide. Then the back end runs again on the CPU from the card's
+    tracking (run_frames' odometry replay) and offline: trajectories within
+    PG_TOL, keyframes equal, each keyframe's map and the offline map with
+    keys equal and alpha within BKI_RTOL."""
+    from unified_cvo_tpu_torch.apps import local_mapping as lm
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH
+    from unified_cvo_tpu_torch.frontend import pipeline
+    from unified_cvo_tpu_torch.utils import metrics
+
+    calib, frames, traj = rgbd_frames(LM_POSES)
+    params = KITTI_COLOR_BENCH.replace(MAX_ITER=MAX_ITER)
+    pair = [pipeline.pointcloud_from_rgbd(f[0], f[1], calib, denoise=False,
+                                          capacity=LM_CAPACITY, device=dev) for f in frames[:2]]
+    driver_kernel_checks(pair[0], pair[1], np.linalg.inv(traj[0]) @ traj[1], params, dev,
+                         results, "phase 12a frames 0 -> 1", first=params)
+    del pair
+    kw = dict(num_classes=LM_CLASSES, capacity=LM_CAPACITY, denoise=False, log=lambda *a: None)
+    online = dict(keyframe_function_angle=LM_KEYFRAME_ANGLE, window_size=LM_WINDOW, **kw)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = lm.run_frames(frames, calib, params, device=dev, **online)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    iters = [i.iterations for i in res.align_infos]
+    builds = [i.nl_rebuilds for i in res.align_infos]
+    check_path_launches("phase 12a", launches, iters, builds)
+    est = np.stack([T for _, T in res.trajectory])
+    ate = metrics.ate_rmse(traj[:len(est)], est)
+    n, pairs = res.frames, res.frames - 1
+    angles = [round(fa, 4) for _, fa in res.odometry]
+    kf_frames = [kf.frame_id for kf in res.keyframes]
+    moved = [0] + [k for k in range(1, n) if LM_POSES[k] != LM_POSES[k - 1]]
+    pg = res.pose_graph
+    t1 = time.perf_counter()
+    off = lm.run_frames(frames, calib, params, trajectory=list(traj), device=dev, **kw)
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    cpu = lm.run_frames(frames, calib, params, odometry=res.odometry, device="cpu", **online)
+    off_c = lm.run_frames(frames, calib, params, trajectory=list(traj), device="cpu", **kw)
+    cpu_s = time.perf_counter() - t1
+    traj_gap = max(float(np.abs(a - b).max())
+                   for (_, a), (_, b) in zip(res.trajectory, cpu.trajectory))
+    kf_gaps = [bki_gap(a.local_map, b.local_map) for a, b in zip(res.keyframes, cpu.keyframes)]
+    off_gap = bki_gap(off.global_map, off_c.global_map)
+    maps_ok = all(g[0] and g[1] <= BKI_RTOL and g[2] for g in kf_gaps + [off_gap])
+    export_ok = (res.centers.shape == cpu.centers.shape
+                 and np.allclose(res.centers, cpu.centers, rtol=0, atol=PG_TOL)
+                 and np.array_equal(res.semantics, cpu.semantics))
+    row = {"frames": n, "poses": list(LM_POSES), "keyframes": len(res.keyframes),
+           "keyframe_frames": kf_frames, "window_lo": pg.window_lo,
+           "voxels": len(res.centers), "ate_m": ate, "seconds": seconds, "iterations": iters,
+           "builds": builds, "function_angles": angles,
+           "align_ms_a_pair": 1e3 * res.seconds["align"] / pairs,
+           "bki_insert_ms_a_frame": 1e3 * res.seconds["bki"] / n,
+           "posegraph_ms_a_pair": 1e3 * res.seconds["posegraph"] / pairs,
+           "frontend_ms_a_frame": 1e3 * res.seconds["frontend"] / n,
+           "function_angle_ms_a_pair": 1e3 * res.seconds["function_angle"] / pairs,
+           "offline": {"voxels": len(off.centers), "seconds": off_s,
+                       "bki_insert_ms_a_frame": 1e3 * off.seconds["bki"] / off.frames},
+           "cpu": {"seconds": cpu_s, "trajectory_max_abs": traj_gap,
+                   "keyframe_maps": [g[:2] for g in kf_gaps], "offline_map": off_gap[:2],
+                   "maps_bit_equal": all(g[3] for g in kf_gaps + [off_gap]),
+                   "export_equal": export_ok},
+           "launches": {k: launches[k] for k in ("select", "flow_reduce", "step_cached")}}
+    log(f"phase 12a local mapping (local_mapping.run_frames, {n} frames at {calib.cols} x "
+        f"{calib.rows}, capacity {LM_CAPACITY}, {LM_CLASSES} classes, window {LM_WINDOW}): "
+        f"{seconds:.2f} s online, keyframes at frames {kf_frames} (function angles {angles}, "
+        f"threshold {LM_KEYFRAME_ANGLE}), window from keyframe {pg.window_lo}, "
+        f"{len(res.centers)} occupied voxels, ATE {ate:.6f} m ({smi})")
+    log(f"  ms a pair: align {row['align_ms_a_pair']:.1f}, function angle "
+        f"{row['function_angle_ms_a_pair']:.1f}, pose graph {row['posegraph_ms_a_pair']:.1f}; ms "
+        f"a frame: BKI insert {row['bki_insert_ms_a_frame']:.1f}, frontend "
+        f"{row['frontend_ms_a_frame']:.1f}; iterations {iters}, builds {builds}")
+    log(f"  offline along the rendered trajectory: {len(off.centers)} occupied voxels, "
+        f"{off_s:.2f} s, BKI insert {row['offline']['bki_insert_ms_a_frame']:.1f} ms a frame")
+    log(f"  the back end on the CPU from the card's tracking, and offline ({cpu_s:.1f} s): "
+        f"trajectory max abs {traj_gap:.3g}, keyframe maps (keys equal, alpha max rel) "
+        f"{[g[:2] for g in kf_gaps]}, offline map {off_gap[:2]}, bit-equal "
+        f"{row['cpu']['maps_bit_equal']}, export equal {export_ok}")
+    log(f"  launches {launches}")
+    if not (kf_frames == moved and pg.window_lo > 0 and ate < LM_ATE_BOUND
+            and len(off.centers) > 1000 and np.isfinite(res.centers).all()
+            and [kf.frame_id for kf in cpu.keyframes] == kf_frames and traj_gap <= PG_TOL
+            and maps_ok and export_ok):
+        raise SystemExit(f"phase 12a: keyframes {kf_frames} (want {moved}), window from "
+                         f"{pg.window_lo}, ATE {ate}, {len(off.centers)} offline voxels, "
+                         f"card against CPU {row['cpu']}")
+    for name in ("select", "flow_reduce", "step_cached"):
+        results[name]["launches_local_mapping"] = launches[name]
+    return row
+
+
+def loop_closure_part(dev, smi, results):
+    """Phase 12b: test_e2e_accuracy.py::test_online_slam_loop_closure_e2e's
+    scenario on the card: the room with 3 pillars, 72 frames on a loop of
+    radius 2.5 m with depth noise 0.005 m at 320 x 240, host-frontend clouds
+    of 4096 points (no NL-means: the card's machine has no OpenCV),
+    frame-to-frame align (300 iterations, the first pair at the coarse
+    first-frame schedule), exact function-angle keyframing into the pose
+    graph (window 0, 8 iterations, Huber 0.05), a first-to-last closure
+    gated on the exact function angle, then a BKI map at the optimized
+    poses. select, flow_reduce and step_cached are first held against their
+    plain versions on the clouds of frames 0 and 1. The test's own bounds:
+    ATE after the closure below the odometry's and below 0.05, surface
+    occupancy above 0.5, no phantom surface at the loop's centre."""
+    from unified_cvo_tpu_torch.frontend import pipeline
+    from unified_cvo_tpu_torch.models.align import align, function_angle
+    from unified_cvo_tpu_torch.models.bki import SemanticBKIMap
+    from unified_cvo_tpu_torch.models.posegraph import PoseGraph, PoseGraphConfig, RelativePose
+    from unified_cvo_tpu_torch.utils import metrics, synth
+    from unified_cvo_tpu_torch.utils.pointcloud import to_numpy_valid
+
+    t0 = time.perf_counter()
+    calib = synth.tum_calibration()
+    scene = synth.room_scene(7, half=6.0, n_pillars=3)
+    traj = synth.loop_trajectory(LOOP_FRAMES, radius=2.5)
+    frames = list(synth.tum_frames(scene, traj, calib, depth_noise=0.005))
+    render_s = time.perf_counter() - t0
+    params = colour_yaml_params()
+    t0 = time.perf_counter()
+    clouds = [pipeline.pointcloud_from_rgbd(rgb, d, calib, capacity=LOOP_CAPACITY,
+                                            denoise=False, device=dev) for rgb, d, _ in frames]
+    torch.cuda.synchronize()
+    frontend_s = time.perf_counter() - t0
+    first = params.replace(ell_init=0.5, ell_max=1.0)
+    driver_kernel_checks(clouds[0], clouds[1], np.linalg.inv(traj[0]) @ traj[1], params, dev,
+                         results, "phase 12b frames 0 -> 1", first=first)
+    fa_ell = torch.tensor(max(params.ell_init * 0.5, params.ell_min), dtype=torch.float32,
+                          device=dev)
+    pg = PoseGraph(PoseGraphConfig(window_size=0, optimize_iters=8, robust_delta=0.05),
+                   device=dev)
+    pg.add_first_frame(0)
+    kf_clouds, kf_frames = [clouds[0]], [0]
+    odo_poses, world_T, kf_T, prev_rel = [np.eye(4)], np.eye(4), np.eye(4), np.eye(4)
+    fa_track, iters, builds = [], [], []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    t_align = t_pg = 0.0
+    for k in range(1, len(clouds)):
+        ig = torch.as_tensor(np.linalg.inv(prev_rel), dtype=torch.float32, device=dev)
+        ta = time.perf_counter()
+        T_rel, _, info = align(clouds[k - 1], clouds[k], ig, first if k == 1 else params,
+                               max_iter=LOOP_ITER, chunk=2048, device=dev)
+        t_align += time.perf_counter() - ta
+        iters.append(info.iterations)
+        builds.append(info.nl_rebuilds)
+        rel = T_rel.cpu().numpy().astype(np.float64)
+        prev_rel = rel
+        kf_T = kf_T @ rel
+        world_T = world_T @ rel
+        odo_poses.append(world_T.copy())
+        fa = float(function_angle(clouds[k - 1], clouds[k], T_rel, fa_ell, params,
+                                  approximate=False, device=dev))
+        fa_track.append(fa)
+        tp = time.perf_counter()
+        if pg.add_frame(k, kf_T, function_angle=fa):
+            kf_T = np.eye(4)
+            kf_clouds.append(clouds[k])
+            kf_frames.append(k)
+            world_T = pg.keyframe_poses[-1].copy()
+        t_pg += time.perf_counter() - tp
+    torch.cuda.synchronize()
+    odo_s = time.perf_counter() - t0
+    launches = launch_counts()
+    check_path_launches("phase 12b", launches, iters, builds)
+    gt_kf = traj[kf_frames]
+    ate_odo = metrics.ate_rmse(gt_kf, np.stack([odo_poses[k] for k in kf_frames]))
+    coarse = params.replace(ell_init=0.5, ell_max=1.0)
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    T_lc, _, info_lc = align(kf_clouds[0], kf_clouds[-1], eye, coarse, max_iter=500,
+                             chunk=2048, device=dev)
+    fa_lc = float(function_angle(kf_clouds[0], kf_clouds[-1], T_lc, fa_ell, params,
+                                 approximate=False, device=dev))
+    fa_ref = float(np.median(fa_track))
+    pg.factors.append(RelativePose(curr_id=len(pg.keyframe_poses) - 1, ref_id=0,
+                                   transform=T_lc.cpu().numpy().astype(np.float64),
+                                   inner_product=fa_lc))
+    tp = time.perf_counter()
+    pg.optimize()
+    t_close = time.perf_counter() - tp
+    ate_opt = metrics.ate_rmse(gt_kf, np.stack(pg.keyframe_poses))
+    m = SemanticBKIMap(resolution=0.1, num_classes=4, ell=0.2, free_resolution=100.0,
+                       device=dev)
+    tb = time.perf_counter()
+    for kc, T in zip(kf_clouds, pg.keyframe_poses):
+        data = to_numpy_valid(kc)
+        m.insert_pointcloud(data["xyz"] @ T[:3, :3].T + T[:3, 3], None, origin=T[:3, 3])
+    torch.cuda.synchronize()
+    bki_s = time.perf_counter() - tb
+    surf = to_numpy_valid(kf_clouds[0])["xyz"][::7]
+    occ_frac = float((m.query(surf)[0] == 1).mean())
+    T0_inv = np.linalg.inv(traj[0])
+    ctr = np.array([[0.0, -0.3, 0.0], [0.3, 0.0, 0.3], [-0.3, 0.1, -0.3]])
+    states_f = m.query(ctr @ T0_inv[:3, :3].T + T0_inv[:3, 3])[0]
+    row = {"frames": len(clouds), "keyframes": len(kf_frames), "keyframe_frames": kf_frames,
+           "iterations": iters, "builds": builds, "closure_iterations": info_lc.iterations,
+           "fa_closure": fa_lc, "fa_tracking_median": fa_ref, "ate_odometry_m": ate_odo,
+           "ate_closed_m": ate_opt, "surface_occupancy": occ_frac,
+           "centre_states": states_f.tolist(), "voxels": len(m),
+           "seconds": {"render_host": render_s, "frontend": frontend_s, "odometry": odo_s,
+                       "align": t_align, "posegraph": t_pg, "closure_optimize": t_close,
+                       "bki": bki_s},
+           "valid_points": [int(c.mask.sum()) for c in clouds[:3]],
+           "launches": {k: launches[k] for k in ("select", "flow_reduce", "step_cached")}}
+    log(f"phase 12b loop closure ({len(clouds)} frames at {calib.cols} x {calib.rows}, "
+        f"capacity {LOOP_CAPACITY}, {LOOP_ITER} iterations a pair): {len(kf_frames)} keyframes; "
+        f"odometry {odo_s:.2f} s (align {1e3 * t_align / len(iters):.1f} ms a pair, pose graph "
+        f"{1e3 * t_pg / len(iters):.1f} ms a pair), frontend {1e3 * frontend_s / len(clouds):.1f} "
+        f"ms a frame ({smi})")
+    log(f"  closure: function angle {fa_lc:.4f} against the tracking median {fa_ref:.4f}, "
+        f"{info_lc.iterations} iterations; keyframe ATE {ate_odo:.6f} m (odometry) -> "
+        f"{ate_opt:.6f} m (closed); map {len(m)} voxels, surface occupancy {occ_frac:.3f}, "
+        f"centre states {states_f.tolist()}; BKI {1e3 * bki_s / len(kf_clouds):.1f} ms an insert")
+    log(f"  iterations: {sum(i >= LOOP_ITER for i in iters)} of {len(iters)} pairs at the cap; "
+        f"launches {launches}")
+    checks = {"keyframes >= 5": len(kf_frames) >= 5, "fa_closure > 0.1 fa_tracking":
+              bool(fa_lc > 0.1 * fa_ref), "ATE closed < odometry": bool(ate_opt < ate_odo),
+              f"ATE closed < {LOOP_ATE_BOUND}": bool(ate_opt < LOOP_ATE_BOUND),
+              "surface occupancy > 0.5": occ_frac > 0.5,
+              "no phantom surface": bool((states_f != 1).all())}
+    row["checks"] = checks
+    bound = f"ATE closed < {LOOP_ATE_BOUND}"
+    if not checks[bound]:
+        jax_ate, spread = LOOP_JAX_MISS
+        gap = abs(ate_opt - jax_ate)
+        row["jax_miss"] = {"jax_ate_closed_m": jax_ate, "gap": gap, "spread": spread}
+        log(f"  the closed ATE {ate_opt:.6f} m is above {LOOP_ATE_BOUND} as JAX's ({jax_ate:.6f} "
+            f"on the same frames, CPU); {gap:.4g} apart, within the CPU runs' spread "
+            f"{spread:.4g}: {gap <= spread}")
+        checks[bound] = gap <= spread
+    missed = [k for k, ok in checks.items() if not ok]
+    if missed:
+        raise SystemExit(f"phase 12b: missed {missed}")
+    for name in ("select", "flow_reduce", "step_cached"):
+        results[name]["launches_loop_closure"] = launches[name]
+    return row
+
+
+def bki_part(dev, smi):
+    """Phase 12c: SemanticBKIMap at size, card against the port's CPU call:
+    the host frontend's 8192-point clouds of the first BKI_FRAMES corridor
+    frames in the world frame, 19-class label distributions drawn from a
+    seeded numpy generator, free-space rays at 0.5 m. Keys equal, semantics
+    equal, alpha rtol 1e-5; a second card map fed the same inserts is
+    bit-equal."""
+    from unified_cvo_tpu_torch.frontend import pipeline
+    from unified_cvo_tpu_torch.models.bki import SemanticBKIMap
+    from unified_cvo_tpu_torch.utils.pointcloud import to_numpy_valid
+
+    calib, frames, traj = rgbd_frames(range(BKI_FRAMES))
+    rng = np.random.default_rng(0)
+    inserts = []
+    for (rgb, d, _), T in zip(frames, traj):
+        xyz = to_numpy_valid(pipeline.pointcloud_from_rgbd(
+            rgb, d, calib, denoise=False, capacity=LM_CAPACITY, device=dev))["xyz"]
+        labels = rng.dirichlet(np.ones(LM_CLASSES), len(xyz))
+        inserts.append((xyz @ T[:3, :3].T + T[:3, 3], labels, T[:3, 3]))
+
+    def new_map(d):
+        return SemanticBKIMap(resolution=0.1, num_classes=LM_CLASSES, ell=0.3,
+                              free_resolution=0.5, device=d)
+
+    maps, ms = [new_map(dev), new_map(dev)], []
+    for xyz, labels, origin in inserts:
+        for m in maps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.insert_pointcloud(xyz, labels, origin=origin)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+    mk, mk2 = maps
+    mc = new_map(torch.device("cpu"))
+    t0 = time.perf_counter()
+    for xyz, labels, origin in inserts:
+        mc.insert_pointcloud(xyz, labels, origin=origin)
+    cpu_s = time.perf_counter() - t0
+    keys_eq, a_rel, sem_eq, a_exact = bki_gap(mk, mc)
+    bit_eq = torch.equal(mk.keys, mk2.keys) and torch.equal(mk.alpha, mk2.alpha)
+    row = {"frames": BKI_FRAMES, "points": [len(i[0]) for i in inserts], "voxels": len(mk),
+           "insert_ms": ms[::2], "insert_ms_second_map": ms[1::2], "cpu_seconds": cpu_s,
+           "keys_equal": keys_eq, "alpha_max_rel": a_rel, "alpha_bit_equal": a_exact,
+           "semantics_equal": sem_eq, "two_inserts_bit_equal": bit_eq}
+    log(f"phase 12c BKI at size ({BKI_FRAMES} frames of {row['points']} points, "
+        f"{LM_CLASSES} classes, free rays at 0.5 m): {len(mk)} voxels; insert "
+        f"{[round(x, 1) for x in ms[::2]]} ms (wall, synchronized) ({smi}); CPU {cpu_s:.1f} s")
+    log(f"  card against CPU: keys equal {keys_eq}, alpha max rel {a_rel:.3g} (bit-equal "
+        f"{a_exact}), semantics equal {sem_eq}; two card maps bit-equal {bit_eq}")
+    if not (keys_eq and a_rel <= BKI_RTOL and sem_eq and bit_eq):
+        raise SystemExit(f"phase 12c: {row}")
+    return row
+
+
+def incremental_chain(d):
+    """Phase 12d's incremental run on device d: PG_INCREMENTAL keyframes
+    0.4 m apart with seeded step noise and a skip-2 factor every 25
+    keyframes. Returns (the PoseGraph, active subgraph sizes, seconds)."""
+    from unified_cvo_tpu_torch.models import posegraph as pgm
+
+    r = np.random.default_rng(5)
+    pg = pgm.PoseGraph(pgm.PoseGraphConfig(incremental=True,
+                                           keyframe_function_angle_threshold=1.0,
+                                           optimize_iters=4), device=d)
+    pg.add_first_frame(0)
+    step = np.eye(4)
+    step[:3, 3] = [0.0, 0.0, 0.4]
+    active, t0 = [], time.perf_counter()
+    for k in range(1, PG_INCREMENTAL):
+        noisy = step.copy()
+        noisy[:3, 3] += r.normal(0, 0.01, 3)
+        extra = None
+        if k % 25 == 0:
+            rel = np.eye(4)
+            rel[:3, 3] = 2 * step[:3, 3]
+            extra = [pgm.RelativePose(curr_id=k, ref_id=k - 2, transform=rel,
+                                      inner_product=0.5)]
+        pg.add_frame(k, noisy, function_angle=0.5, extra_factors=extra)
+        active.append(pg.last_active)
+    return pg, active, time.perf_counter() - t0
+
+
+def chain_gap(pk, pc):
+    """The largest entry gap of two pose graphs' keyframe poses."""
+    return max(float(np.abs(a - b).max()) for a, b in zip(pk.keyframe_poses, pc.keyframe_poses))
+
+
+def posegraph_ablation():
+    """--posegraph-ablation: phase 12d's incremental run, card against CPU,
+    as the package solves it (each subgraph in its own frame) and with each
+    subgraph solved in the world frame (float64 poses between steps in
+    both). Prints the two gaps."""
+    from unified_cvo_tpu_torch.models import posegraph as pgm
+
+    solve = pgm.PoseGraph._solve
+    for label, patched in (("subgraph frame", solve),
+                           ("world frame", lambda self, S, sub, fixed_mask, prior=None,
+                            anchor=None: solve(self, S, sub, fixed_mask, prior))):
+        pgm.PoseGraph._solve = patched
+        try:
+            gap = chain_gap(incremental_chain(torch.device("cuda"))[0],
+                            incremental_chain(torch.device("cpu"))[0])
+        finally:
+            pgm.PoseGraph._solve = solve
+        log(f"posegraph ablation, {label}: {PG_INCREMENTAL} incremental keyframes, card "
+            f"against CPU {gap:.3g}")
+
+
+def posegraph_part(dev, smi):
+    """Phase 12d: the pose graph, card against CPU (poses within 1e-4):
+    test_posegraph_bki.py's 200-keyframe loop solved by block PCG (15
+    iterations), and PG_INCREMENTAL keyframes in incremental mode (its
+    odometry with a skip-2 factor every 25 keyframes)."""
+    from unified_cvo_tpu_torch.models import posegraph as pgm
+    from unified_cvo_tpu_torch.ops import lie
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(0)
+
+    def rand_se3(scale):
+        R, t = lie.se3_exp(torch.from_numpy(scale * rng.normal(size=6).astype(np.float32)), 1.0)
+        return lie.rt_to_mat44(R, t).numpy().astype(np.float64)
+
+    true = [np.eye(4)]
+    for _ in range(PG_LOOP - 1):
+        true.append(true[-1] @ rand_se3(0.2))
+    Zs, fi, fj = [], [], []
+    for k in range(PG_LOOP - 1):
+        Zs.append(np.linalg.inv(true[k]) @ true[k + 1] @ rand_se3(0.01))
+        fi.append(k)
+        fj.append(k + 1)
+    for a, b in ((0, PG_LOOP - 1), (0, PG_LOOP // 2), (PG_LOOP // 2, PG_LOOP - 1)):
+        Zs.append(np.linalg.inv(true[a]) @ true[b])
+        fi.append(a)
+        fj.append(b)
+    init = [np.eye(4)]
+    for k in range(PG_LOOP - 1):
+        init.append(init[-1] @ Zs[k])
+    fixed = np.zeros(PG_LOOP, np.float32)
+    fixed[0] = 1.0
+    args = (np.stack(init).astype(np.float32), np.asarray(fi), np.asarray(fj),
+            np.stack(Zs).astype(np.float32), np.ones(len(Zs), np.float32), fixed)
+
+    def solve(d):
+        return pgm.optimize_pose_graph(*args, iters=15, solver="cg", device=d)[0]
+
+    ms_cg, out_k = event_ms(lambda: solve(dev))
+    out_c = solve(cpu)
+    cg_err = float((out_k.cpu() - out_c).abs().max())
+    drift = [float(np.linalg.norm(p[:3, 3] - true[-1][:3, 3])) for p in (args[0][-1],
+                                                                          out_k.cpu().numpy()[-1])]
+
+    pk, active, inc_s = incremental_chain(dev)
+    pc, _, inc_cpu_s = incremental_chain(cpu)
+    inc_err = chain_gap(pk, pc)
+    row = {"cg_loop": {"keyframes": PG_LOOP, "ms": ms_cg, "max_abs_vs_cpu": cg_err,
+                       "drift_before_after_m": drift},
+           "incremental": {"keyframes": PG_INCREMENTAL, "ms_a_keyframe": 1e3 * inc_s /
+                           (PG_INCREMENTAL - 1), "cpu_ms_a_keyframe": 1e3 * inc_cpu_s /
+                           (PG_INCREMENTAL - 1), "max_active": max(active),
+                           "max_abs_vs_cpu": inc_err}}
+    log(f"phase 12d pose graph: {PG_LOOP}-keyframe loop by CG, {ms_cg:.1f} ms a solve (CUDA "
+        f"events), card against CPU {cg_err:.3g}, drift {drift[0]:.3f} -> {drift[1]:.4f} m; "
+        f"{PG_INCREMENTAL} keyframes incremental: {row['incremental']['ms_a_keyframe']:.2f} ms "
+        f"a keyframe (CPU {row['incremental']['cpu_ms_a_keyframe']:.2f}), active subgraph <= "
+        f"{max(active)}, card against CPU {inc_err:.3g} ({smi})")
+    if not (cg_err <= PG_TOL and inc_err <= PG_TOL and drift[1] < 0.2 * drift[0] + 1e-3):
+        raise SystemExit(f"phase 12d: {row}")
+    return row
+
+
+def slam_phase(dev, smi, results):
+    """Phase 12: the SLAM back end (12a local mapping, 12b loop closure,
+    12c BKI at size, 12d pose graph)."""
+    out = {}
+    for name, fn in (("local_mapping", lambda: local_mapping_part(dev, smi, results)),
+                     ("loop_closure", lambda: loop_closure_part(dev, smi, results)),
+                     ("bki", lambda: bki_part(dev, smi)),
+                     ("posegraph", lambda: posegraph_part(dev, smi))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        log(f"phase 12 {name}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--frames", type=int, default=8,
+    ap.add_argument("--frames", type=int, default=MAIN_FRAMES,
                     help="timed frame pairs of the main path (after one warm-up pair)")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--dense-ablation", action="store_true",
@@ -1989,6 +2595,14 @@ def main(argv=None) -> int:
     mode.add_argument("--compare-tree", metavar="DIR",
                       help="--kernel-times of DIR and of this tree in turns (DIR, this, "
                            "this, DIR), each in a process of its own, then stop")
+    mode.add_argument("--slam-only", action="store_true",
+                      help="build, then run phases 11-12 alone (the host RGB-D frontend and "
+                           "the SLAM back end), print their JSON line, stop without a "
+                           "result line")
+    mode.add_argument("--posegraph-ablation", action="store_true",
+                      help="phase 12d's incremental run, card against CPU, with each "
+                           "subgraph solved in its own frame and in the world frame; no "
+                           "build, no result line")
     mode.add_argument("--ell-ablation", action="store_true",
                       help="build, check and time the ELL consume kernels and their "
                            "measurement builds (after phase 1), then stop without a "
@@ -2000,10 +2614,14 @@ def main(argv=None) -> int:
     if args.compare_tree:
         compare_trees(args.compare_tree, args.frames)
         return 0
+    if args.posegraph_ablation:
+        posegraph_ablation()
+        return 0
     if args.kernel_times:                    # this package: the one found first on the path
         sys.path.insert(0, args.kernel_times)
-    if args.frames < 8:
-        print("chip_smoke: the main path needs at least 8 timed frames", file=sys.stderr)
+    if args.frames < MAIN_FRAMES:
+        print(f"chip_smoke: the main path needs at least {MAIN_FRAMES} timed frames (phase 6 "
+              f"runs pairs up to frame {MAIN_FRAMES})", file=sys.stderr)
         return 2
 
     from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
@@ -2052,6 +2670,16 @@ def main(argv=None) -> int:
         ell_ablation(frames_np, feats, guess_np, dev, floor)
         pose_error_witness(frames_np, T_true, guess_np, dev)
         return 0
+    if args.slam_only:
+        results = {n: {"max_abs_err": 0.0} for n in ("select", "flow_reduce", "step_cached")}
+        t0 = time.perf_counter()
+        paths = {"tum_host": tum_host_phase(dev, smi, results)}
+        log(f"phase 11: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        paths["slam"] = slam_phase(dev, smi, results)
+        log(f"phase 12: {time.perf_counter() - t0:.2f} s")
+        log(json.dumps({"paths": paths, "kernel_checks": results}, default=str))
+        return 0
     check_kernels(frames_np, guess_np, params, dev, results, floor)
     t0 = time.perf_counter()
     check_dense_kernels(frames_np, feats, guess_np, dev, results)
@@ -2064,7 +2692,7 @@ def main(argv=None) -> int:
     frames = [make_pointcloud(f, bucket=N_POINTS, device=dev) for f in frames_np]
     guess = torch.from_numpy(guess_np).to(dev)
     t0 = time.perf_counter()
-    f2f.run_sequence(frames[:2], guess, params, device=dev, max_iter=MAX_ITER)
+    f2f.run_sequence(frames[:2], guess, params, device=dev, max_iter=WARM_ITER)
     torch.cuda.synchronize()
     log(f"warm-up pair: {time.perf_counter() - t0:.2f} s")
     reset_launch_counts()
@@ -2103,7 +2731,7 @@ def main(argv=None) -> int:
                for f in frames_np[:DENSE_PAIRS + 2]]
     t0 = time.perf_counter()
     f2f.run_sequence(cframes[:2], guess, KITTI_COLOR_BENCH, device=dev,
-                     backend="pallas", max_iter=MAX_ITER)
+                     backend="pallas", max_iter=WARM_ITER)
     torch.cuda.synchronize()
     log(f"dense warm-up pair: {time.perf_counter() - t0:.2f} s")
     reset_launch_counts()
@@ -2137,7 +2765,7 @@ def main(argv=None) -> int:
     # ---- phase 3c: colour on the ELL path (the default backend)
     t_col = time.perf_counter()
     t0 = time.perf_counter()
-    f2f.run_sequence(cframes[:2], guess, KITTI_COLOR_BENCH, device=dev, max_iter=MAX_ITER)
+    f2f.run_sequence(cframes[:2], guess, KITTI_COLOR_BENCH, device=dev, max_iter=WARM_ITER)
     torch.cuda.synchronize()
     log(f"colour ELL warm-up pair: {time.perf_counter() - t0:.2f} s")
     reset_launch_counts()
@@ -2222,14 +2850,24 @@ def main(argv=None) -> int:
     results["tum_rgbd"] = rgbd_phase(dev, smi, results)
     log(f"phase 10 (TUM RGB-D path, CPU checks included): {time.perf_counter() - t0:.2f} s")
 
+    # ---- phases 11-12: the host RGB-D frontend and the SLAM back end
+    t0 = time.perf_counter()
+    results["tum_host"] = tum_host_phase(dev, smi, results)
+    log(f"phase 11 (host RGB-D frontend and driver, CPU checks included): "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    results["slam"] = slam_phase(dev, smi, results)
+    log(f"phase 12 (SLAM back end, CPU checks included): {time.perf_counter() - t0:.2f} s")
+
     # ---- phase 5: where an iteration's time goes (profiler, not counted)
     profile_main_path(f2f, frames, guess, params, dev, label=" ELL path")
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
                       label=" dense path", backend="pallas")
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
                       label=" colour ELL path")
-    paths = {name: results.pop(name) for name in ("acvo", "irls", "kitti_stereo", "tum_rgbd")}
-    log(json.dumps({"paths": paths}))
+    paths = {name: results.pop(name) for name in ("acvo", "irls", "kitti_stereo", "tum_rgbd",
+                                                   "tum_host", "slam")}
+    log(json.dumps({"paths": paths}, default=str))
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,8 @@ read, against the JAX package on the CPU.
   North star's tolerance; iteration counts are not compared). Both packages
   read the same files, written once.
 - run_frames over the same images in memory gives run_sequence's poses.
-- the host frontend, not ported, raises; --semantic with the device
-  frontend raises as in JAX.
+- the stereo host frontend, not ported (compute_disparity), raises;
+  --semantic with the device frontend raises as in JAX.
 - the copies (utils.metrics, read_calibration, the pose-row writers and
   readers, synth's texture and renderer) give JAX's values.
 
@@ -59,6 +59,7 @@ from unified_cvo_tpu_torch.config import read_cvo_params_yaml
 from unified_cvo_tpu_torch.datasets import kitti as t_kitti_ds
 from unified_cvo_tpu_torch.datasets import tum as t_tum_ds
 from unified_cvo_tpu_torch.frontend import calibration as t_calib
+from unified_cvo_tpu_torch.frontend import pipeline as t_pipeline
 from unified_cvo_tpu_torch.ops import lie as t_lie
 from unified_cvo_tpu_torch.utils import logging as t_logging
 from unified_cvo_tpu_torch.utils import metrics as t_metrics
@@ -186,8 +187,11 @@ def test_host_frontend_raises_until_ported(kitti_dir, tum_dir, params_yaml, tmp_
         t_kitti.run_sequence(kitti_dir, params_yaml, str(tmp_path / "a.txt"), device="cpu")
     with pytest.raises(NotImplementedError, match="1.9"):
         t_kitti.run_frames([], calib, params, device="cpu")
+    # the RGB-D host frontend is ported (test_torch_local_mapping.py drives
+    # the TUM driver with it); the stereo one still lacks compute_disparity
+    left = np.zeros((32, 48, 3), np.uint8)
     with pytest.raises(NotImplementedError, match="1.9"):
-        t_tum.run_sequence(tum_dir, params_yaml, str(tmp_path / "b.txt"), device="cpu")
+        t_pipeline.pointcloud_from_stereo(left, left, calib, denoise=False, device="cpu")
     with pytest.raises(ValueError, match="semantic"):
         t_kitti.run_sequence(kitti_dir, params_yaml, str(tmp_path / "c.txt"), semantic=True,
                              frontend="device", device="cpu")

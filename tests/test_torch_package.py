@@ -131,6 +131,43 @@ def test_frontends_and_drivers_raise_without_cuda(tmp_path):
             call()
 
 
+SLAM_SLICE = ("frontend.image", "frontend.selector", "frontend.stereo", "frontend.pipeline",
+              "models.posegraph", "models.bki", "models.keyframe", "apps.local_mapping",
+              "utils.trajectory")
+
+
+def test_import_guard_covers_the_host_frontend_and_slam_modules():
+    names = _module_names()
+    assert all(f"unified_cvo_tpu_torch.{m}" in names for m in SLAM_SLICE)
+
+
+def test_host_frontend_and_slam_entry_points_raise_without_cuda():
+    """The host frontend's port, the pose graph, the BKI map and the
+    local-mapping driver default to the card too."""
+    _needs_no_card()
+    from unified_cvo_tpu_torch.apps import local_mapping, tum_odometry
+    from unified_cvo_tpu_torch.frontend import image, pipeline
+    from unified_cvo_tpu_torch.frontend.calibration import Calibration
+    from unified_cvo_tpu_torch.models import bki, posegraph
+
+    img = np.zeros((64, 96, 3), np.uint8)
+    depth = np.ones((64, 96), np.uint16)
+    calib = Calibration(np.array([[50.0, 0, 48], [0, 50.0, 32], [0, 0, 1]], np.float32),
+                        depth_scale=1000.0, cols=96, rows=64)
+    eye = np.eye(4, dtype=np.float32)[None]
+    for call in (lambda: image.make_raw_image(img, denoise=False),
+                 lambda: pipeline.pointcloud_from_rgbd(img, depth, calib, denoise=False),
+                 lambda: tum_odometry.run_frames([(img, depth, "0")], calib,
+                                                 KITTI_GEOMETRIC_BENCH, denoise=False),
+                 lambda: posegraph.optimize_pose_graph(eye, [0], [0], eye, [1.0], [1.0]),
+                 lambda: posegraph.PoseGraph(),
+                 lambda: bki.SemanticBKIMap(),
+                 lambda: local_mapping.run_frames([(img, depth, "0")], calib,
+                                                  KITTI_GEOMETRIC_BENCH, denoise=False)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 def test_chip_smoke_fails_without_cuda():
     _needs_no_card()
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,

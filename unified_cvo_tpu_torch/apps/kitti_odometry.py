@@ -13,9 +13,10 @@ accumulate, and stream KITTI-format rows to OUT. The first pair uses the
 
 `--device-frontend` builds each cloud on the card (census-SGM disparity,
 DSO selection, backprojection; frontend/device.py), so everything from the
-uploaded images to the trajectory runs there. The host frontend (FAST
-selection, StereoSGBM, --semantic) is not ported yet: `frontend="host"`, the
-default as in the JAX package, raises NotImplementedError.
+uploaded images to the trajectory runs there. The stereo host frontend
+needs compute_disparity (StereoSGBM), which is not ported yet:
+`frontend="host"`, the default as in the JAX package, raises
+NotImplementedError.
 
 `run_frames` is the loop itself over an iterable of (left, right) images,
 so a sequence can be registered without files; `run_sequence` reads the
@@ -39,8 +40,8 @@ from unified_cvo_tpu_torch.utils.logging import MetricsLogger
 CAPACITY = 32768  # one cloud shape for all frames (28k max FAST budget + pad)
 
 HOST_FRONTEND_MISSING = (
-    "the host frontend (frontend/pipeline.py: FAST selection, StereoSGBM, "
-    "semantics) is not ported yet (ROADMAP item 1.9); use frontend='device'")
+    "the stereo host frontend needs compute_disparity (cv2.StereoSGBM or native/), "
+    "which is not ported yet (ROADMAP item 1.9); use frontend='device'")
 
 
 def max_disp_for(cols: int) -> int:

@@ -8,10 +8,12 @@ Usage:
 Writes a TUM-format trajectory (timestamp tx ty tz qx qy qz qw) of
 accumulated camera poses. Mirrors src/experiments/main_cvo_gpu_align_rgbd_raw_image.cpp.
 
-`--device-frontend` builds each cloud on the card (NL-means, DSO selection,
-backprojection; frontend/device.py). The host frontend is not ported yet:
-without the flag, as in the JAX package's default, the driver raises
-NotImplementedError.
+Without `--device-frontend` (the JAX package's default) each cloud comes
+from the host frontend's port, frontend/pipeline.py::pointcloud_from_rgbd
+(FAST selection with the adaptive threshold, backprojection), on the card.
+Its denoiser is OpenCV's, as in JAX: where OpenCV is absent (the card's
+machine) pass `denoise=False`. `--device-frontend` builds each cloud with
+frontend/device.py instead (NL-means, DSO selection, backprojection).
 
 `run_frames` is the loop itself over an iterable of (rgb, depth,
 timestamp); `run_sequence` reads the TUM layout and calls it.
@@ -29,12 +31,9 @@ from unified_cvo_tpu_torch.config import read_cvo_params_yaml
 from unified_cvo_tpu_torch.datasets.tum import TumHandler, write_tum_pose_row
 from unified_cvo_tpu_torch.device import resolve_device
 from unified_cvo_tpu_torch.frontend.device import device_pointcloud_from_rgbd
+from unified_cvo_tpu_torch.frontend.pipeline import pointcloud_from_rgbd
 
 CAPACITY = 16384
-
-HOST_FRONTEND_MISSING = (
-    "the host frontend (frontend/pipeline.py: FAST/DSO selection on the host, "
-    "cv2 NL-means) is not ported yet (ROADMAP item 1.9); use device_frontend=True")
 
 
 def run_frames(
@@ -57,14 +56,15 @@ def run_frames(
     Writes one TUM row per frame (the first at the identity) to `out` when
     given, and returns (poses [N, 4, 4] float64, timestamps, a PairRecord
     for each pair). `device=None` means the card."""
-    if not device_frontend:
-        raise NotImplementedError(HOST_FRONTEND_MISSING)
     dev = resolve_device(device)
     first_params = params.first_frame() if first_params is None else first_params
 
     def build_cloud(rgb, depth):
-        return device_pointcloud_from_rgbd(rgb, depth, calib, capacity=capacity,
-                                           denoise=denoise, device=dev)
+        if device_frontend:
+            return device_pointcloud_from_rgbd(rgb, depth, calib, capacity=capacity,
+                                               denoise=denoise, device=dev)
+        return pointcloud_from_rgbd(rgb, depth, calib, denoise=denoise, capacity=capacity,
+                                    device=dev)
 
     it = iter(frames)
     first = next(it, None)
@@ -114,8 +114,6 @@ def run_sequence(
     device=None,
 ):
     """The JAX driver's signature. Returns (poses, timestamps)."""
-    if not device_frontend:
-        raise NotImplementedError(HOST_FRONTEND_MISSING)
     tum = TumHandler(seq_dir)
     calib = tum.calibration()
     params = read_cvo_params_yaml(param_file)

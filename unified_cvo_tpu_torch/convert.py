@@ -1,7 +1,8 @@
 """Carry state from the JAX package into the port.
 
 CVO learns nothing, so its state is the parameters, the clouds, the
-neighbor list and the camera calibration. These take the JAX package's state as plain numpy arrays and
+neighbor list and the camera calibration, and on the SLAM back end the BKI
+map and the pose graph. These take the JAX package's state as plain numpy arrays and
 dicts (the caller converts with `numpy.asarray` and `dataclasses.asdict`),
 so this module imports nothing of the JAX package.
 """
@@ -112,3 +113,49 @@ def irls_checkpoint_from_npz(path: str) -> dict:
         out = {k: np.array(snap[k]) for k in IRLS_CHECKPOINT_KEYS}
         out["world_center"] = np.array(snap["world_center"]) if "world_center" in snap else None
     return out
+
+
+def bki_map_from_numpy(keys, alpha, resolution: float, num_classes: int, ell: float,
+                       sigma0: float, prior: float, free_resolution: float, device=None):
+    """A port SemanticBKIMap holding a JAX map's state: its `_keys` (sorted
+    int64 packed voxel keys, the same packing) and `_alpha` ([V, C+1]
+    float32), read after `_sync_host()`, with the map's settings. Inserts
+    into the result continue the JAX map (`device=None` means the card)."""
+    from unified_cvo_tpu_torch.models.bki import SemanticBKIMap
+
+    keys = np.array(keys, np.int64).reshape(-1)
+    alpha = np.array(alpha, np.float32).reshape(len(keys), num_classes + 1)
+    if len(keys) > 1 and not np.all(keys[1:] > keys[:-1]):
+        raise ValueError("keys must be sorted and unique")
+    m = SemanticBKIMap(resolution=float(resolution), num_classes=int(num_classes),
+                       ell=float(ell), sigma0=float(sigma0), prior=float(prior),
+                       free_resolution=float(free_resolution), device=device)
+    m.keys = torch.from_numpy(keys).to(m.device)
+    m.alpha = torch.from_numpy(alpha).to(m.device)
+    return m
+
+
+def pose_graph_from_numpy(config_fields: Mapping, keyframe_poses, keyframe_ids, factors,
+                          window_lo: int, prior: Optional[Mapping], trajectory=None,
+                          device=None):
+    """A port PoseGraph holding a JAX graph's state: `dataclasses.asdict` of
+    its PoseGraphConfig, the keyframe poses ([K, 4, 4] float64) and frame
+    ids, the factors (RelativePose tuples: curr_id, ref_id, transform,
+    inner_product), window_lo, the marginal prior ({ids, H, b, lin} numpy,
+    or None) and optionally the per-frame trajectory (empty if not given). Frames added to the
+    result continue the JAX graph (`device=None` means the card)."""
+    from unified_cvo_tpu_torch.models.posegraph import PoseGraph, PoseGraphConfig, RelativePose
+
+    pg = PoseGraph(PoseGraphConfig(**dict(config_fields)), device=device)
+    pg.keyframe_poses = [np.array(T, np.float64) for T in keyframe_poses]
+    pg.keyframe_ids = [int(i) for i in keyframe_ids]
+    if len(pg.keyframe_ids) != len(pg.keyframe_poses):
+        raise ValueError("one frame id per keyframe pose")
+    pg.factors = [RelativePose(int(f[0]), int(f[1]), np.array(f[2], np.float64), float(f[3]))
+                  for f in factors]
+    pg.window_lo = int(window_lo)
+    pg.prior = None if prior is None else {
+        "ids": [int(i) for i in prior["ids"]], "H": np.array(prior["H"], np.float64),
+        "b": np.array(prior["b"], np.float64), "lin": np.array(prior["lin"], np.float64)}
+    pg.trajectory = [np.array(T, np.float64) for T in (trajectory or [])]
+    return pg

@@ -97,3 +97,16 @@ def make_pointcloud(
         labels=None if labels is None else pad(labels),
         geometric_types=pad(geometric_types),
     )
+
+
+def to_numpy_valid(pc: PointCloud):
+    """Strip padding; returns a dict of numpy arrays for IO and the host
+    side of the mapping back end (`xyz`, and `features`, `labels`,
+    `geometric_types` where the cloud has them)."""
+    mask = pc.mask.detach().cpu().numpy() > 0.5
+    out = {"xyz": pc.xyz.detach().cpu().numpy()[mask]}
+    for name in ("features", "labels", "geometric_types"):
+        v = getattr(pc, name)
+        if v is not None:
+            out[name] = v.detach().cpu().numpy()[mask]
+    return out

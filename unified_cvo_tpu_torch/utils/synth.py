@@ -384,36 +384,43 @@ def write_kitti_sequence(out_dir: str, scene: Sequence[Plane],
     return trajectory.copy()
 
 
-def write_tum_sequence(out_dir: str, scene: Sequence[Plane],
-                       trajectory: np.ndarray, calib: Calibration,
-                       depth_noise: float = 0.0,
-                       seed: int = 0) -> np.ndarray:
-    """Render + write <out_dir>/{rgb,depth}/*.png, assoc.txt, cvo_calib.txt
-    (the TumHandler layout, datasets/tum.py). Returns ground truth poses.
+def tum_frames(scene: Sequence[Plane], trajectory: np.ndarray, calib: Calibration,
+               depth_noise: float = 0.0, seed: int = 0):
+    """Render the frames write_tum_sequence writes, in memory: yields (bgr
+    uint8, depth uint16 at depth_scale, timestamp string) per pose, the
+    same noise draws in the same order.
 
     depth_noise: per-pixel Gaussian sigma in metres added to the rendered
-    depth (sensor-noise stressor, VERDICT r3 task 7)."""
-    import cv2
-
+    depth (sensor-noise stressor)."""
     rng = np.random.default_rng(seed)
-    os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
-    os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
-    with open(os.path.join(out_dir, "cvo_calib.txt"), "w") as f:
-        f.write(f"{calib.fx} {calib.fy} {calib.cx} {calib.cy} "
-                f"{calib.depth_scale} {calib.cols} {calib.rows}\n")
-    assoc = open(os.path.join(out_dir, "assoc.txt"), "w")
     for i, T in enumerate(trajectory):
         bgr, depth = render_frame(scene, calib, T)
         if depth_noise > 0:
             depth = np.where(
                 depth > 0,
-                depth + rng.normal(0, depth_noise, depth.shape).astype(
-                    np.float32),
+                depth + rng.normal(0, depth_noise, depth.shape).astype(np.float32),
                 depth)
-        ts = f"{1000.0 + 0.1 * i:.4f}"
-        cv2.imwrite(os.path.join(out_dir, "rgb", f"{ts}.png"), bgr)
         d16 = np.clip(depth * calib.depth_scale, 0, 65535).astype(np.uint16)
-        cv2.imwrite(os.path.join(out_dir, "depth", f"{ts}.png"), d16)
-        assoc.write(f"{ts} rgb/{ts}.png {ts} depth/{ts}.png\n")
-    assoc.close()
+        yield bgr, d16, f"{1000.0 + 0.1 * i:.4f}"
+
+
+def write_tum_sequence(out_dir: str, scene: Sequence[Plane],
+                       trajectory: np.ndarray, calib: Calibration,
+                       depth_noise: float = 0.0,
+                       seed: int = 0) -> np.ndarray:
+    """Render + write <out_dir>/{rgb,depth}/*.png, assoc.txt, cvo_calib.txt
+    (the TumHandler layout, datasets/tum.py) from `tum_frames`. Returns
+    ground truth poses."""
+    import cv2
+
+    os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
+    with open(os.path.join(out_dir, "cvo_calib.txt"), "w") as f:
+        f.write(f"{calib.fx} {calib.fy} {calib.cx} {calib.cy} "
+                f"{calib.depth_scale} {calib.cols} {calib.rows}\n")
+    with open(os.path.join(out_dir, "assoc.txt"), "w") as assoc:
+        for bgr, d16, ts in tum_frames(scene, trajectory, calib, depth_noise, seed):
+            cv2.imwrite(os.path.join(out_dir, "rgb", f"{ts}.png"), bgr)
+            cv2.imwrite(os.path.join(out_dir, "depth", f"{ts}.png"), d16)
+            assoc.write(f"{ts} rgb/{ts}.png {ts} depth/{ts}.png\n")
     return trajectory.copy()
