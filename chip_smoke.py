@@ -53,7 +53,17 @@ kernel of each path was launched:
                    graph (200-keyframe CG loop, 1000 incremental keyframes),
                    each card against CPU, phase 12. Phases 11 and 12a-b also
                    hold select, flow_reduce and step_cached against their
-                   plain versions on their own clouds.
+                   plain versions on their own clouds;
+  lidar            4 rendered HDL-64 scans (64 x 1800 rays) written as
+                   velodyne files: the LOAM and LeGO-LOAM frontends on the
+                   card against the CPU (equal), the two lidar kernels
+                   (connected components L1, the per-ring LOAM features L2)
+                   against their plain versions, kernels 1-3 on the
+                   driver's clouds, kitti_lidar_odometry.run_sequence over
+                   3 pairs under test_e2e_accuracy.py's lidar bounds, one
+                   LeGO-LOAM pair (L1 and L2 on the path), one semantic
+                   pair, 2 Lyft pairs and the PCD demo (align_two_pcd),
+                   phase 13.
 
 Phase 2c also holds flow_rows and step_uncached (the entry points of
 pallas_ell.flow_stats_ell_fused and step_coeffs_ell_fused, which no align
@@ -94,14 +104,14 @@ on the host in matrix form) to show which one moves the pose errors; it
 prints no result line.
 
 `--slam-only` builds, then runs phases 11-12 alone and prints their JSON
-line, no result line.
+line, no result line. `--lidar-only` does the same for phase 13.
 
 `--posegraph-ablation` runs phase 12d's incremental run, card against CPU,
 with each subgraph solved in its own frame and in the world frame.
 
 Usage: python3 chip_smoke.py [--frames 4] [--dense-ablation | --select-ablation |
                              --ell-ablation | --posegraph-ablation |
-                             --compare-tree DIR | --slam-only]
+                             --compare-tree DIR | --slam-only | --lidar-only]
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails. The last line of stdout is the result object.
 """
@@ -2578,6 +2588,341 @@ def slam_phase(dev, smi, results):
     return out
 
 
+# ---- phase 13: the lidar frontend (LOAM, LeGO-LOAM), the lidar drivers, the PCD demo
+LIDAR_BEAMS, LIDAR_AZ = 64, 1800     # HDL-64E: 64 beams x 1800 azimuth steps (0.2 deg)
+LIDAR_FOV = (-2.0, 24.9)             # its elevations (deg below level), LeGO-LOAM's geometry
+LIDAR_FRAMES = 4                     # 13a: 3 pairs
+LIDAR_ITER = 300                     # test_e2e_accuracy.py's lidar cap
+LIDAR_YAML = ("ell_init: 0.5\nell_init_first_frame: 0.8\nell_min: 0.05\n"
+              "ell_max: 1.2\nis_using_intensity: 1\n")   # test_e2e_accuracy.py's lidar YAML
+LIDAR_SEMANTIC = "is_using_semantics: 1\ns_ell: 0.5\ns_sigma: 0.8\n"
+LIDAR_ATE_BOUND, LIDAR_RPE_BOUND = 0.08, 0.12   # test_e2e_accuracy.py's lidar bounds
+LYFT_BEAMS, LYFT_FRAMES = 40, 3      # 13c: 2 pairs in the Lyft room
+LYFT_ATE_BOUND = 0.1                 # test_e2e_accuracy.py's Lyft bound
+PCD_POINTS = 16384                   # 13d: points of each demo cloud
+
+
+def lidar_sequences(root):
+    """Phase 13's rendered sequences on disk: the KITTI lidar room (velodyne
+    and height-band SemanticKITTI labels, LIDAR_FRAMES frames) and the Lyft
+    room (LYFT_FRAMES sweeps). Returns (kitti_dir, traj, lyft_dir, lyft_traj)."""
+    import os
+
+    from unified_cvo_tpu_torch.utils import synth
+
+    kdir, ldir = os.path.join(root, "kitti"), os.path.join(root, "lyft")
+    traj = synth.corridor_trajectory(LIDAR_FRAMES, step=0.15, yaw_rate=0.02, bob=0.0)
+    synth.write_kitti_lidar_sequence(
+        kdir, synth.room_scene(11, half=8.0, floor_y=1.8, ceil_y=-3.0, n_pillars=4), traj,
+        n_beams=LIDAR_BEAMS, n_az=LIDAR_AZ, noise=0.005, fov_deg=LIDAR_FOV, labels=True)
+    ltraj = synth.corridor_trajectory(LYFT_FRAMES, step=0.2, yaw_rate=0.02, bob=0.0)
+    synth.write_lyft_lidar_sequence(
+        ldir, synth.room_scene(13, half=9.0, floor_y=1.8, ceil_y=-3.0, n_pillars=4), ltraj,
+        n_beams=LYFT_BEAMS, n_az=LIDAR_AZ, noise=0.005, fov_deg=LIDAR_FOV)
+    for name, text in (("lidar.yaml", LIDAR_YAML), ("semantic.yaml", LIDAR_YAML + LIDAR_SEMANTIC)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write(text)
+    return kdir, traj, ldir, ltraj
+
+
+def equal_or_exit(a, b, what):
+    if not torch.equal(a.cpu(), b.cpu()):
+        raise SystemExit(f"phase 13: {what} on the card differs from the CPU's")
+
+
+def lidar_frontend_checks(scan, dev, smi, results):
+    """13a on frame 0: the LOAM stages and LeGO-LOAM stages on the card
+    against the port's CPU calls (equal, bit for bit), L1 and L2 against
+    their plain versions on the card (equal) and launched twice (equal),
+    then the frontends' card ms (CUDA events) and launches a scan
+    (torch.profiler), and L1 / L2 against their bounds and plain versions.
+    Fills results' lidar_components and lidar_loam_features rows."""
+    from unified_cvo_tpu_torch.apps import kitti_lidar_odometry as kl
+    from unified_cvo_tpu_torch.frontend import lidar as fl
+    from unified_cvo_tpu_torch.ops import lidar as lops
+
+    cpu = torch.device("cpu")
+    xyz_c = torch.from_numpy(np.ascontiguousarray(scan[:, :3], np.float32))
+    int_c = torch.from_numpy(np.ascontiguousarray(scan[:, 3], np.float32))
+    xyz_k, int_k = xyz_c.to(dev), int_c.to(dev)
+    def lego_links(x):
+        ri, ii = fl.project_range_image(x)
+        return fl.segment_links(ri, fl.ground_mask_range_image(x, ii))
+
+    st = []                                    # the CPU's stages, then the card's
+    for x, i in ((xyz_c, int_c), (xyz_k, int_k)):
+        r = fl.ring_ids(x)
+        ri, ii = fl.project_range_image(x)
+        g = fl.ground_mask_range_image(x, ii)
+        lv, lh, valid = fl.segment_links(ri, g)
+        labels = lops.components(lv, lh)
+        seg = fl.feasible_clusters(labels, valid)
+        keep = seg & (ii >= 0)
+        kind, rest = lops.loam_features(ri, keep)
+        e_idx, s_idx = fl.legoloam_select(x)
+        st.append({
+            "rings": r, "edges": fl.edge_detection(x, i, r), "curvature": fl.loam_curvature(x, r),
+            "surfaces": fl.surface_selection(x, r, 10000), "range image": ri, "index image": ii,
+            "ground": g, "vertical links": lv, "horizontal links": lh, "components": labels,
+            "segmented": seg, "keep": keep, "LOAM feature kinds": kind,
+            "rest counts": rest, "LeGO-LOAM edges": e_idx, "LeGO-LOAM surfaces": s_idx})
+    for name in st[0]:
+        equal_or_exit(st[1][name], st[0][name], name)
+    for method in ("loam", "legoloam"):
+        ck = fl.pointcloud_from_lidar(scan, capacity=kl.CAPACITY, method=method, device=dev)
+        cc = fl.pointcloud_from_lidar(scan, capacity=kl.CAPACITY, method=method, device=cpu)
+        for f in ("xyz", "mask", "features", "geometric_types"):
+            equal_or_exit(getattr(ck, f), getattr(cc, f), f"the {method} cloud's {f}")
+    k = st[1]
+    lv, lh, keep, ri = k["vertical links"], k["horizontal links"], k["keep"], k["range image"]
+    runs = [lops.components(lv, lh) for _ in range(2)]
+    plain = lops.components_plain(lv, lh)
+    if not (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], plain)):
+        raise SystemExit("phase 13: L1 (components) differs from its plain version or between "
+                         "two launches")
+    fruns = [lops.loam_features(ri, keep) for _ in range(2)]
+    fplain = lops.loam_features_plain(ri, keep)
+    if not all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(fruns[0], fruns[1], fplain)):
+        raise SystemExit("phase 13: L2 (loam_features) differs from its plain version or "
+                         "between two launches")
+    torch.cuda.synchronize()
+    n_cells = ri.numel()
+    n_comp = int(torch.unique(plain[k["segmented"]]).numel())
+    kind = fplain[0]
+    log(f"phase 13 frontend, card against CPU on frame 0 ({len(scan)} rays): rings, edges "
+        f"({int(k['edges'].sum())}), curvature, surfaces ({int(k['surfaces'].sum())}), the "
+        f"clouds, range image ({int((k['index image'] >= 0).sum())} of {n_cells} cells filled), "
+        f"ground ({int(k['ground'].sum())}), links, components, segmented "
+        f"({int(k['segmented'].sum())} cells in {n_comp} kept clusters), LOAM features "
+        f"({int((kind == lops.EDGE).sum())} edges, {int((kind == lops.REST).sum())} rest), "
+        f"LeGO-LOAM picks ({len(k['LeGO-LOAM edges'])} edges, "
+        f"{len(k['LeGO-LOAM surfaces'])} surfaces) all equal; L1 and L2 equal to their plain "
+        f"versions on the card, two launches bit-equal")
+
+    stages = stage_times({
+        "LOAM frontend (pointcloud_from_lidar, upload included)":
+            lambda: fl.pointcloud_from_lidar(scan, capacity=kl.CAPACITY, device=dev),
+        "LeGO-LOAM frontend (pointcloud_from_lidar, method legoloam, upload included)":
+            lambda: fl.pointcloud_from_lidar(scan, capacity=kl.CAPACITY, method="legoloam",
+                                             device=dev),
+        "range image, ground and links (torch)": lambda: lego_links(xyz_k),
+    }, smi)
+    rows, cols = ri.shape
+    rows_of = {
+        "lidar_components": (
+            lambda: lops.components(lv, lh), lambda: lops.components_plain(lv, lh),
+            bound(lv.numel() + lh.numel() + 4 * n_cells, 0),
+            "unified_cvo_tpu/frontend/lidar.py:202 (segment_range_image: scipy "
+            "connected_components on the host; no Pallas kernel)"),
+        "lidar_loam_features": (
+            lambda: lops.loam_features(ri, keep), lambda: lops.loam_features_plain(ri, keep),
+            bound(5 * n_cells + n_cells + 4 * rows * lops.N_SECTORS, 0),
+            "unified_cvo_tpu/frontend/lidar.py:266 (_loam_extract_features: a Python loop "
+            "on the host; no Pallas kernel)")}
+    for name, (kfn, pfn, (b_ms, b_by), replaces) in rows_of.items():
+        ms = device_ms(kfn)
+        plain_ms, _ = event_ms(pfn)
+        n_dev = kernels_per_call(kfn)
+        results[name] = {
+            "name": name, "route": "cuda", "source": "unified_cvo_tpu_torch/csrc/lidar.cu",
+            "replaces": replaces, "launches": None, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches_per_call": n_dev, "shape": [rows, cols]}
+        log(f"time   {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, one "
+            f"call), bound {b_ms:.6f} ms ({b_by}), {n_dev} device kernels a call (graph "
+            f"nodes) ({smi})")
+    return {"frontend": stages, "filled_cells": int((k["index image"] >= 0).sum()),
+            "segmented_cells": int(k["segmented"].sum()), "clusters": n_comp,
+            "edges_loam": int(k["edges"].sum()), "surfaces_loam": int(k["surfaces"].sum()),
+            "edges_legoloam": len(k["LeGO-LOAM edges"]),
+            "surfaces_legoloam": len(k["LeGO-LOAM surfaces"])}
+
+
+def lidar_report(label, poses, traj, records, seconds, launches, smi, ate_bound=None,
+                 rpe_bound=None):
+    """A lidar driver run: pose errors against the rendered trajectory, ATE,
+    RPE, align ms, iterations, builds and the builder of each pair, fps.
+    Raises unless every pair ran 'ell' with ret 0, the flow and step
+    launches equal the iterations (geometry x channel variant), select ran
+    once per grid build, and the ATE / RPE are below their bounds."""
+    from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
+    from unified_cvo_tpu_torch.utils import metrics
+
+    n = len(records)
+    rel = [np.linalg.inv(poses[k]) @ poses[k + 1] for k in range(n)]
+    true = [np.linalg.inv(traj[k + 1]) @ traj[k] for k in range(n)]
+    iters = [r.info.iterations for r in records]
+    builds = [r.info.nl_rebuilds for r in records]
+    builders = [r.info.nl_builder for r in records]
+    grid_builds = sum(b for b, kind in zip(builds, builders) if kind == "grid")
+    row = {"pairs": n, "seconds": seconds, "fps": n / seconds,
+           "ms_a_pair": 1e3 * seconds / n,
+           "align_ms": [1e3 * r.wait_seconds for r in records],
+           "frontend_enqueue_ms": [1e3 * r.frontend_seconds for r in records],
+           "iterations": iters, "builds": builds, "builders": builders,
+           "final_ell": [float(r.info.final_ell) for r in records],
+           "pose_errors": f2f.pose_errors(rel, true),
+           "ate_m": metrics.ate_rmse(traj[:len(poses)], poses),
+           "rpe_m": metrics.rpe_rmse(traj[:len(poses)], poses),
+           "launches": {k: launches[k] for k in ("select", "flow_reduce", "step_cached")}}
+    log(f"{label}: {n} pairs in {seconds:.3f} s, {row['ms_a_pair']:.1f} ms a pair, "
+        f"{row['fps']:.4f} aligned frames/s (driver, reader and frontend included) ({smi})")
+    log(f"  builders {builders}, iterations {iters}, builds {builds}, final ell "
+        f"{[round(x, 6) for x in row['final_ell']]}, align ms "
+        f"{[round(x, 1) for x in row['align_ms']]}")
+    log(f"  pose error |xi| per pair {[round(e, 6) for e in row['pose_errors']]}; ATE "
+        f"{row['ate_m']:.6f} m, RPE {row['rpe_m']:.6f} m; launches {launches}")
+    if not all(r.ret == 0 and r.info.backend == "ell" for r in records):
+        raise SystemExit(f"{label}: a pair did not run 'ell', or its flow was degenerate")
+    if not (launches["flow_reduce_by_variant"].get("geo_chan") == launches["flow_reduce"]
+            == launches["step_cached"] == sum(iters) > 0 and launches["select"] >= grid_builds):
+        raise SystemExit(f"{label}: launch counts {launches} do not match {sum(iters)} "
+                         f"iterations and {grid_builds} grid builds")
+    if ate_bound is not None and not row["ate_m"] < ate_bound:
+        raise SystemExit(f"{label}: ATE {row['ate_m']} is not below {ate_bound}")
+    if rpe_bound is not None and not row["rpe_m"] < rpe_bound:
+        raise SystemExit(f"{label}: RPE {row['rpe_m']} is not below {rpe_bound}")
+    return row
+
+
+def pcd_pair(scans, path_a, path_b):
+    """13d's two XYZRGB PCDs: PCD_POINTS points of each of two lidar scans
+    (every k-th ray), coloured by intensity."""
+    from unified_cvo_tpu_torch.datasets import pcd
+
+    for scan, path in zip(scans, (path_a, path_b)):
+        pick = np.linspace(0, len(scan) - 1, PCD_POINTS).astype(np.int64)
+        grey = np.clip(scan[pick, 3:4], 0.0, 1.0)
+        pcd.write_pcd(path, scan[pick, :3], np.repeat(grey, 3, axis=1))
+
+
+def lidar_phase(dev, smi, results):
+    """Phase 13: the lidar path at full width on the card. 13a: 4 rendered
+    HDL-64 frames (64 x 1800 rays, the lidar room of test_e2e_accuracy.py)
+    written as velodyne files; frame 0's frontend on the card against the
+    CPU (lidar_frontend_checks); kernels 1-3 against their plain versions on
+    the driver's clouds of frames 0 and 1; kitti_lidar_odometry.run_sequence
+    (capacity 16384, 300 iterations) under the lidar ATE / RPE bounds; one
+    pair with method='legoloam' (L1 and L2 launched once a frame). 13b: one
+    pair with --semantic (19 classes, height-band labels). 13c: 2 Lyft
+    pairs (40 beams) with the driver's own ell override, under the Lyft ATE
+    bound. 13d: align_two_pcd on two 16384-point XYZRGB PCDs; the function
+    angle must grow."""
+    import os
+    import tempfile
+
+    from unified_cvo_tpu_torch.apps import align_two_pcd
+    from unified_cvo_tpu_torch.apps import kitti_lidar_odometry as kl
+    from unified_cvo_tpu_torch.apps import lyft_lidar_odometry as ll
+    from unified_cvo_tpu_torch.config import read_cvo_params_yaml
+    from unified_cvo_tpu_torch.datasets.kitti import KittiHandler
+    from unified_cvo_tpu_torch.frontend import lidar as fl
+    from unified_cvo_tpu_torch.ops import lidar as lops
+
+    out = {}
+    quiet = lambda *a: None                                   # noqa: E731
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lidar_") as root:
+        t0 = time.perf_counter()
+        kdir, traj, ldir, ltraj = lidar_sequences(root)
+        yaml, sem_yaml = os.path.join(root, "lidar.yaml"), os.path.join(root, "semantic.yaml")
+        log(f"phase 13: {LIDAR_FRAMES} KITTI and {LYFT_FRAMES} Lyft scans rendered at "
+            f"{LIDAR_BEAMS} / {LYFT_BEAMS} x {LIDAR_AZ} rays and written in "
+            f"{time.perf_counter() - t0:.2f} s (host)")
+        reader = KittiHandler(kdir, "lidar")
+        scans = []
+        for _ in range(2):
+            scans.append(reader.read_next_lidar())
+            reader.next()
+        out["frontend_checks"] = lidar_frontend_checks(scans[0], dev, smi, results)
+        params = read_cvo_params_yaml(yaml)
+        clouds = [fl.pointcloud_from_lidar(s, capacity=kl.CAPACITY, device=dev) for s in scans]
+        valid = [int(c.mask.sum()) for c in clouds]
+        driver_kernel_checks(clouds[0], clouds[1], np.linalg.inv(traj[0]) @ traj[1], params,
+                             dev, results, "phase 13a frames 0 -> 1")
+        del clouds
+
+        # 13a: the KITTI lidar driver over the files
+        reset_launch_counts()
+        records = []
+        t0 = time.perf_counter()
+        poses = kl.run_sequence(kdir, yaml, os.path.join(root, "traj.txt"), max_iter=LIDAR_ITER,
+                                log=quiet, device=dev, records=records)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        out["kitti"] = lidar_report(
+            "phase 13a KITTI lidar driver (kitti_lidar_odometry.run_sequence)", poses, traj,
+            records, time.perf_counter() - t0, launches, smi, LIDAR_ATE_BOUND, LIDAR_RPE_BOUND)
+        out["kitti"]["valid_points"] = valid
+        for name in ("select", "flow_reduce", "step_cached"):
+            results[name]["launches_lidar"] = launches[name]
+
+        # 13a: one pair through the LeGO-LOAM frontend: L1 and L2 on the path
+        reset_launch_counts()
+        lops.reset_launches()
+        t0 = time.perf_counter()
+        lposes, records = kl.run_frames(scans, params, capacity=kl.CAPACITY, max_iter=LIDAR_ITER,
+                                        method="legoloam", log=quiet, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        llaunch = {"lidar_components": lops.components.launches,
+                   "lidar_loam_features": lops.loam_features.launches}
+        out["legoloam"] = lidar_report(
+            "phase 13a LeGO-LOAM pair (kitti_lidar_odometry.run_frames, method legoloam)",
+            lposes, traj, records, seconds, launch_counts(), smi, rpe_bound=LIDAR_RPE_BOUND)
+        log(f"  L1 / L2 launches in the pair: {llaunch} (2 frames)")
+        if llaunch != {"lidar_components": 2, "lidar_loam_features": 2}:
+            raise SystemExit(f"phase 13a: the LeGO-LOAM pair launched {llaunch}, not L1 and L2 "
+                             f"once a frame")
+        for name, n in llaunch.items():
+            results[name]["launches"] = n
+
+        # 13b: one semantic pair (19 classes)
+        reset_launch_counts()
+        records = []
+        t0 = time.perf_counter()
+        sposes = kl.run_sequence(kdir, sem_yaml, os.path.join(root, "sem.txt"), max_frames=2,
+                                 max_iter=LIDAR_ITER, semantic=True, log=quiet, device=dev,
+                                 records=records)
+        torch.cuda.synchronize()
+        out["semantic"] = lidar_report(
+            "phase 13b semantic lidar pair (kitti_lidar_odometry.run_sequence, --semantic)",
+            sposes, traj, records, time.perf_counter() - t0, launch_counts(), smi,
+            rpe_bound=LIDAR_RPE_BOUND)
+
+        # 13c: the Lyft driver, its own ell override
+        reset_launch_counts()
+        records = []
+        t0 = time.perf_counter()
+        lyft_poses = ll.run_sequence(ldir, yaml, os.path.join(root, "lyft.txt"),
+                                     max_iter=LIDAR_ITER, log=quiet, device=dev,
+                                     records=records)
+        torch.cuda.synchronize()
+        out["lyft"] = lidar_report(
+            "phase 13c Lyft driver (lyft_lidar_odometry.run_sequence, ell_init 1.0, ell_max "
+            "2.2)", lyft_poses, ltraj, records, time.perf_counter() - t0, launch_counts(), smi,
+            LYFT_ATE_BOUND)
+
+        # 13d: the PCD demo
+        src, tgt = os.path.join(root, "source.pcd"), os.path.join(root, "target.pcd")
+        pcd_pair(scans, src, tgt)
+        t0 = time.perf_counter()
+        demo = align_two_pcd.align_two(src, tgt, yaml, max_iter=LIDAR_ITER, out_dir=root,
+                                       log=quiet, device=dev)
+        info = demo["info"]
+        out["pcd"] = {"seconds": time.perf_counter() - t0, "cold_s": demo["cold_s"],
+                      "warm_s": demo["warm_s"], "iterations": info.iterations,
+                      "builder": info.nl_builder, "backend": info.backend,
+                      "cos_before": demo["cos_before"], "cos_after": demo["cos_after"]}
+        log(f"phase 13d PCD demo (align_two_pcd, {PCD_POINTS} points a cloud): {info.backend} + "
+            f"{info.nl_builder}, {info.iterations} iterations, warm align {demo['warm_s']:.3f} s "
+            f"(cold {demo['cold_s']:.3f} s), function_angle {demo['cos_before']:.6f} -> "
+            f"{demo['cos_after']:.6f} ({smi})")
+        if not (demo["ret"] == 0 and demo["cos_after"] > demo["cos_before"]):
+            raise SystemExit(f"phase 13d: the function angle did not grow ({out['pcd']})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=MAIN_FRAMES,
@@ -2598,6 +2943,10 @@ def main(argv=None) -> int:
     mode.add_argument("--slam-only", action="store_true",
                       help="build, then run phases 11-12 alone (the host RGB-D frontend and "
                            "the SLAM back end), print their JSON line, stop without a "
+                           "result line")
+    mode.add_argument("--lidar-only", action="store_true",
+                      help="build, then run phase 13 alone (the lidar frontend, the lidar "
+                           "drivers and the PCD demo), print its JSON lines, stop without a "
                            "result line")
     mode.add_argument("--posegraph-ablation", action="store_true",
                       help="phase 12d's incremental run, card against CPU, with each "
@@ -2678,6 +3027,13 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         paths["slam"] = slam_phase(dev, smi, results)
         log(f"phase 12: {time.perf_counter() - t0:.2f} s")
+        log(json.dumps({"paths": paths, "kernel_checks": results}, default=str))
+        return 0
+    if args.lidar_only:
+        results = {n: {"max_abs_err": 0.0} for n in ("select", "flow_reduce", "step_cached")}
+        t0 = time.perf_counter()
+        paths = {"lidar": lidar_phase(dev, smi, results)}
+        log(f"phase 13: {time.perf_counter() - t0:.2f} s")
         log(json.dumps({"paths": paths, "kernel_checks": results}, default=str))
         return 0
     check_kernels(frames_np, guess_np, params, dev, results, floor)
@@ -2859,6 +3215,12 @@ def main(argv=None) -> int:
     results["slam"] = slam_phase(dev, smi, results)
     log(f"phase 12 (SLAM back end, CPU checks included): {time.perf_counter() - t0:.2f} s")
 
+    # ---- phase 13: the lidar frontend, the lidar drivers and the PCD demo
+    t0 = time.perf_counter()
+    results["lidar"] = lidar_phase(dev, smi, results)
+    log(f"phase 13 (lidar frontend, drivers and PCD demo, CPU checks included): "
+        f"{time.perf_counter() - t0:.2f} s")
+
     # ---- phase 5: where an iteration's time goes (profiler, not counted)
     profile_main_path(f2f, frames, guess, params, dev, label=" ELL path")
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
@@ -2866,7 +3228,7 @@ def main(argv=None) -> int:
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
                       label=" colour ELL path")
     paths = {name: results.pop(name) for name in ("acvo", "irls", "kitti_stereo", "tum_rgbd",
-                                                   "tum_host", "slam")}
+                                                   "tum_host", "slam", "lidar")}
     log(json.dumps({"paths": paths}, default=str))
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -168,6 +168,41 @@ def test_host_frontend_and_slam_entry_points_raise_without_cuda():
             call()
 
 
+LIDAR_SLICE = ("frontend.lidar", "ops.lidar", "datasets.lyft", "datasets.pcd",
+               "apps.kitti_lidar_odometry", "apps.lyft_lidar_odometry", "apps.align_two_pcd",
+               "apps.evaluate_odometry", "apps.evaluate_ate")
+
+
+def test_import_guard_covers_the_lidar_slice():
+    names = _module_names()
+    assert all(f"unified_cvo_tpu_torch.{m}" in names for m in LIDAR_SLICE)
+
+
+def test_lidar_entry_points_raise_without_cuda(tmp_path):
+    """The lidar frontend, its kernels' wrappers on card tensors, the lidar
+    drivers and the PCD demo default to the card too."""
+    _needs_no_card()
+    from unified_cvo_tpu_torch.apps import align_two_pcd, kitti_lidar_odometry
+    from unified_cvo_tpu_torch.apps import lyft_lidar_odometry
+    from unified_cvo_tpu_torch.datasets import pcd
+    from unified_cvo_tpu_torch.frontend import lidar
+
+    pts = np.random.default_rng(0).uniform(-5, 5, (64, 4)).astype(np.float32)
+    path = str(tmp_path / "c.pcd")
+    pcd.write_pcd(path, pts[:, :3], np.full((64, 3), 0.5, np.float32))
+    yaml = tmp_path / "p.yaml"
+    yaml.write_text("ell_init: 0.5\n")
+    for call in (lambda: lidar.pointcloud_from_lidar(pts),
+                 lambda: lidar.pointcloud_from_lidar(pts, method="legoloam"),
+                 lambda: kitti_lidar_odometry.run_frames([pts, pts], KITTI_GEOMETRIC_BENCH),
+                 lambda: lyft_lidar_odometry.run_sequence(str(tmp_path), str(yaml),
+                                                          str(tmp_path / "t.txt")),
+                 lambda: pcd.load_demo_cloud(path),
+                 lambda: align_two_pcd.align_two(path, path, str(yaml))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 def test_chip_smoke_fails_without_cuda():
     _needs_no_card()
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,

@@ -19,7 +19,10 @@ imports nothing of the JAX package, with two changes so that scenes render on
 a host without OpenCV: the texture's bilinear upsampling is numpy
 (`_resize_linear`, cv2.resize's INTER_LINEAR rule), and cv2 is imported only
 inside the PNG writers. The TartanAir writer is left out with the TartanAir
-reader (datasets/tartanair.py is not ported).
+reader (datasets/tartanair.py is not ported). The lidar writers also take
+the scan's elevations (`fov_deg`), and the KITTI one can write height-band
+SemanticKITTI labels (`lidar_height_labels`); their defaults write what
+JAX's do.
 """
 
 from __future__ import annotations
@@ -305,35 +308,63 @@ def render_lidar_scan(scene: Sequence[Plane], T_wl: np.ndarray,
                            inten[hit, None]], axis=1)
 
 
+# SemanticKITTI raw ids of lidar_height_labels' bands (the reader maps them
+# to training classes 8, 14 and 12; raw 0 is unlabeled and dropped)
+ROAD, VEGETATION, BUILDING, UNLABELED = 40, 70, 50, 0
+
+
+def lidar_height_labels(scan: np.ndarray) -> np.ndarray:
+    """SemanticKITTI raw labels (uint32, instance id 0) of a rendered scan
+    from a fixed rule on each point's height in the sensor frame (y down):
+    more than 1.5 m below the sensor road, more than 2.7 m above it
+    unlabeled, within 0.5 m of its height vegetation, building otherwise."""
+    y = scan[:, 1]
+    out = np.full(len(scan), BUILDING, np.uint32)
+    out[np.abs(y) < 0.5] = VEGETATION
+    out[y > 1.5] = ROAD
+    out[y < -2.7] = UNLABELED
+    return out
+
+
 def write_kitti_lidar_sequence(out_dir: str, scene: Sequence[Plane],
                                trajectory: np.ndarray,
                                n_beams: int = 32, n_az: int = 900,
-                               noise: float = 0.0) -> np.ndarray:
+                               noise: float = 0.0,
+                               fov_deg: Tuple[float, float] = (-20.0, 8.0),
+                               labels: bool = False) -> np.ndarray:
     """Render + write <out_dir>/velodyne/%06d.bin in the KITTI raw-velodyne
     frame (the KittiHandler reader rotates x<- -y, y<- -z, z<- x into the
     camera-style frame, datasets/kitti.py:100-117 — the inverse map is
-    velo = (z_cam, -x_cam, -y_cam))."""
+    velo = (z_cam, -x_cam, -y_cam)). With `labels`, also
+    <out_dir>/labels/%06d.label from lidar_height_labels (the port's
+    addition, like `fov_deg`)."""
     os.makedirs(os.path.join(out_dir, "velodyne"), exist_ok=True)
+    if labels:
+        os.makedirs(os.path.join(out_dir, "labels"), exist_ok=True)
     for i, T in enumerate(trajectory):
         scan = render_lidar_scan(scene, T, n_beams=n_beams, n_az=n_az,
-                                 noise=noise, seed=i)
+                                 fov_deg=fov_deg, noise=noise, seed=i)
         velo = np.stack([scan[:, 2], -scan[:, 0], -scan[:, 1], scan[:, 3]],
                         axis=1).astype(np.float32)
         velo.tofile(os.path.join(out_dir, "velodyne", f"{i:06d}.bin"))
+        if labels:
+            lidar_height_labels(scan).tofile(
+                os.path.join(out_dir, "labels", f"{i:06d}.label"))
     return trajectory.copy()
 
 
 def write_lyft_lidar_sequence(out_dir: str, scene: Sequence[Plane],
                               trajectory: np.ndarray,
                               n_beams: int = 40, n_az: int = 900,
-                              noise: float = 0.0) -> np.ndarray:
+                              noise: float = 0.0,
+                              fov_deg: Tuple[float, float] = (-20.0, 8.0)) -> np.ndarray:
     """Render + write the Lyft L5 lidar layout (<out_dir>/lidar/*.bin,
     5 float32 per point: raw-frame x y z + intensity + ring;
     datasets/lyft.py applies the same axis rotation as KITTI)."""
     os.makedirs(os.path.join(out_dir, "lidar"), exist_ok=True)
     for i, T in enumerate(trajectory):
         scan = render_lidar_scan(scene, T, n_beams=n_beams, n_az=n_az,
-                                 noise=noise, seed=i)
+                                 fov_deg=fov_deg, noise=noise, seed=i)
         n = len(scan)
         ring = np.zeros((n, 1), np.float32)
         velo = np.concatenate(
