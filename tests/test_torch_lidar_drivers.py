@@ -193,6 +193,38 @@ def test_kitti_lidar_driver_matches_jax(semantic, rendered_kitti_dir, lidar_yaml
     assert 0.1 < np.linalg.norm(pt[2][:3, 3] - pt[1][:3, 3]) < 0.2, pt
 
 
+@pytest.fixture(scope="module")
+def velodyne_sweep_dir(tmp_path_factory):
+    """The first 2 frames of rendered_kitti_dir's sequence with each beam
+    sweeping azimuth the other way, as a velodyne does: ring_ids finds a
+    ring at every 4 -> 1 quadrant wrap."""
+    d = str(tmp_path_factory.mktemp("lidar_velodyne_sweep"))
+    traj = synth.corridor_trajectory(2, step=0.15, yaw_rate=0.02, bob=0.0)
+    synth.write_kitti_lidar_sequence(d, _room(11, 8.0), traj, n_beams=32, n_az=720,
+                                     noise=0.005, velodyne_sweep=True)
+    return d
+
+
+def test_kitti_lidar_driver_matches_jax_on_a_velodyne_sweep(velodyne_sweep_dir, lidar_yaml,
+                                                             tmp_path):
+    from unified_cvo_tpu.frontend import lidar as j_fl
+    from unified_cvo_tpu_torch.frontend import lidar as t_fl
+
+    scan = KittiHandler(velodyne_sweep_dir, "lidar").read_next_lidar()
+    rings = j_fl.ring_ids(scan[:, :3])
+    assert rings.max() >= 30                  # 32 beams: a ring at each wrap
+    np.testing.assert_array_equal(t_fl.ring_ids(torch.from_numpy(scan[:, :3])).numpy(), rings)
+    pj = j_lidar.run_sequence(velodyne_sweep_dir, lidar_yaml, str(tmp_path / "jax.txt"),
+                              log=_quiet, **RUN)
+    pt = t_lidar.run_sequence(velodyne_sweep_dir, lidar_yaml, str(tmp_path / "port.txt"),
+                              log=_quiet, device="cpu", **RUN)
+    assert pt.shape == pj.shape == (2, 4, 4)
+    gaps = [_gap(a, b) for a, b in zip(pj, pt)]
+    assert max(gaps) < POSE_TOL, gaps
+    # the corridor steps 0.15 m; the first pair (ell 0.8) ends ~0.1 m in both
+    assert 0.05 < np.linalg.norm(pt[1][:3, 3]) < 0.25, pt
+
+
 def test_lyft_driver_matches_jax(lyft_dir, lidar_yaml, tmp_path):
     pt = _both(j_lyft.run_sequence, t_lyft.run_sequence, (lyft_dir, lidar_yaml), tmp_path,
                **RUN)

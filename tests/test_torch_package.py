@@ -26,8 +26,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "unified_cvo_tpu_torch"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "unified_cvo_tpu")
-# importing the port loads none of these; cv2 is imported only inside the
-# functions that read or write PNGs
+# importing the port loads none of these; no module of the port imports cv2
+# (PNGs through datasets/png.py, cv2's NL-means through ops/nlm_opencv.py)
 NOT_LOADED = FORBIDDEN + ("cv2",)
 
 
@@ -199,6 +199,62 @@ def test_lidar_entry_points_raise_without_cuda(tmp_path):
                                                           str(tmp_path / "t.txt")),
                  lambda: pcd.load_demo_cloud(path),
                  lambda: align_two_pcd.align_two(path, path, str(yaml))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+BA_SLICE = ("datasets.png", "datasets.graph", "datasets.tartanair", "utils.voxel",
+            "ops.nlm_opencv", "apps._ba_common", "apps.irls_bunny", "apps.irls_tum",
+            "apps.irls_tartan", "apps.covis_tartan", "apps.tartan_odometry")
+
+
+def test_import_guard_covers_the_ba_slice():
+    names = _module_names()
+    assert all(f"unified_cvo_tpu_torch.{m}" in names for m in BA_SLICE)
+
+
+def test_no_module_of_the_port_imports_cv2():
+    """Not even inside a function: the card's machine has no OpenCV."""
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert all(n.split(".")[0] != "cv2" for n in names), f"{path}: imports {names}"
+
+
+def test_ba_entry_points_raise_without_cuda(tmp_path):
+    """The BA apps, the TartanAir driver and the default denoiser default to
+    the card too."""
+    _needs_no_card()
+    from unified_cvo_tpu_torch.apps import irls_bunny, irls_tartan, irls_tum, tartan_odometry
+    from unified_cvo_tpu_torch.datasets import png
+    from unified_cvo_tpu_torch.datasets.graph import write_graph_file
+    from unified_cvo_tpu_torch.frontend import image
+
+    d = tmp_path / "seq"
+    for sub in ("image_left", "depth_left", "rgb", "depth"):
+        (d / sub).mkdir(parents=True)
+    img = np.zeros((48, 64, 3), np.uint8)
+    png.imwrite(str(d / "image_left" / "000000_left.png"), img)
+    np.save(str(d / "depth_left" / "000000_left_depth.npy"), np.ones((48, 64), np.float32))
+    png.imwrite(str(d / "rgb" / "0.png"), img)
+    png.imwrite(str(d / "depth" / "0.png"), np.ones((48, 64), np.uint16))
+    (d / "assoc.txt").write_text("0 rgb/0.png 0 depth/0.png\n")
+    (d / "cvo_calib.txt").write_text("50 50 32 24 1000 64 48\n")
+    graph = str(tmp_path / "graph.txt")
+    write_graph_file(graph, [0], [])
+    yaml = tmp_path / "p.yaml"
+    yaml.write_text("ell_init: 0.5\n")
+    for call in (lambda: image.make_raw_image(img),
+                 lambda: irls_bunny.bunny_ba(irls_bunny.synthetic_bunny(64), 2),
+                 lambda: irls_tum.main([str(d), graph, str(yaml), str(tmp_path / "o")]),
+                 lambda: irls_tartan.main([str(d), str(yaml), graph, str(tmp_path / "o")]),
+                 lambda: tartan_odometry.run_sequence(str(d), str(yaml),
+                                                      str(tmp_path / "t.txt"))):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

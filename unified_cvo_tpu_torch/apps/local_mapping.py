@@ -22,8 +22,8 @@ Clouds come from the host frontend's port (frontend/pipeline.py, FAST
 selection) on the card; everything from the uploaded images to the map runs
 there but the pose graph's bookkeeping and marginal. `run_frames` is the
 loop itself over an iterable of (rgb, depth, timestamp); `run_sequence`
-reads the TUM layout and calls it. As in JAX the denoiser is OpenCV's:
-where OpenCV is absent (the card's machine), pass `denoise=False`.
+reads the TUM layout and calls it. As in JAX the denoiser is OpenCV's
+fastNlMeansDenoisingColored, computed by its exact port (ops/nlm_opencv.py).
 """
 
 from __future__ import annotations

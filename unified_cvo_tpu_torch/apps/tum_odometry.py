@@ -11,8 +11,8 @@ accumulated camera poses. Mirrors src/experiments/main_cvo_gpu_align_rgbd_raw_im
 Without `--device-frontend` (the JAX package's default) each cloud comes
 from the host frontend's port, frontend/pipeline.py::pointcloud_from_rgbd
 (FAST selection with the adaptive threshold, backprojection), on the card.
-Its denoiser is OpenCV's, as in JAX: where OpenCV is absent (the card's
-machine) pass `denoise=False`. `--device-frontend` builds each cloud with
+Its denoiser is OpenCV's, as in JAX, computed by its exact port on the card
+(ops/nlm_opencv.py). `--device-frontend` builds each cloud with
 frontend/device.py instead (NL-means, DSO selection, backprojection).
 
 `run_frames` is the loop itself over an iterable of (rgb, depth,

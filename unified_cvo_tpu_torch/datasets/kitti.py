@@ -1,9 +1,9 @@
 """KITTI odometry dataset handler (stereo pngs, velodyne bins, semantics).
 
 A copy of unified_cvo_tpu/datasets/kitti.py, kept here so that the port
-imports nothing of the JAX package, with two changes: cv2 is imported inside
-the methods that read PNGs, so importing the module needs no OpenCV; and
-velodyne scans are read with numpy.fromfile, without the JAX package's
+imports nothing of the JAX package, with two changes: PNGs are read by the
+port's own decoder (`datasets/png.py`, cv2.imread's bytes), so nothing here
+needs OpenCV; and velodyne scans are read with numpy.fromfile, without the JAX package's
 native prefetch loader (native/ is not ported).
 
 Reference: src/dataset_handler/KittiHandler.cpp. Sequence folder layout:
@@ -18,6 +18,7 @@ from typing import Optional
 
 import numpy as np
 
+from unified_cvo_tpu_torch.datasets import png
 from unified_cvo_tpu_torch.frontend.calibration import Calibration, read_calibration
 
 
@@ -65,11 +66,9 @@ class KittiHandler:
     def read_next_stereo(self):
         if self.curr_index >= len(self.names):
             return None
-        import cv2
-
         name = self.names[self.curr_index]
-        left = cv2.imread(os.path.join(self.folder, "image_2", name + ".png"))
-        right = cv2.imread(os.path.join(self.folder, "image_3", name + ".png"))
+        left = png.imread(os.path.join(self.folder, "image_2", name + ".png"))
+        right = png.imread(os.path.join(self.folder, "image_3", name + ".png"))
         if left is None or right is None:
             return None
         return left, right

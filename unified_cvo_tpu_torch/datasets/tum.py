@@ -6,8 +6,9 @@ Depth pngs are uint16 with scale 5000 (standard TUM; the calibration file's
 depth_scale field).
 
 A copy of unified_cvo_tpu/datasets/tum.py, kept here so that the port
-imports nothing of the JAX package; cv2 is imported inside the method that
-reads PNGs, so importing the module needs no OpenCV.
+imports nothing of the JAX package; PNGs are read by the port's own decoder
+(`datasets/png.py`, cv2.imread's bytes under both flags), so nothing here
+needs OpenCV.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import os
 
 import numpy as np
 
+from unified_cvo_tpu_torch.datasets import png
 from unified_cvo_tpu_torch.frontend.calibration import Calibration, read_calibration
 
 
@@ -42,13 +44,9 @@ class TumHandler:
     def read_next_rgbd(self):
         if self.curr_index >= len(self.rgb_names):
             return None
-        import cv2
-
-        rgb = cv2.imread(os.path.join(self.folder, self.rgb_paths[self.curr_index]))
-        depth = cv2.imread(
-            os.path.join(self.folder, self.depth_paths[self.curr_index]),
-            cv2.IMREAD_UNCHANGED,
-        )
+        rgb = png.imread(os.path.join(self.folder, self.rgb_paths[self.curr_index]))
+        depth = png.imread(os.path.join(self.folder, self.depth_paths[self.curr_index]),
+                           unchanged=True)
         if rgb is None or depth is None:
             return None
         return rgb, depth

@@ -15,11 +15,11 @@ camera frame x right / y down / z forward; right stereo camera at
 TUM depth pngs are uint16 depth * depth_scale.
 
 A copy of unified_cvo_tpu/utils/synth.py (numpy), kept here so that the port
-imports nothing of the JAX package, with two changes so that scenes render on
-a host without OpenCV: the texture's bilinear upsampling is numpy
-(`_resize_linear`, cv2.resize's INTER_LINEAR rule), and cv2 is imported only
-inside the PNG writers. The TartanAir writer is left out with the TartanAir
-reader (datasets/tartanair.py is not ported). The lidar writers also take
+imports nothing of the JAX package, with two changes so that scenes render
+and write on a host without OpenCV: the texture's bilinear upsampling is
+numpy (`_resize_linear`, cv2.resize's INTER_LINEAR rule), and the PNG
+writers go through the port's own encoder (`datasets/png.py`; cv2.imread
+reads back the same bytes). The lidar writers also take
 the scan's elevations (`fov_deg`), and the KITTI one can write height-band
 SemanticKITTI labels (`lidar_height_labels`); their defaults write what
 JAX's do.
@@ -33,6 +33,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from unified_cvo_tpu_torch.datasets import png
 from unified_cvo_tpu_torch.frontend.calibration import Calibration
 
 
@@ -258,7 +259,8 @@ def render_lidar_scan(scene: Sequence[Plane], T_wl: np.ndarray,
                       fov_deg: Tuple[float, float] = (-20.0, 8.0),
                       max_range: float = 60.0,
                       noise: float = 0.0,
-                      seed: int = 0) -> np.ndarray:
+                      seed: int = 0,
+                      velodyne_sweep: bool = False) -> np.ndarray:
     """Ray-cast one spherical lidar scan. Returns [N,4] (xyz in the SENSOR
     frame — same camera-style axes as render_frame: x right / y down /
     z forward — plus intensity sampled from the hit surface's texture).
@@ -266,10 +268,15 @@ def render_lidar_scan(scene: Sequence[Plane], T_wl: np.ndarray,
 
     The velodyne-style beam lattice: n_beams elevation rings over fov_deg
     (degrees, camera-y-down convention: negative = up) x n_az azimuth
-    steps around the y axis."""
+    steps around the y axis. Each beam sweeps azimuth from -pi, so its
+    quadrants (frontend/lidar.py::ring_ids) run 2, 1, 4, 3 and ring_ids
+    finds one ring; `velodyne_sweep` (the port's addition) sweeps the other
+    way, as a velodyne does: 3, 4, 1, 2, a 4 -> 1 wrap in every beam."""
     rng = np.random.default_rng(seed)
     el = np.deg2rad(np.linspace(fov_deg[0], fov_deg[1], n_beams))
     az = np.linspace(-np.pi, np.pi, n_az, endpoint=False)
+    if velodyne_sweep:
+        az = az[::-1]
     azg, elg = np.meshgrid(az, el)
     # sensor-frame directions: azimuth about +y (down), elevation toward +y
     d_sens = np.stack([
@@ -331,19 +338,21 @@ def write_kitti_lidar_sequence(out_dir: str, scene: Sequence[Plane],
                                n_beams: int = 32, n_az: int = 900,
                                noise: float = 0.0,
                                fov_deg: Tuple[float, float] = (-20.0, 8.0),
-                               labels: bool = False) -> np.ndarray:
+                               labels: bool = False,
+                               velodyne_sweep: bool = False) -> np.ndarray:
     """Render + write <out_dir>/velodyne/%06d.bin in the KITTI raw-velodyne
     frame (the KittiHandler reader rotates x<- -y, y<- -z, z<- x into the
     camera-style frame, datasets/kitti.py:100-117 — the inverse map is
     velo = (z_cam, -x_cam, -y_cam)). With `labels`, also
     <out_dir>/labels/%06d.label from lidar_height_labels (the port's
-    addition, like `fov_deg`)."""
+    addition, like `fov_deg` and `velodyne_sweep`, render_lidar_scan's)."""
     os.makedirs(os.path.join(out_dir, "velodyne"), exist_ok=True)
     if labels:
         os.makedirs(os.path.join(out_dir, "labels"), exist_ok=True)
     for i, T in enumerate(trajectory):
         scan = render_lidar_scan(scene, T, n_beams=n_beams, n_az=n_az,
-                                 fov_deg=fov_deg, noise=noise, seed=i)
+                                 fov_deg=fov_deg, noise=noise, seed=i,
+                                 velodyne_sweep=velodyne_sweep)
         velo = np.stack([scan[:, 2], -scan[:, 0], -scan[:, 1], scan[:, 3]],
                         axis=1).astype(np.float32)
         velo.tofile(os.path.join(out_dir, "velodyne", f"{i:06d}.bin"))
@@ -399,8 +408,6 @@ def write_kitti_sequence(out_dir: str, scene: Sequence[Plane],
     """Render + write <out_dir>/{image_2,image_3}/%06d.png + cvo_calib.txt
     (the KittiHandler layout, datasets/kitti.py). Returns the ground-truth
     camera-to-world poses [N,4,4]."""
-    import cv2
-
     os.makedirs(os.path.join(out_dir, "image_2"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "image_3"), exist_ok=True)
     with open(os.path.join(out_dir, "cvo_calib.txt"), "w") as f:
@@ -408,8 +415,8 @@ def write_kitti_sequence(out_dir: str, scene: Sequence[Plane],
                 f"{abs(calib.baseline)} {calib.cols} {calib.rows}\n")
     for i, T in enumerate(trajectory):
         left, right, depth = render_stereo(scene, calib, T)
-        cv2.imwrite(os.path.join(out_dir, "image_2", f"{i:06d}.png"), left)
-        cv2.imwrite(os.path.join(out_dir, "image_3", f"{i:06d}.png"), right)
+        png.imwrite(os.path.join(out_dir, "image_2", f"{i:06d}.png"), left)
+        png.imwrite(os.path.join(out_dir, "image_3", f"{i:06d}.png"), right)
         if depths_out is not None:
             depths_out.append(depth)
     return trajectory.copy()
@@ -442,8 +449,6 @@ def write_tum_sequence(out_dir: str, scene: Sequence[Plane],
     """Render + write <out_dir>/{rgb,depth}/*.png, assoc.txt, cvo_calib.txt
     (the TumHandler layout, datasets/tum.py) from `tum_frames`. Returns
     ground truth poses."""
-    import cv2
-
     os.makedirs(os.path.join(out_dir, "rgb"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, "depth"), exist_ok=True)
     with open(os.path.join(out_dir, "cvo_calib.txt"), "w") as f:
@@ -451,7 +456,29 @@ def write_tum_sequence(out_dir: str, scene: Sequence[Plane],
                 f"{calib.depth_scale} {calib.cols} {calib.rows}\n")
     with open(os.path.join(out_dir, "assoc.txt"), "w") as assoc:
         for bgr, d16, ts in tum_frames(scene, trajectory, calib, depth_noise, seed):
-            cv2.imwrite(os.path.join(out_dir, "rgb", f"{ts}.png"), bgr)
-            cv2.imwrite(os.path.join(out_dir, "depth", f"{ts}.png"), d16)
+            png.imwrite(os.path.join(out_dir, "rgb", f"{ts}.png"), bgr)
+            png.imwrite(os.path.join(out_dir, "depth", f"{ts}.png"), d16)
             assoc.write(f"{ts} rgb/{ts}.png {ts} depth/{ts}.png\n")
+    return trajectory.copy()
+
+
+def write_tartan_sequence(out_dir: str, scene: Sequence[Plane],
+                          trajectory: np.ndarray) -> np.ndarray:
+    """Render + write the TartanAir on-disk layout
+    (<out_dir>/image_left/NNNNNN_left.png +
+    depth_left/NNNNNN_left_depth.npy, datasets/tartanair.py) at the
+    handler's fixed 640x480 fx=320 intrinsics."""
+    from unified_cvo_tpu_torch.datasets.tartanair import TARTANAIR_K
+
+    calib = Calibration(TARTANAIR_K.copy(), depth_scale=1.0,
+                        cols=640, rows=480)
+    os.makedirs(os.path.join(out_dir, "image_left"), exist_ok=True)
+    os.makedirs(os.path.join(out_dir, "depth_left"), exist_ok=True)
+    for i, T in enumerate(trajectory):
+        bgr, depth = render_frame(scene, calib, T)
+        png.imwrite(os.path.join(out_dir, "image_left", f"{i:06d}_left.png"),
+                    bgr)
+        np.save(os.path.join(out_dir, "depth_left",
+                             f"{i:06d}_left_depth.npy"),
+                depth.astype(np.float32))
     return trajectory.copy()
