@@ -71,7 +71,17 @@ kernel of each path was launched:
                    against CPU), tartan_odometry.run_sequence at its
                    defaults over 2 pairs, irls_tum.main on 5 PNG frames
                    on the 'ell' backend (select at K = 128), irls_tartan
-                   --translation-only and covis_tartan, phase 14.
+                   --translation-only and covis_tartan, phase 14;
+  KITTI stereo     phase 9's frames written as a KITTI sequence of PNGs:
+  host             the native census-SGM disparity on the card against the
+                   C++ library of native/ (built here with g++, called by
+                   ctypes: equal bit for bit), against the CPU and twice;
+                   L1 on its speckle links; Canny and EDGES_ONLY card
+                   against CPU, components8 against its plain version;
+                   kitti_odometry.run_sequence at its defaults (NL-means,
+                   FAST, native disparity) over 2 pairs and one --semantic
+                   pair; irls_kitti, depth_filtering and indicator_sweep,
+                   phase 15.
 
 Phase 2c also holds flow_rows and step_uncached (the entry points of
 pallas_ell.flow_stats_ell_fused and step_coeffs_ell_fused, which no align
@@ -113,16 +123,21 @@ prints no result line.
 
 `--slam-only` builds, then runs phases 11-12 alone and prints their JSON
 line, no result line. `--lidar-only` does the same for phase 13, and
-`--ba-only` for phase 14. Phase 12d also runs its CG loop three times on
-the card and prints their largest gap.
+`--ba-only` for phase 14, `--stereo-only` for phase 15. Phase 12d also
+runs its CG loop three times on the card and fails unless they are
+bit-equal. `--assembly-compare DIR` times that loop three times and phase
+8's IRLS BA twice with the package in DIR and with this tree's, in turns
+(DIR, this, this, DIR), each in a process of its own, and reports whether
+each tree's runs are bit-equal.
 
 `--posegraph-ablation` runs phase 12d's incremental run, card against CPU,
 with each subgraph solved in its own frame and in the world frame.
 
 Usage: python3 chip_smoke.py [--frames 4] [--dense-ablation | --select-ablation |
                              --ell-ablation | --posegraph-ablation |
-                             --compare-tree DIR | --slam-only | --lidar-only |
-                             --ba-only]
+                             --compare-tree DIR | --assembly-compare DIR |
+                             --slam-only | --lidar-only | --ba-only |
+                             --stereo-only]
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails. The last line of stdout is the result object.
 """
@@ -1178,6 +1193,54 @@ def compare_trees(other, frames):
             for r in runs))
 
 
+def assembly_times(tree):
+    """--assembly-times TREE: with the package found first in TREE, phase
+    12d's CG loop three times (CUDA events, each after a warm-up solve) and
+    phase 8's IRLS BA twice on the device engine (host clock): the times,
+    and whether the runs are bit-equal. One JSON line."""
+    sys.path.insert(0, tree)
+    import unified_cvo_tpu_torch
+    from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
+    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH as params
+    from unified_cvo_tpu_torch.models import irls
+    from unified_cvo_tpu_torch.models import posegraph as pgm
+
+    dev = torch.device("cuda")
+    args, _ = pg_loop_args()
+    cg = [event_ms(lambda: pgm.optimize_pose_graph(*args, iters=15, solver="cg",
+                                                   device=dev)[0]) for _ in range(3)]
+    _, _, init, edges, piv, clouds = ba_inputs(f2f, dev)
+    ba = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        poses, _ = irls.irls_solve(clouds, init, edges, piv, params, engine="device", device=dev)
+        torch.cuda.synchronize()
+        ba.append((time.perf_counter() - t0, poses))
+    print(json.dumps({
+        "package": unified_cvo_tpu_torch.__file__, "cg_ms": [ms for ms, _ in cg],
+        "cg_bit_equal": all(torch.equal(o, cg[0][1]) for _, o in cg),
+        "cg_max_abs": max(float((o - cg[0][1]).abs().max()) for _, o in cg),
+        "irls_s": [s for s, _ in ba], "irls_bit_equal": bool(np.array_equal(*[p for _, p in ba])),
+        "irls_max_abs": float(np.abs(ba[0][1] - ba[1][1]).max())}), flush=True)
+
+
+def compare_assembly(other):
+    """--assembly-compare DIR: assembly_times of the package in DIR and of
+    this tree's, each in a process of its own, in the order DIR, this, this,
+    DIR, on one card."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    for tree in (other, here, here, other):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--assembly-times",
+                              os.path.abspath(tree)], capture_output=True, text=True,
+                             timeout=900)
+        if out.returncode != 0:
+            raise SystemExit(f"assembly times of {tree} failed ({out.returncode}):\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        log(f"tree {tree}: " + out.stdout.strip().splitlines()[-1])
+
+
 def reset_launch_counts():
     from unified_cvo_tpu_torch.ops import dense
     from unified_cvo_tpu_torch.ops import ell as ell_ops
@@ -1424,21 +1487,12 @@ def ate(poses, true):
                                   for p, t in zip(poses, true)])))
 
 
-def irls_phase(f2f, dev, smi, results, floor):
-    """Phase 8: multiframe IRLS BA. 8 frames of the bench scene at 32768
-    points, chain and skip-one edges (13), pivot frame 0, initial poses the
-    true ones moved by seeded twists of 0.02 rad and 0.1 m; the auto backend
-    ('ell': select at K = 128, P = 32, skin 0, once per edge per outer
-    iteration) on both engines, which must agree (rtol 1e-4, atol 1e-4) and
-    lower the ATE. Then select against select_plain on one edge's grid
-    inputs at K = 128 and 192, P = 32 (torch.equal, two launches
-    bit-equal, timed beside its bound), the dense backend on 4 frames of
-    4096 points, and block PCG against the dense solve on test_irls.py's
-    120-frame chain."""
-    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH as params
+def ba_inputs(f2f, dev):
+    """Phase 8's BA: BA_FRAMES frames of the bench scene at BA_POINTS points,
+    their true poses, the initial poses (the true ones moved by seeded
+    twists), the chain and skip-one edges, the pivot flags and the stacked
+    clouds on dev."""
     from unified_cvo_tpu_torch.models import irls
-    from unified_cvo_tpu_torch.ops import neighbors as nbr
-    from unified_cvo_tpu_torch.ops import select as sel
     from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
 
     frames_np, T_true = f2f.make_sequence(BA_POINTS, BA_FRAMES - 1)
@@ -1457,10 +1511,31 @@ def irls_phase(f2f, dev, smi, results, floor):
     piv = [True] + [False] * (BA_FRAMES - 1)
     clouds = irls.stack_clouds([make_pointcloud(f, bucket=BA_POINTS, device=dev)
                                 for f in frames_np])
+    return frames_np, true, init, edges, piv, clouds
+
+
+def irls_phase(f2f, dev, smi, results, floor):
+    """Phase 8: multiframe IRLS BA. 8 frames of the bench scene at 32768
+    points, chain and skip-one edges (13), pivot frame 0, initial poses the
+    true ones moved by seeded twists of 0.02 rad and 0.1 m; the auto backend
+    ('ell': select at K = 128, P = 32, skin 0, once per edge per outer
+    iteration) on both engines, which must agree (rtol 1e-4, atol 1e-4) and
+    lower the ATE. Then select against select_plain on one edge's grid
+    inputs at K = 128 and 192, P = 32 (torch.equal, two launches
+    bit-equal, timed beside its bound), the dense backend on 4 frames of
+    4096 points, and block PCG against the dense solve on test_irls.py's
+    120-frame chain."""
+    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH as params
+    from unified_cvo_tpu_torch.models import irls
+    from unified_cvo_tpu_torch.ops import neighbors as nbr
+    from unified_cvo_tpu_torch.ops import select as sel
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    frames_np, true, init, edges, piv, clouds = ba_inputs(f2f, dev)
     backend = irls.resolve_irls_backend(params, BA_POINTS)
     if backend != "ell":
         raise SystemExit(f"IRLS auto backend at {BA_POINTS} points resolved to {backend}")
-    out = {}
+    out, first = {}, None
     for engine in ("device", "host", "device"):     # the first device solve warms up
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -1468,8 +1543,11 @@ def irls_phase(f2f, dev, smi, results, floor):
                                       device=dev)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        if engine == "device" and first is None:
+            first = poses
         out[engine] = (poses, hist, sec, sel.select.launches)
     poses_d, hist_d, sec_d, sel_d = out["device"]
+    rerun_gap = float(np.abs(poses_d - first).max())
     poses_h, hist_h, sec_h, sel_h = out["host"]
     outer = hist_d[0]["iter"]
     ate0, ate_d, ate_h = ate(init, true), ate(poses_d, true), ate(poses_h, true)
@@ -1481,7 +1559,9 @@ def irls_phase(f2f, dev, smi, results, floor):
     log(f"  host engine: {len(hist_h)} solves, last iteration {hist_h[-1]['iter'] if hist_h else None}, "
         f"{sec_h:.2f} s, select launches {sel_h}")
     log(f"  ATE before {ate0:.6f} m, after: device engine {ate_d:.6f} m, host engine "
-        f"{ate_h:.6f} m; engines max abs {float(np.abs(poses_d - poses_h).max()):.3g}")
+        f"{ate_h:.6f} m; engines max abs {float(np.abs(poses_d - poses_h).max()):.3g}; two "
+        f"device-engine runs {'bit-equal' if np.array_equal(first, poses_d) else 'apart by'} "
+        f"{rerun_gap:.3g}")
     if sel_d != len(edges) * outer:
         raise SystemExit(f"IRLS device engine: {sel_d} select launches for {outer} outer "
                          f"iterations of {len(edges)} edges")
@@ -1493,7 +1573,8 @@ def irls_phase(f2f, dev, smi, results, floor):
     ba = {"frames": BA_FRAMES, "points": BA_POINTS, "edges": len(edges), "outer": outer,
           "s_device": sec_d, "ms_per_outer": 1e3 * sec_d / outer, "s_host": sec_h,
           "host_reads": hist_d[0]["host_reads"], "overflow": hist_d[0]["overflow"],
-          "ate_before": ate0, "ate_after": ate_d, "select_launches": sel_d}
+          "ate_before": ate0, "ate_after": ate_d, "select_launches": sel_d,
+          "device_runs_max_abs": rerun_gap}
 
     # select at the BA's list shape, on edge (0, 1) at the initial poses
     c1 = irls._frame(clouds, 0).transformed(torch.from_numpy(init[0][:, :3]).to(dev),
@@ -1604,10 +1685,17 @@ TUM_CAMERA = {"fx": 525.0, "cx": 319.5, "cy": 239.5, "depth_scale": 5000.0,
 # python tests/test_torch_odometry.py stereo --spread --port` (ROADMAP section
 # 3). The card's run must make a number of builds seen there, and end within
 # that number's spread of JAX's pose.
+# Phase 15c's first pair (the host frontend at its defaults, the same frames)
+# misses too, in both its runs (with and without --semantic: the same clouds
+# but for the labels); from `JAX_PLATFORMS=cpu python tests/test_torch_stereo_apps.py
+# --chip` and `... tests/test_torch_odometry.py stereo_host --spread --port`.
+_MISS_15C = {0: (0.151819, (0.00154512, 0.009758715, -0.002013697, 0.009442673,
+                            0.084073785, 0.220200783), {3: 6.57e-3, 4: 3.56e-3})}
 JAX_MISSES = {
     "phase 9": {0: (0.074307, (-1.614563080e-04, 9.696566500e-03, -7.273391238e-04,
                                4.112411290e-03, 3.883998143e-03, 2.759748101e-01),
-                    {2: 8.49e-4, 3: 0.0167})}}
+                    {2: 8.49e-4, 3: 0.0167})},
+    "phase 15c": _MISS_15C, "phase 15c semantic": _MISS_15C}
 DISP_TOL = 1e-5              # disparity, card against CPU (abs; masks equal)
 CLOUD_TOL = 1e-5             # cloud xyz (rtol and atol) and features (abs)
 NLM_TOL = 1e-3               # NL-means output on the 0-255 scale (abs)
@@ -1662,14 +1750,16 @@ def rgbd_frames(poses=range(RGBD_FRAMES)):
     return calib, frames, traj
 
 
-def profiled(fn):
+def profiled(fn, cpu=True):
     """(device kernels and copies, device busy ms) of one call of fn after a
-    warm-up call, from torch.profiler."""
+    warm-up call, from torch.profiler; `cpu=False` records the device's
+    activity alone (cheaper to trace for calls of ~20000 launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     n, busy_us = 0, 0.0
@@ -2521,15 +2611,13 @@ def posegraph_ablation():
             f"against CPU {gap:.3g}")
 
 
-def posegraph_part(dev, smi):
-    """Phase 12d: the pose graph, card against CPU (poses within 1e-4):
-    test_posegraph_bki.py's 200-keyframe loop solved by block PCG (15
-    iterations), and PG_INCREMENTAL keyframes in incremental mode (its
-    odometry with a skip-2 factor every 25 keyframes)."""
-    from unified_cvo_tpu_torch.models import posegraph as pgm
+def pg_loop_args():
+    """Phase 12d's CG loop (test_posegraph_bki.py's): PG_LOOP keyframes of
+    seeded SE(3) steps, odometry factors with noise and three loop factors,
+    keyframe 0 fixed. Returns (optimize_pose_graph's first six arguments,
+    the true poses)."""
     from unified_cvo_tpu_torch.ops import lie
 
-    cpu = torch.device("cpu")
     rng = np.random.default_rng(0)
 
     def rand_se3(scale):
@@ -2553,8 +2641,19 @@ def posegraph_part(dev, smi):
         init.append(init[-1] @ Zs[k])
     fixed = np.zeros(PG_LOOP, np.float32)
     fixed[0] = 1.0
-    args = (np.stack(init).astype(np.float32), np.asarray(fi), np.asarray(fj),
-            np.stack(Zs).astype(np.float32), np.ones(len(Zs), np.float32), fixed)
+    return (np.stack(init).astype(np.float32), np.asarray(fi), np.asarray(fj),
+            np.stack(Zs).astype(np.float32), np.ones(len(Zs), np.float32), fixed), true
+
+
+def posegraph_part(dev, smi):
+    """Phase 12d: the pose graph, card against CPU (poses within 1e-4):
+    test_posegraph_bki.py's 200-keyframe loop solved by block PCG (15
+    iterations), and PG_INCREMENTAL keyframes in incremental mode (its
+    odometry with a skip-2 factor every 25 keyframes)."""
+    from unified_cvo_tpu_torch.models import posegraph as pgm
+
+    cpu = torch.device("cpu")
+    args, true = pg_loop_args()
 
     def solve(d):
         return pgm.optimize_pose_graph(*args, iters=15, solver="cg", device=d)[0]
@@ -2562,9 +2661,11 @@ def posegraph_part(dev, smi):
     ms_cg, out_k = event_ms(lambda: solve(dev))
     out_c = solve(cpu)
     cg_err = float((out_k.cpu() - out_c).abs().max())
-    # run to run: the same solve twice more on the card
+    # run to run: the same solve twice more on the card, bit for bit (the
+    # assembly's segment sums run in a fixed order)
     reruns = [solve(dev) for _ in range(2)]
     rerun_gap = max(float((r - out_k).abs().max()) for r in reruns)
+    rerun_equal = all(torch.equal(r, out_k) for r in reruns)
     drift = [float(np.linalg.norm(p[:3, 3] - true[-1][:3, 3])) for p in (args[0][-1],
                                                                           out_k.cpu().numpy()[-1])]
 
@@ -2572,18 +2673,21 @@ def posegraph_part(dev, smi):
     pc, _, inc_cpu_s = incremental_chain(cpu)
     inc_err = chain_gap(pk, pc)
     row = {"cg_loop": {"keyframes": PG_LOOP, "ms": ms_cg, "max_abs_vs_cpu": cg_err,
-                       "max_abs_run_to_run": rerun_gap, "drift_before_after_m": drift},
+                       "max_abs_run_to_run": rerun_gap, "bit_equal_runs": rerun_equal,
+                       "drift_before_after_m": drift},
            "incremental": {"keyframes": PG_INCREMENTAL, "ms_a_keyframe": 1e3 * inc_s /
                            (PG_INCREMENTAL - 1), "cpu_ms_a_keyframe": 1e3 * inc_cpu_s /
                            (PG_INCREMENTAL - 1), "max_active": max(active),
                            "max_abs_vs_cpu": inc_err}}
     log(f"phase 12d pose graph: {PG_LOOP}-keyframe loop by CG, {ms_cg:.1f} ms a solve (CUDA "
-        f"events), card against CPU {cg_err:.3g}, three card runs apart by {rerun_gap:.3g}, "
+        f"events), card against CPU {cg_err:.3g}, three card runs apart by {rerun_gap:.3g} "
+        f"({'bit-equal' if rerun_equal else 'NOT bit-equal'}), "
         f"drift {drift[0]:.3f} -> {drift[1]:.4f} m; "
         f"{PG_INCREMENTAL} keyframes incremental: {row['incremental']['ms_a_keyframe']:.2f} ms "
         f"a keyframe (CPU {row['incremental']['cpu_ms_a_keyframe']:.2f}), active subgraph <= "
         f"{max(active)}, card against CPU {inc_err:.3g} ({smi})")
-    if not (cg_err <= PG_TOL and inc_err <= PG_TOL and drift[1] < 0.2 * drift[0] + 1e-3):
+    if not (cg_err <= PG_TOL and inc_err <= PG_TOL and drift[1] < 0.2 * drift[0] + 1e-3
+            and rerun_equal):
         raise SystemExit(f"phase 12d: {row}")
     return row
 
@@ -3365,6 +3469,458 @@ def ba_phase(dev, smi, results):
     return out
 
 
+# ---- phase 15: the KITTI stereo host frontend (native census-SGM, Canny), the stereo apps
+# KITTI_COLOR_BENCH (CvoParams' defaults with the intensity channel) at bench.py's cap
+STEREO_HOST_YAML = "is_using_intensity: 1\nMAX_ITER: 1500\n"
+STEREO_CLASSES = 19                  # 15c's --semantic pair: 4 height bands of 19 classes
+# 15d: irls_kitti on phase 14d's IRLS YAML at a voxel of 0.3 m (test_apps_drivers.py's
+# short schedule, voxel 0.3, raised the error of these frames on the CPU at half size)
+IRLS_KITTI_YAML = IRLS_TUM_YAML.replace(f"voxel_size: {IRLS_TUM_VOXEL}\n", "voxel_size: 0.3\n")
+NATIVE_CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
+
+
+def native_cpp_build():
+    """Start g++ on native/cvo_native.cpp and cvo_io.cpp into build/native/
+    (never into native/), keyed by a hash of the sources and flags. Returns
+    (the library's path, the compiler process or None if it is built)."""
+    import hashlib
+    import os
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    srcs = [root / "native" / "cvo_native.cpp", root / "native" / "cvo_io.cpp"]
+    h = hashlib.sha256(" ".join(NATIVE_CXX_FLAGS).encode())
+    for s in srcs:
+        h.update(s.read_bytes())
+    out = root / "build" / "native" / f"libcvo_native-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out, None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    return out, (subprocess.Popen(["g++", *NATIVE_CXX_FLAGS, "-o", str(tmp), *map(str, srcs)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                 tmp)
+
+
+def native_cpp(build):
+    """The C++ the port's native disparity is held to: the library of
+    native_cpp_build (waited for), its cvo_sgm_disparity declared here as
+    the JAX package declares it."""
+    import ctypes
+    import os
+
+    out, pending = build
+    if pending is not None:
+        proc, tmp = pending
+        log_, _ = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise SystemExit(f"phase 15a: g++ failed ({proc.returncode}):\n{log_}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    fn = lib.cvo_sgm_disparity
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.POINTER(ctypes.c_float)]
+
+    def sgm(left, right, max_disp=128, p1=10, p2=120, uniqueness=0.1):
+        left = np.ascontiguousarray(left, np.uint8)
+        right = np.ascontiguousarray(right, np.uint8)
+        h_, w_ = left.shape
+        disp = np.empty((h_, w_), np.float32)
+        rc = fn(left.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                right.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h_, w_, max_disp, p1, p2,
+                ctypes.c_float(uniqueness), disp.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+        if rc != 0:
+            raise SystemExit(f"phase 15a: cvo_sgm_disparity returned {rc}")
+        return disp
+    return sgm
+
+
+def write_stereo_host_inputs(root):
+    """Phase 9's rendered frames (KITTI seq-00's camera at 1241 x 376) as a
+    KITTI sequence in `root`: image_2 / image_3 PNGs written by the port's
+    writer, cvo_calib.txt, semantic distributions for frames 0-1 (one-hot,
+    4 height bands of STEREO_CLASSES classes) and the phase's YAML. Returns
+    (the frames, {label: (sequence dir, YAML path, run_sequence keywords,
+    trajectory)})."""
+    import os
+
+    from unified_cvo_tpu_torch.datasets import png
+
+    calib, frames, traj = stereo_frames()
+    seq = os.path.join(root, "kitti_stereo")
+    for sub in ("image_2", "image_3", "image_semantic"):
+        os.makedirs(os.path.join(seq, sub))
+    c = KITTI00
+    with open(os.path.join(seq, "cvo_calib.txt"), "w") as f:
+        f.write(f"{c['fx']!r} {c['fx']!r} {c['cx']!r} {c['cy']!r} {c['baseline']!r} "
+                f"{c['cols']} {c['rows']}\n")
+    for i, (left, right) in enumerate(frames):
+        png.imwrite(os.path.join(seq, "image_2", f"{i:06d}.png"), left)
+        png.imwrite(os.path.join(seq, "image_3", f"{i:06d}.png"), right)
+    band = np.minimum(np.arange(c["rows"]) * 4 // c["rows"], 3)
+    sem = np.ascontiguousarray(np.broadcast_to(
+        np.eye(STEREO_CLASSES, dtype=np.float32)[band][:, None, :],
+        (c["rows"], c["cols"], STEREO_CLASSES)))
+    for i in range(2):
+        sem.tofile(os.path.join(seq, "image_semantic", f"{i:06d}.bin"))
+    yaml = os.path.join(root, "kitti_stereo.yaml")
+    with open(yaml, "w") as f:
+        f.write(STEREO_HOST_YAML)
+    return frames, {"phase 15c": (seq, yaml, {}, traj),
+                    "phase 15c semantic": (seq, yaml, {"semantic": True, "max_frames": 2},
+                                           traj[:2])}
+
+
+def kernel_row(name, source, replaces, kfn, pfn, nbytes, launches):
+    """A kernels-line row of a hand kernel with no Pallas counterpart: card ms
+    (CUDA events, device_ms), plain ms on the card, the byte bound, one
+    device kernel count a call (graph nodes)."""
+    ms = device_ms(kfn)
+    plain_ms, _ = event_ms(pfn)
+    b_ms, b_by = bound(nbytes, 0)
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches_per_call": kernels_per_call(kfn)}
+
+
+def disparity_checks(frames, cxx, dev, smi, results):
+    """15a: frame 0's native disparity at 1241 x 376, D 128 on the card
+    against the C++ library (np.array_equal), the port's CPU call and a
+    second card launch (both bit-equal); its ms, launches and the region
+    speckle's share; L1 at this size against its plain version."""
+    from unified_cvo_tpu_torch.frontend import device as fe
+    from unified_cvo_tpu_torch.frontend import stereo
+    from unified_cvo_tpu_torch.ops import lidar as lops
+    from unified_cvo_tpu_torch.ops import sgm
+
+    left, right = frames[0]
+    t0 = time.perf_counter()
+    cpp = native_cpp(cxx)
+    build_s = time.perf_counter() - t0             # the wait for g++, started earlier
+    gl, gr = (fe.device_gray_and_gradients(torch.from_numpy(im))[0].numpy().astype(np.uint8)
+              for im in (left, right))
+    t0 = time.perf_counter()
+    want = cpp(gl, gr)
+    cpp_s = time.perf_counter() - t0
+    lk, rk = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+    t0 = time.perf_counter()
+    runs = [stereo.compute_disparity(lk, rk, backend="native").cpu() for _ in range(2)]
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = stereo.compute_disparity(left, right, backend="native", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not np.array_equal(runs[0].numpy(), want):
+        raise SystemExit(f"phase 15a: the card's native disparity differs from the C++ "
+                         f"library's at {int((runs[0].numpy() != want).sum())} pixels")
+    if not (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], cpu)):
+        raise SystemExit("phase 15a: the native disparity differs between two card launches "
+                         "or from the port's CPU call")
+    t0 = time.perf_counter()
+    ms, _ = event_ms(lambda: stereo.compute_disparity(lk, rk, backend="native"))
+    n_dev, busy = profiled(lambda: stereo.compute_disparity(lk, rk, backend="native"),
+                           cpu=False)
+    timing_s = time.perf_counter() - t0
+    glk, grk = torch.from_numpy(gl).to(dev), torch.from_numpy(gr).to(dev)
+    med = sgm._sgm_until_median(glk, grk, 128, 10, 120, np.float32(1.0) + np.float32(0.1))
+    speckle_ms, _ = event_ms(lambda: sgm.speckle_regions(med))
+    removed = int(((med > 0) & (runs[0].to(dev) <= 0)).sum())
+    lv, lh = sgm.speckle_links(med)
+    labels = [lops.components(lv, lh) for _ in range(2)]
+    if not (torch.equal(labels[0], labels[1])
+            and torch.equal(labels[0], lops.components_plain(lv, lh))):
+        raise SystemExit("phase 15a: L1 on the speckle's links differs from its plain version "
+                         "or between two launches")
+    n = med.numel()
+    results["lidar_components (stereo speckle)"] = kernel_row(
+        "lidar_components (stereo speckle)", "unified_cvo_tpu_torch/csrc/lidar.cu",
+        "native/cvo_native.cpp:480-516 (cvo_sgm_disparity's speckle flood fill on the host; "
+        "no Pallas kernel)", lambda: lops.components(lv, lh),
+        lambda: lops.components_plain(lv, lh), lv.numel() + lh.numel() + 4 * n, None)
+    results["lidar_components (stereo speckle)"]["shape"] = list(med.shape)
+    row = {"valid": float((want > 0).mean()), "ms": ms, "launches": n_dev,
+           "device_busy_ms": busy, "speckle_ms": speckle_ms, "speckle_share": speckle_ms / ms,
+           "speckle_removed": removed, "cpp_build_wait_s": build_s, "cpp_s": cpp_s,
+           "card_two_runs_s": card_s, "cpu_s": cpu_s, "timing_s": timing_s}
+    k = results["lidar_components (stereo speckle)"]
+    log(f"phase 15a native disparity ({left.shape[1]} x {left.shape[0]}, D 128): card equal "
+        f"to the C++ library "
+        f"(waited {build_s:.1f} s for g++, run {cpp_s:.2f} s host), to the port's CPU call "
+        f"({cpu_s:.1f} s) and between two card launches ({card_s:.1f} s); timed and profiled "
+        f"in {timing_s:.1f} s; {row['valid']:.4f} valid; "
+        f"{ms:.2f} ms (CUDA events), {n_dev} device kernels+copies a call, busy {busy:.2f} ms; "
+        f"region speckle {speckle_ms:.2f} ms ({100 * speckle_ms / ms:.1f}%), {removed} pixels "
+        f"removed; L1 at {tuple(med.shape)} equal to its plain version, two launches "
+        f"bit-equal: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.6f} "
+        f"ms ({k['bound_by']}), {k['launches_per_call']} device kernels a call ({smi})")
+    return row
+
+
+def canny_checks(frames, calib, dev, smi, results):
+    """15b: components8 against components8_plain on the card (equal labels,
+    two launches bit-equal), Canny card against CPU (equal), EDGES_ONLY uv
+    and gtype card against CPU with one seed (equal), and one
+    pointcloud_from_stereo(method=EDGES_ONLY) on the card: components8
+    launched once."""
+    from unified_cvo_tpu_torch.frontend import device as fe
+    from unified_cvo_tpu_torch.frontend import image, pipeline
+    from unified_cvo_tpu_torch.frontend import selector as sel
+    from unified_cvo_tpu_torch.ops import canny
+
+    left, right = frames[0]
+    gray = fe.device_gray_and_gradients(torch.from_numpy(left))[0]
+    gk = gray.to(dev)
+    cand, _ = canny.canny_candidates(gk)
+    labels = [canny.components8(cand) for _ in range(2)]
+    if not (torch.equal(labels[0], labels[1])
+            and torch.equal(labels[0], canny.components8_plain(cand))):
+        raise SystemExit("phase 15b: components8 differs from its plain version or between "
+                         "two launches")
+    edges = canny.canny(gk)
+    if not torch.equal(edges.cpu(), canny.canny(gray)):
+        raise SystemExit("phase 15b: Canny on the card differs from the CPU's")
+    picks = [sel.select_points(image.make_raw_image(left, denoise=False, device=d), "stereo",
+                               sel.EDGES_ONLY, seed=0) for d in (dev, "cpu")]
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(*picks)):
+        raise SystemExit("phase 15b: the EDGES_ONLY selection on the card differs from the "
+                         "CPU's")
+    canny.reset_launches()
+    cloud = pipeline.pointcloud_from_stereo(left, right, calib, method=sel.EDGES_ONLY,
+                                            denoise=False, device=dev)
+    launches = canny.components8.launches
+    if launches != 1:
+        raise SystemExit(f"phase 15b: an EDGES_ONLY cloud launched components8 {launches} "
+                         f"times, not once")
+    canny_ms, _ = event_ms(lambda: canny.canny(gk))
+    n = cand.numel()
+    results["components8"] = kernel_row(
+        "components8", "unified_cvo_tpu_torch/csrc/image.cu",
+        "unified_cvo_tpu/frontend/selector.py:188 (cv2.Canny's hysteresis on the host; no "
+        "Pallas kernel)", lambda: canny.components8(cand),
+        lambda: canny.components8_plain(cand), n + 4 * n, launches)
+    results["components8"]["shape"] = list(cand.shape)
+    k = results["components8"]
+    row = {"candidates": int(cand.sum()), "edges": int(edges.sum()),
+           "edges_only_points": len(picks[1][0]), "cloud_points": int(cloud.mask.sum()),
+           "canny_ms": canny_ms}
+    log(f"phase 15b Canny ({left.shape[1]} x {left.shape[0]}): {row['candidates']} "
+        f"candidates, {row['edges']} edge "
+        f"pixels, card equal to the CPU; EDGES_ONLY {row['edges_only_points']} picks, card "
+        f"equal to the CPU; Canny {canny_ms:.2f} ms (CUDA events); components8 equal to its "
+        f"plain version, two launches bit-equal, launched once by an EDGES_ONLY cloud "
+        f"({row['cloud_points']} points): {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+        f"bound {k['bound_ms']:.6f} ms ({k['bound_by']}), {k['launches_per_call']} device "
+        f"kernels a call ({smi})")
+    return row
+
+
+def irls_kitti_part(seq, gt, root, dev, smi):
+    """15d: irls_kitti.main on the 3 frames (edges 0-1, 1-2, 0-2, the tracking
+    trajectory the rendered one moved by seeded noise, IRLS_KITTI_YAML): the
+    ATE and the largest pose error must fall."""
+    import os
+
+    from unified_cvo_tpu_torch.apps import irls_kitti
+    from unified_cvo_tpu_torch.datasets.graph import write_graph_file
+    from unified_cvo_tpu_torch.utils import metrics
+
+    init = perturbed(gt, np.random.default_rng(15))
+    yaml, graph = os.path.join(root, "irls_kitti.yaml"), os.path.join(root, "graph.txt")
+    with open(yaml, "w") as f:
+        f.write(IRLS_KITTI_YAML)
+    write_graph_file(graph, [0, 1, 2], [(0, 1), (1, 2), (0, 2)])
+    track = kitti_rows(os.path.join(root, "track.txt"), init)
+    gt_path = kitti_rows(os.path.join(root, "gt.txt"), gt)
+    prefix = os.path.join(root, "irls_kitti")
+    msgs = []
+    t0 = time.perf_counter()
+    rc = irls_kitti.main([seq, yaml, graph, prefix, track, gt_path], device=dev,
+                         log=msgs.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = np.loadtxt(prefix + "_after.txt").reshape(-1, 3, 4)
+    after = np.concatenate([after, np.tile([[[0, 0, 0, 1.0]]], (len(after), 1, 1))], 1)
+    ate0, ate1 = metrics.ate_rmse(gt, init), metrics.ate_rmse(gt, after)
+    err0 = max(pose_gap(g, p) for g, p in zip(gt, init))
+    err1 = max(pose_gap(g, p) for g, p in zip(gt, after))
+    points = [int(m.split(": ")[1].split()[0]) for m in msgs if str(m).startswith("frame ")]
+    row = {"s": seconds, "points": points, "ate_before": ate0, "ate_after": ate1,
+           "pose_error_before": err0, "pose_error_after": err1,
+           "solve": [m for m in msgs if str(m).startswith("device solve")]}
+    log(f"phase 15d irls_kitti (3 frames from PNGs, 3 edges, voxel 0.3: {points} points) "
+        f"{seconds:.2f} s, ATE {ate0:.6f} -> {ate1:.6f} m, largest pose error {err0:.6f} -> "
+        f"{err1:.6f}; {row['solve']} ({smi})")
+    if not (rc == 0 and ate1 < ate0 and err1 < err0):
+        raise SystemExit(f"phase 15d: irls_kitti rc {rc}, {row}")
+    return row
+
+
+def depth_filtering_part(seq, gt, root, dev, smi):
+    """15d: depth_filtering.run once on the 3 frames at the rendered poses
+    (IRLS_KITTI_YAML's voxel, the app's default kernel and capacity): the
+    fused cloud finite, not larger than the keyframe's."""
+    import os
+
+    from unified_cvo_tpu_torch.apps import depth_filtering
+    from unified_cvo_tpu_torch.datasets.pcd import read_pcd
+
+    yaml = os.path.join(root, "depth_filtering.yaml")
+    with open(yaml, "w") as f:
+        f.write(IRLS_KITTI_YAML)
+    out_dir = os.path.join(root, "depth_filtering")
+    t0 = time.perf_counter()
+    rc = depth_filtering.run(seq, yaml, kitti_rows(os.path.join(root, "true.txt"), gt), 0,
+                             len(gt), 1.0, 0.1, out_dir, device=dev, log=lambda *a: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    before, _ = read_pcd(os.path.join(out_dir, "before_depth_filtering.pcd"))
+    after, _ = read_pcd(os.path.join(out_dir, "after_depth_filtering.pcd"))
+    row = {"s": seconds, "points_before": len(before), "points_after": len(after)}
+    log(f"phase 15d depth_filtering {seconds:.2f} s, {len(before)} -> {len(after)} points "
+        f"({smi})")
+    if not (rc == 0 and 0 < len(after) <= len(before) and np.isfinite(after).all()):
+        raise SystemExit(f"phase 15d: depth_filtering rc {rc}, {row}")
+    return row
+
+
+def sweep_part(seq, yaml, traj, root, dev, smi):
+    """15d: indicator_sweep.main over frames 1-2 from frame 0 (ell 1.0): the
+    function angle at the rendered relative pose must be above the one at
+    the identity that the sweep writes."""
+    import os
+
+    from unified_cvo_tpu_torch.apps import indicator_sweep
+    from unified_cvo_tpu_torch.config import read_cvo_params_yaml
+    from unified_cvo_tpu_torch.datasets.kitti import KittiHandler
+    from unified_cvo_tpu_torch.frontend.pipeline import pointcloud_from_stereo
+    from unified_cvo_tpu_torch.models.align import function_angle
+
+    csv = os.path.join(root, "sweep.csv")
+    t0 = time.perf_counter()
+    rc = indicator_sweep.main([seq, yaml, csv, "1.0", "0", "2", "1"], device=dev,
+                              log=lambda *a: None)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    at_eye = [float(r.split(",")[1]) for r in open(csv).read().split()[1:]]
+    params = read_cvo_params_yaml(yaml)
+    kitti = KittiHandler(seq, "stereo")
+    calib = kitti.calibration()
+    clouds = []
+    for i in range(3):
+        kitti.set_start_index(i)
+        clouds.append(pointcloud_from_stereo(*kitti.read_next_stereo(), calib, capacity=32768,
+                                             device=dev))
+    # the analysis entry points move the target by the inverse of their
+    # transform: the inverse of align's result (frame k in frame 0)
+    at_true = [float(function_angle(clouds[0], clouds[k], torch.from_numpy(
+        (np.linalg.inv(traj[k]) @ traj[0]).astype(np.float32)).to(dev), 1.0, params,
+        device=dev)) for k in (1, 2)]
+    row = {"s": seconds, "at_identity": at_eye, "at_true": at_true}
+    log(f"phase 15d indicator_sweep {seconds:.2f} s, function angle at the identity "
+        f"{[round(a, 6) for a in at_eye]}, at the rendered poses "
+        f"{[round(a, 6) for a in at_true]} ({smi})")
+    if not (rc == 0 and len(at_eye) == 2 and all(t > e for t, e in zip(at_true, at_eye))):
+        raise SystemExit(f"phase 15d: indicator_sweep rc {rc}, {row}")
+    return row
+
+
+def kitti_rows(path, poses):
+    """A KITTI trajectory file of 4x4 poses; returns the path."""
+    np.savetxt(path, np.stack([np.asarray(P)[:3].reshape(12) for P in poses]))
+    return path
+
+
+def pose_gap(A, B):
+    """|log(A^-1 B)| of two 4x4 transforms."""
+    from unified_cvo_tpu_torch.ops import lie
+
+    E = np.linalg.inv(np.asarray(A, np.float64)) @ np.asarray(B, np.float64)
+    return float(torch.linalg.vector_norm(lie.se3_log(torch.from_numpy(E[:3, :3]),
+                                                      torch.from_numpy(E[:3, 3]))))
+
+
+def stereo_host_phase(dev, smi, results):
+    """Phase 15: the KITTI stereo host frontend on the card. 15a: the native
+    census-SGM against the C++ library; 15b: Canny and EDGES_ONLY;
+    15c: kitti_odometry.run_sequence at its defaults (NL-means, FAST, the
+    native disparity, capacity 32768) over 2 pairs read from PNGs, pose error
+    < 0.05 a pair, kernels 1-3 against their plain versions on its clouds of
+    frames 0 and 1, L1 once a frame; one --semantic pair; 15d: irls_kitti,
+    depth_filtering and indicator_sweep."""
+    import os
+    import tempfile
+
+    from unified_cvo_tpu_torch.apps import kitti_odometry
+    from unified_cvo_tpu_torch.config import read_cvo_params_yaml
+    from unified_cvo_tpu_torch.frontend import pipeline
+    from unified_cvo_tpu_torch.frontend.calibration import read_calibration
+    from unified_cvo_tpu_torch.ops import lidar as lops
+
+    out, parts = {}, {}
+    quiet = lambda *a: None                                   # noqa: E731
+    cxx = native_cpp_build()                # g++ runs while the inputs are written
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_stereo_") as root:
+            t0 = time.perf_counter()
+            frames, runs = write_stereo_host_inputs(root)
+            seq, yaml, _, traj = runs["phase 15c"]
+            calib = read_calibration(os.path.join(seq, "cvo_calib.txt"), "stereo")
+            parts["inputs"] = time.perf_counter() - t0
+            log(f"phase 15: {len(frames)} stereo frames rendered and written as PNGs in "
+                f"{parts['inputs']:.2f} s (host)")
+            t0 = time.perf_counter()
+            out["disparity"] = disparity_checks(frames, cxx, dev, smi, results)
+            parts["15a"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["canny"] = canny_checks(frames, calib, dev, smi, results)
+            parts["15b"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            params = read_cvo_params_yaml(yaml)
+            clouds = [pipeline.pointcloud_from_stereo(l, r, calib, device=dev,
+                                                      capacity=kitti_odometry.CAPACITY)
+                      for l, r in frames[:2]]
+            driver_kernel_checks(clouds[0], clouds[1], np.linalg.inv(traj[0]) @ traj[1], params,
+                                 dev, results, "phase 15c frames 0 -> 1")
+            del clouds
+            for label, (seq_, yaml_, kw, traj_) in runs.items():
+                reset_launch_counts()
+                lops.reset_launches()
+                records = []
+                t1 = time.perf_counter()
+                poses = kitti_odometry.run_sequence(seq_, yaml_, os.path.join(root, "traj.txt"),
+                                                    log=quiet, device=dev, records=records, **kw)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t1
+                l1 = lops.components.launches
+                key = "semantic" if "semantic" in label else "driver"
+                out[key] = driver_report(
+                    label, f"{label} KITTI stereo driver (kitti_odometry.run_sequence, host "
+                    f"frontend at its defaults{', --semantic' if kw else ''})", poses, traj_,
+                    records, seconds, launch_counts(), smi)
+                out[key]["l1_launches"] = l1
+                if l1 != len(poses):
+                    raise SystemExit(f"{label}: L1 launched {l1} times for {len(poses)} frames")
+                if key == "driver":
+                    results["lidar_components (stereo speckle)"]["launches"] = l1
+            parts["15c"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gt = np.stack([np.linalg.inv(traj[0]) @ T for T in traj])
+            out["irls_kitti"] = irls_kitti_part(seq, gt, root, dev, smi)
+            out["depth_filtering"] = depth_filtering_part(seq, gt, root, dev, smi)
+            out["indicator_sweep"] = sweep_part(seq, yaml, traj, root, dev, smi)
+            parts["15d"] = time.perf_counter() - t0
+    finally:                                # no compiler left running on a failure
+        if cxx[1] is not None and cxx[1][0].poll() is None:
+            cxx[1][0].kill()
+            cxx[1][0].wait()
+    out["seconds"] = parts
+    log("phase 15 parts: " + ", ".join(f"{k} {v:.2f} s" for k, v in parts.items()))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=MAIN_FRAMES,
@@ -3394,6 +3950,17 @@ def main(argv=None) -> int:
                       help="build, then run phase 14 alone (PNG input, the exact NL-means, "
                            "tartan_odometry and the bundle-adjustment apps), print its JSON "
                            "line, stop without a result line")
+    mode.add_argument("--stereo-only", action="store_true",
+                      help="build, then run phase 15 alone (the KITTI stereo host frontend: "
+                           "the native census-SGM against the C++ library, Canny, the driver "
+                           "at its defaults and the stereo apps), print its JSON lines, stop "
+                           "without a result line")
+    mode.add_argument("--assembly-compare", metavar="DIR",
+                      help="--assembly-times of DIR and of this tree in turns (DIR, this, "
+                           "this, DIR), each in a process of its own, then stop")
+    mode.add_argument("--assembly-times", metavar="TREE",
+                      help="phase 12d's CG loop three times and phase 8's IRLS solve twice "
+                           "with the package in TREE: ms and run-to-run gaps, one JSON line")
     mode.add_argument("--posegraph-ablation", action="store_true",
                       help="phase 12d's incremental run, card against CPU, with each "
                            "subgraph solved in its own frame and in the world frame; no "
@@ -3411,6 +3978,12 @@ def main(argv=None) -> int:
         return 0
     if args.posegraph_ablation:
         posegraph_ablation()
+        return 0
+    if args.assembly_compare:
+        compare_assembly(args.assembly_compare)
+        return 0
+    if args.assembly_times:
+        assembly_times(args.assembly_times)
         return 0
     if args.kernel_times:                    # this package: the one found first on the path
         sys.path.insert(0, args.kernel_times)
@@ -3489,6 +4062,14 @@ def main(argv=None) -> int:
         paths = {"ba": ba_phase(dev, smi, results)}
         log(f"phase 14: {time.perf_counter() - t0:.2f} s")
         log(json.dumps({"paths": paths, "kernel_checks": results}, default=str))
+        return 0
+    if args.stereo_only:
+        results = {n: {"max_abs_err": 0.0} for n in ("select", "flow_reduce", "step_cached")}
+        t0 = time.perf_counter()
+        paths = {"stereo_host": stereo_host_phase(dev, smi, results)}
+        log(f"phase 15: {time.perf_counter() - t0:.2f} s")
+        log(json.dumps({"paths": paths}, default=str))
+        log(json.dumps({"kernel_checks": results}, default=str))
         return 0
     check_kernels(frames_np, guess_np, params, dev, results, floor)
     t0 = time.perf_counter()
@@ -3681,6 +4262,12 @@ def main(argv=None) -> int:
     log(f"phase 14 (PNG input, exact NL-means, TartanAir driver and BA apps, CPU checks "
         f"included): {time.perf_counter() - t0:.2f} s")
 
+    # ---- phase 15: the KITTI stereo host frontend, its driver and the stereo apps
+    t0 = time.perf_counter()
+    results["stereo_host"] = stereo_host_phase(dev, smi, results)
+    log(f"phase 15 (KITTI stereo host frontend, driver and stereo apps, CPU and C++ checks "
+        f"included): {time.perf_counter() - t0:.2f} s")
+
     # ---- phase 5: where an iteration's time goes (profiler, not counted)
     profile_main_path(f2f, frames, guess, params, dev, label=" ELL path")
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
@@ -3688,7 +4275,8 @@ def main(argv=None) -> int:
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
                       label=" colour ELL path")
     paths = {name: results.pop(name) for name in ("acvo", "irls", "kitti_stereo", "tum_rgbd",
-                                                   "tum_host", "slam", "lidar", "ba")}
+                                                   "tum_host", "slam", "lidar", "ba",
+                                                   "stereo_host")}
     log(json.dumps({"paths": paths}, default=str))
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

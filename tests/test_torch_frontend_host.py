@@ -178,10 +178,22 @@ def test_dso_and_full_selection_match_jax(num_want, tum_frame, jax_opencv4):
 
 
 @pytest.mark.parametrize("method", [t_sel.CANNY_EDGES, t_sel.EDGES_ONLY])
-def test_canny_and_orb_selection_raise(method, tum_frame):
+def test_canny_and_orb_selection_raise(method, tum_frame, jax_opencv4):
+    """CANNY_EDGES needs ORB, which is not ported: it raises, naming its
+    ROADMAP item. EDGES_ONLY needs Canny alone, which is: it no longer
+    raises and gives JAX's selection (tests/test_torch_stereo_native.py
+    holds it on more cases)."""
     rt = t_image.make_raw_image(tum_frame[0], denoise=False, device=CPU)
-    with pytest.raises(NotImplementedError, match="1.9"):
-        t_sel.select_points(rt, "stereo", method)
+    if method == t_sel.CANNY_EDGES:
+        with pytest.raises(NotImplementedError, match="1.9 f"):
+            t_sel.select_points(rt, "stereo", method)
+        return
+    rj = j_image.make_raw_image(tum_frame[0], denoise=False)
+    uv_j, gt_j = j_sel.select_points(rj, "stereo", j_sel.EDGES_ONLY)
+    uv_t, gt_t = t_sel.select_points(rt, "stereo", method)
+    assert len(uv_j) > 100
+    np.testing.assert_array_equal(uv_t.numpy(), uv_j)
+    np.testing.assert_array_equal(gt_t.numpy(), gt_j)
 
 
 @pytest.mark.parametrize("capacity", [4096, 8192, 16384])

@@ -8,8 +8,9 @@ read, against the JAX package on the CPU.
   North star's tolerance; iteration counts are not compared). Both packages
   read the same files, written once.
 - run_frames over the same images in memory gives run_sequence's poses.
-- the stereo host frontend, not ported (compute_disparity), raises;
-  --semantic with the device frontend raises as in JAX.
+- the stereo host frontend runs (tests/test_torch_stereo_apps.py holds it
+  to JAX); its StereoSGBM backend, not ported, raises; --semantic with the
+  device frontend raises as in JAX.
 - the copies (utils.metrics, read_calibration, the pose-row writers and
   readers, synth's texture and renderer) give JAX's values.
 
@@ -27,6 +28,9 @@ one (with `--port`, the port's runs too): JAX's own spread on that pair, which
 `chip_smoke.JAX_MISSES` holds the card to where JAX misses the bench bound:
 
     JAX_PLATFORMS=cpu python tests/test_torch_odometry.py [stereo|rgbd] [--spread] [--port]
+
+`stereo_host --spread [--port]` does the same for phase 15c's first pair:
+the host frontend at its defaults (NL-means, FAST, the native census-SGM).
 """
 
 import dataclasses
@@ -181,17 +185,21 @@ def test_tum_device_frontend_with_nlm_matches_jax(tum_dir, params_yaml, tmp_path
 
 
 def test_host_frontend_raises_until_ported(kitti_dir, tum_dir, params_yaml, tmp_path):
+    """The stereo host frontend is ported with compute_disparity's native
+    backend; what still raises is the StereoSGBM backend ('opencv')."""
     calib = t_calib.read_calibration(f"{kitti_dir}/cvo_calib.txt", "stereo")
     params = read_cvo_params_yaml(params_yaml)
-    with pytest.raises(NotImplementedError, match="1.9"):
-        t_kitti.run_sequence(kitti_dir, params_yaml, str(tmp_path / "a.txt"), device="cpu")
-    with pytest.raises(NotImplementedError, match="1.9"):
+    with pytest.raises(NotImplementedError, match="1.9 g"):
+        t_kitti.run_sequence(kitti_dir, params_yaml, str(tmp_path / "a.txt"), device="cpu",
+                             stereo_backend="opencv", denoise=False)
+    with pytest.raises(RuntimeError, match="empty sequence"):
         t_kitti.run_frames([], calib, params, device="cpu")
-    # the RGB-D host frontend is ported (test_torch_local_mapping.py drives
-    # the TUM driver with it); the stereo one still lacks compute_disparity
     left = np.zeros((32, 48, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="1.9"):
-        t_pipeline.pointcloud_from_stereo(left, left, calib, denoise=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="1.9 g"):
+        t_pipeline.pointcloud_from_stereo(left, left, calib, denoise=False,
+                                          stereo_backend="opencv", device="cpu")
+    cloud = t_pipeline.pointcloud_from_stereo(left, left, calib, denoise=False, device="cpu")
+    assert float(cloud.mask.sum()) == 0.0        # a flat image: no disparity, no point
     with pytest.raises(ValueError, match="semantic"):
         t_kitti.run_sequence(kitti_dir, params_yaml, str(tmp_path / "c.txt"), semantic=True,
                              frontend="device", device="cpu")
@@ -377,7 +385,8 @@ def _chip_phase_chain(kind: str, port: bool):
 
 
 def _first_pair_spread(kind: str, port: bool):
-    """The first pair of chip_smoke.py phase 9 (`stereo`) or 10 (`rgbd`) as
+    """The first pair of chip_smoke.py phase 9 (`stereo`), 10 (`rgbd`) or
+    15c (`stereo_host`, `--spread` only) as
     the driver loop aligns it (the first-frame parameters, the identity
     guess) through JAX on the CPU, then again with the guess's translation
     moved by +-1e-6 m along x and along z, and with every source coordinate
@@ -396,13 +405,27 @@ def _first_pair_spread(kind: str, port: bool):
     from unified_cvo_tpu_torch.frontend import device as t_dev
     from unified_cvo_tpu_torch.models.align import align as t_align
 
-    frames_of = chip_smoke.stereo_frames if kind == "stereo" else chip_smoke.rgbd_frames
+    frames_of = chip_smoke.rgbd_frames if kind == "rgbd" else chip_smoke.stereo_frames
     calib, frames, traj = frames_of()
     jc = j_calib.Calibration(**dataclasses.asdict(calib))
     if kind == "stereo":
         kw = dict(capacity=t_kitti.CAPACITY, max_disp=t_kitti.max_disp_for(calib.cols))
         j_clouds = [j_dev.device_pointcloud_from_stereo(f[0], f[1], jc, **kw) for f in frames[:2]]
         t_clouds = [t_dev.device_pointcloud_from_stereo(f[0], f[1], calib, device="cpu", **kw)
+                    for f in frames[:2]] if port else None
+    elif kind == "stereo_host":
+        # phase 15c: the host frontend at its defaults, JAX on its native
+        # census-SGM with OpenCV 4's grey level (the port's)
+        from unified_cvo_tpu.frontend import pipeline as j_pipeline
+        from test_torch_frontend_host import opencv4_gray
+
+        cvt = cv2.cvtColor
+        cv2.cvtColor = lambda img, code, *a, **k: (
+            opencv4_gray(img) if code == cv2.COLOR_BGR2GRAY else cvt(img, code, *a, **k))
+        kw = dict(capacity=t_kitti.CAPACITY)
+        j_clouds = [j_pipeline.pointcloud_from_stereo(f[0], f[1], jc, stereo_backend="native",
+                                                      **kw) for f in frames[:2]]
+        t_clouds = [t_pipeline.pointcloud_from_stereo(f[0], f[1], calib, device="cpu", **kw)
                     for f in frames[:2]] if port else None
     else:
         kw = dict(capacity=t_tum.CAPACITY, denoise=True)
@@ -456,7 +479,7 @@ def main(argv):
 
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(4)
-    kinds = [k for k in ("stereo", "rgbd") if k in argv] or ["stereo", "rgbd"]
+    kinds = [k for k in ("stereo", "rgbd", "stereo_host") if k in argv] or ["stereo", "rgbd"]
     if "--spread" in argv:
         for kind in kinds:
             _first_pair_spread(kind, "--port" in argv)

@@ -11,12 +11,14 @@ previous relative motion as the initial guess (constant velocity),
 accumulate, and stream KITTI-format rows to OUT. The first pair uses the
 *_first_frame parameter swap (main:40-46,156-161).
 
-`--device-frontend` builds each cloud on the card (census-SGM disparity,
-DSO selection, backprojection; frontend/device.py), so everything from the
-uploaded images to the trajectory runs there. The stereo host frontend
-needs compute_disparity (StereoSGBM), which is not ported yet:
-`frontend="host"`, the default as in the JAX package, raises
-NotImplementedError.
+The default `frontend="host"` is the JAX package's: FAST selection on the
+NL-means-denoised left image and the native census-SGM disparity of the raw
+pair (frontend/pipeline.py::pointcloud_from_stereo), each cloud built on the
+card. With --semantic, per-pixel 19-class distributions are read beside the
+stereo pair and attached to the clouds, the cvo_align_gpu_semantic_img twin
+(main_cvo_semantic_gpu_align_raw_image.cpp). `--device-frontend` builds each
+cloud with the device frontend instead (census-SGM with the density
+speckle, DSO selection, backprojection; frontend/device.py).
 
 `run_frames` is the loop itself over an iterable of (left, right) images,
 so a sequence can be registered without files; `run_sequence` reads the
@@ -35,13 +37,10 @@ from unified_cvo_tpu_torch.config import read_cvo_params_yaml
 from unified_cvo_tpu_torch.datasets.kitti import KittiHandler, write_kitti_pose_row
 from unified_cvo_tpu_torch.device import resolve_device
 from unified_cvo_tpu_torch.frontend.device import device_pointcloud_from_stereo
+from unified_cvo_tpu_torch.frontend.pipeline import pointcloud_from_stereo
 from unified_cvo_tpu_torch.utils.logging import MetricsLogger
 
 CAPACITY = 32768  # one cloud shape for all frames (28k max FAST budget + pad)
-
-HOST_FRONTEND_MISSING = (
-    "the stereo host frontend needs compute_disparity (cv2.StereoSGBM or native/), "
-    "which is not ported yet (ROADMAP item 1.9); use frontend='device'")
 
 
 def max_disp_for(cols: int) -> int:
@@ -52,15 +51,20 @@ def max_disp_for(cols: int) -> int:
 
 
 def _stereo_frontend(frontend: str, calib, capacity: int, device_max_disp, semantic: bool,
-                     dev):
-    """(left, right) -> PointCloud on `dev`, JAX's frontend rules."""
+                     dev, denoise: bool = True, stereo_backend: str = "auto"):
+    """(left, right[, semantics]) -> PointCloud on `dev`, JAX's frontend
+    rules (kitti_odometry.py:62-96)."""
     if frontend != "device":
-        raise NotImplementedError(HOST_FRONTEND_MISSING)
+        def build_host(left, right, sem=None):
+            return pointcloud_from_stereo(left, right, calib, semantics=sem, denoise=denoise,
+                                          capacity=capacity, stereo_backend=stereo_backend,
+                                          device=dev)
+        return build_host
     if semantic:
         raise ValueError("frontend='device' does not take --semantic")
     md = max_disp_for(calib.cols) if device_max_disp is None else device_max_disp
 
-    def build_cloud(left, right):
+    def build_cloud(left, right, sem=None):
         return device_pointcloud_from_stereo(left, right, calib, capacity=capacity,
                                              max_disp=md, denoise=False, device=dev)
     return build_cloud
@@ -80,16 +84,20 @@ def run_frames(
     capacity: int = CAPACITY,
     frontend: str = "host",
     device_max_disp: int | None = None,
+    denoise: bool = True,
+    stereo_backend: str = "auto",
     device=None,
 ):
-    """Register an iterable of (left, right) stereo images frame to frame.
+    """Register an iterable of (left, right) stereo images, or of (left,
+    right, semantics) on the host frontend, frame to frame.
 
     Writes one KITTI row per aligned frame to `out` (a text file, when
     given) and returns (poses [N, 4, 4] float64, a PairRecord for each
     pair). `first_params` defaults to
     `params.first_frame()`; `device=None` means the card."""
     dev = resolve_device(device)
-    build_cloud = _stereo_frontend(frontend, calib, capacity, device_max_disp, False, dev)
+    build_cloud = _stereo_frontend(frontend, calib, capacity, device_max_disp, False, dev,
+                                   denoise, stereo_backend)
     first_params = params.first_frame() if first_params is None else first_params
     it = iter(frames)
     first = next(it, None)
@@ -133,19 +141,24 @@ def run_sequence(
     out_path: str,
     start_frame: int = 0,
     max_frames: int = 100000,
+    denoise: bool = True,
     chunk: int = 4096,
     max_iter: int | None = None,
     log=print,
     metrics_path: str | None = None,
     semantic: bool = False,
+    num_classes: int = 19,
     capacity: int = CAPACITY,
+    stereo_backend: str = "auto",
     frontend: str = "host",
     device_max_disp: int | None = None,
     device=None,
+    records=None,
 ):
-    """The JAX driver's signature without `denoise`, `stereo_backend` and
-    `num_classes`: they are options of the host frontend, which is not
-    ported yet, and the device frontend reads none of them."""
+    """The JAX driver's signature, plus `device` (None means the card) and
+    `records`, a list that receives each pair's PairRecord. With
+    `semantic`, each frame's distributions come from
+    KittiHandler.read_next_stereo_semantic(num_classes)."""
     kitti = KittiHandler(seq_dir, "stereo")
     calib = kitti.calibration()
     dev = resolve_device(device)
@@ -156,7 +169,8 @@ def run_sequence(
 
     def frames():
         while kitti.curr_index < n_frames:
-            pair = kitti.read_next_stereo()
+            pair = (kitti.read_next_stereo_semantic(num_classes) if semantic
+                    else kitti.read_next_stereo())
             if pair is None:
                 return
             yield pair
@@ -167,12 +181,15 @@ def run_sequence(
         with open(out_path, "w") as out:
             out.write("1 0 0 0 0 1 0 0 0 0 1 0\n")
             out.flush()
-            poses, _ = run_frames(
+            poses, recs = run_frames(
                 frames(), calib, params, out=out, start_frame=start_frame, chunk=chunk,
                 max_iter=max_iter, log=log, metrics=metrics, capacity=capacity,
-                frontend=frontend, device_max_disp=device_max_disp, device=dev)
+                frontend=frontend, device_max_disp=device_max_disp, denoise=denoise,
+                stereo_backend=stereo_backend, device=dev)
     finally:
         metrics.close()
+    if records is not None:
+        records.extend(recs)
     return poses
 
 

@@ -7,14 +7,11 @@
 //
 // L1 `cvo_lidar_components` replaces segment_range_image's
 // connected_components (lidar.py:245-251): union-find on the [rows, cols]
-// range image. The links (vertical, and horizontal with the column wrap)
-// are decided in torch and come in as bytes. One thread a cell hooks its
-// two links with atomicMin on the parent array (a root's parent only ever
-// falls, so the root of a component ends as its smallest cell id), then a
-// second pass points every cell at its root. The labels are the smallest
-// cell id of each component whatever order the hooks ran in: two launches
-// give the same bits, and the plain version (min-label propagation with
-// pointer jumping) gives the same labels.
+// range image (cc.cuh). The links (vertical, and horizontal with the
+// column wrap) are decided in torch and come in as bytes; one thread a cell
+// hooks its two links. The labels are the smallest cell id of each
+// component. The host stereo frontend's speckle rule also runs it
+// (ops/sgm.py::speckle_regions, no wrap: the last column's links are 0).
 //
 // L2 `cvo_lidar_loam_features` replaces _loam_extract_features' ring loop
 // (lidar.py:280-337): one warp a ring. The warp compacts the ring's kept
@@ -42,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cc.cuh"
+
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
@@ -50,39 +49,6 @@ constexpr int MAX_CORNERS = 20;
 constexpr int CURV_HALF = 5;         // the +-5 curvature window
 constexpr int MAX_COLS = 3400;       // 14 B of shared memory a column, under 48 KB
 
-__device__ __forceinline__ int find_root(const int* parent, int x) {
-  const volatile int* p = parent;
-  int q = p[x];
-  while (q != x) {
-    x = q;
-    q = p[x];
-  }
-  return x;
-}
-
-// Join the components of a and b: hook the larger root under the smaller.
-// If another thread hooked that root first, join with where it now points.
-__device__ void unite(int* parent, int a, int b) {
-  while (true) {
-    a = find_root(parent, a);
-    b = find_root(parent, b);
-    if (a == b) return;
-    if (a > b) {
-      const int t = a;
-      a = b;
-      b = t;
-    }
-    const int old = atomicMin(&parent[b], a);
-    if (old == b) return;
-    b = old;
-  }
-}
-
-__global__ void cc_init(int* parent, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) parent[i] = i;
-}
-
 // link_v [rows - 1, cols]: cell (r, c) joins (r + 1, c); link_h [rows,
 // cols]: (r, c) joins (r, (c + 1) % cols).
 __global__ void cc_hook(const uint8_t* link_v, const uint8_t* link_h, int* parent, int rows,
@@ -90,13 +56,8 @@ __global__ void cc_hook(const uint8_t* link_v, const uint8_t* link_h, int* paren
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows * cols) return;
   const int r = i / cols, c = i - r * cols;
-  if (r < rows - 1 && link_v[i]) unite(parent, i, i + cols);
-  if (link_h[i]) unite(parent, i, r * cols + (c + 1 == cols ? 0 : c + 1));
-}
-
-__global__ void cc_compress(int* parent, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) parent[i] = find_root(parent, i);
+  if (r < rows - 1 && link_v[i]) cc::unite(parent, i, i + cols);
+  if (link_h[i]) cc::unite(parent, i, r * cols + (c + 1 == cols ? 0 : c + 1));
 }
 
 __device__ __forceinline__ bool better(float c, int k, float best, int bk) {
@@ -244,9 +205,9 @@ int cvo_lidar_components(const uint8_t* link_v, const uint8_t* link_h, int* labe
                          int cols, cudaStream_t stream) {
   if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
   const int n = rows * cols, threads = 256, blocks = (n + threads - 1) / threads;
-  cc_init<<<blocks, threads, 0, stream>>>(labels, n);
+  cc::init<<<blocks, threads, 0, stream>>>(labels, n);
   cc_hook<<<blocks, threads, 0, stream>>>(link_v, link_h, labels, rows, cols);
-  cc_compress<<<blocks, threads, 0, stream>>>(labels, n);
+  cc::compress<<<blocks, threads, 0, stream>>>(labels, n);
   return (int)cudaGetLastError();
 }
 

@@ -102,13 +102,16 @@ def pointcloud_from_stereo(
     stereo_backend: str = "auto",
     device=None,
 ) -> PointCloud:
-    """JAX's signature. Without `disparity` it needs compute_disparity,
-    which is not ported (NotImplementedError). `device=None` means the card."""
+    """JAX's signature, plus `device` (None means the card). Without
+    `disparity` the disparity of the raw (not denoised) pair is computed on
+    `dev` by compute_disparity (`stereo_backend` 'auto' or 'native': the
+    native census-SGM bit for bit). A given `disparity`, a numpy array or a
+    tensor on any device, goes to `dev`."""
     dev = resolve_device(device)
     raw = make_raw_image(left, semantics=semantics, denoise=denoise, device=dev)
     uv, gtype = sel.select_points(raw, "stereo", method)
     if disparity is None:
-        disparity = compute_disparity(left, right, backend=stereo_backend)
+        disparity = compute_disparity(left, right, backend=stereo_backend, device=dev)
     xyz, valid = backproject_disparity(uv, _upload(disparity, dev), calib)
     good = valid & is_good_point(xyz, uv, raw.rows, raw.cols)
     return _finalize(raw, uv, gtype, xyz, good, bucket, capacity)

@@ -12,6 +12,10 @@ all darker than p - t). The reference's adaptive threshold search then
 replays on the counts #(score >= t), read once as a 256-bin histogram, and
 the keypoints at the chosen threshold come out in raster order, as cv2
 emits them.
+
+EDGES_ONLY is cv2.Canny(gray, 50, 150) exactly (ops/canny.py) and JAX's
+random quarter-budget draw over the edge pixels, drawn on the host from
+the same numpy stream.
 """
 
 from __future__ import annotations
@@ -19,11 +23,13 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from unified_cvo_tpu_torch.frontend import device as fe
 from unified_cvo_tpu_torch.frontend.image import RawImage
+from unified_cvo_tpu_torch.ops.canny import canny
 
 CV_FAST = "CV_FAST"
 DSO_EDGES = "DSO_EDGES"
@@ -32,8 +38,9 @@ EDGES_ONLY = "EDGES_ONLY"
 FULL = "FULL"
 
 CANNY_ORB_MISSING = (
-    "{method} needs cv2.Canny and cv2.ORB, which are not ported (ROADMAP item 1.9: "
-    "Canny, ORB and compute_disparity)")
+    "CANNY_EDGES needs cv2.ORB (pyramid, FAST-9 per level, Harris ranking, retainBest), "
+    "which is not ported (ROADMAP item 1.9 f: an exact emulation, the card's machine has "
+    "no OpenCV); EDGES_ONLY runs the port's exact Canny")
 
 # the FAST-9/16 circle in cv2's order (dx, dy)
 FAST_CIRCLE = ((0, 3), (1, 3), (2, 2), (3, 1), (3, 0), (3, -1), (2, -2), (1, -3),
@@ -185,6 +192,23 @@ def dso_select_pixels(raw: RawImage, num_want: int):
     return uv, gtype
 
 
+def edges_only_select(gray: torch.Tensor, expected_points: int, seed: int):
+    """JAX's _canny_uniform_orb with Canny alone (stereo_surface_sampling,
+    CvoPointCloud.cpp:151-256): the edge pixels in raster order, each kept
+    where its draw from np.random.default_rng(seed) is below
+    (expected_points / 4) / n_edge. uv [N,2] int32 (u = column), gtype
+    (1, 0)."""
+    vu = torch.nonzero(canny(gray))                              # raster order
+    n_edge = len(vu)
+    if n_edge:
+        draw = torch.from_numpy(np.random.default_rng(seed).random(n_edge)).to(gray.device)
+        vu = vu[draw < (expected_points / 4) / n_edge]
+    uv = torch.stack([vu[:, 1], vu[:, 0]], dim=1).to(torch.int32)
+    gtype = torch.tensor([[1.0, 0.0]], dtype=torch.float32,
+                         device=gray.device).expand(len(uv), 2).contiguous()
+    return uv, gtype
+
+
 def select_points(
     raw: RawImage,
     pt_type: str = "stereo",
@@ -193,15 +217,17 @@ def select_points(
     seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (uv [N,2] int32 (u=col, v=row), geometric_type [N,2]) on the
-    image's device. `seed` seeds the random sampling of CANNY_EDGES and
-    EDGES_ONLY, which are not ported."""
+    image's device. `seed` seeds the random sampling of EDGES_ONLY (and of
+    CANNY_EDGES, which is not ported: ORB)."""
     if method == CV_FAST:
         uv, gtype, _ = fast_select(raw.intensity, pt_type, raw.num_classes)
         return uv, gtype
     if method == DSO_EDGES:
         return dso_select_pixels(raw, expected_points)
-    if method in (CANNY_EDGES, EDGES_ONLY):
-        raise NotImplementedError(CANNY_ORB_MISSING.format(method=method))
+    if method == EDGES_ONLY:
+        return edges_only_select(raw.intensity, expected_points, seed)
+    if method == CANNY_EDGES:
+        raise NotImplementedError(CANNY_ORB_MISSING)
     if method == FULL:
         h, w = raw.rows, raw.cols
         dev = raw.image.device

@@ -10,8 +10,12 @@ the disparity path's rays in float32), with K^{-1} the float32 inverse numpy
 takes of the float32 intrinsic. Divisors are device tensors, so CUDA divides
 as numpy does instead of multiplying by a reciprocal.
 
-`compute_disparity` (cv2.StereoSGBM or native/) is not ported (ROADMAP item
-1.9); the device frontend's census-SGM is `ops/sgm.py`.
+`compute_disparity` is JAX's with its native backend: the C++ census-SGM of
+native/cvo_native.cpp bit for bit, as `ops/sgm.py::sgm_disparity_native` on
+the inputs' device. `backend="auto"` means native here even where cv2
+imports (JAX takes cv2.StereoSGBM there; on a machine without OpenCV, such
+as the card's, its "auto" is native too); `backend="opencv"`, StereoSGBM
+3WAY, is not ported (ROADMAP item 1.9 g).
 """
 
 from __future__ import annotations
@@ -19,16 +23,39 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from unified_cvo_tpu_torch.device import resolve_device
 from unified_cvo_tpu_torch.frontend.calibration import Calibration
+from unified_cvo_tpu_torch.frontend.device import _upload, device_gray_and_gradients
+from unified_cvo_tpu_torch.ops.sgm import sgm_disparity_native
 
-DISPARITY_MISSING = (
-    "compute_disparity (cv2.StereoSGBM or the native census/SGM library) is not "
-    "ported (ROADMAP item 1.9: Canny, ORB and compute_disparity); pass a disparity "
-    "map, or use the device frontend (frontend/device.py, ops/sgm.py)")
+OPENCV_SGBM_MISSING = (
+    "compute_disparity(backend='opencv') needs cv2.StereoSGBM (MODE_SGBM_3WAY), which is "
+    "not ported (ROADMAP item 1.9 g: an exact emulation, the card's machine has no "
+    "OpenCV); backend='native' or 'auto' runs the native census-SGM")
 
 
-def compute_disparity(left, right, max_disparity: int = 128, backend: str = "auto"):
-    raise NotImplementedError(DISPARITY_MISSING)
+def compute_disparity(left, right, max_disparity: int = 128, backend: str = "auto",
+                      device=None) -> torch.Tensor:
+    """Left-image disparity map [H, W] float32, invalid pixels <= 0, on
+    `device` (None: the inputs' device where they are tensors, else the
+    card). left / right: BGR [H, W, 3] or grey [H, W] uint8 images, colour
+    converted by OpenCV 4's fixed-point BGR2GRAY. backend 'native' and
+    'auto': native/cvo_native.cpp's census-SGM bit for bit (p1 10, p2 120,
+    uniqueness 0.1, the 120-pixel region speckle)."""
+    if backend == "opencv":
+        raise NotImplementedError(OPENCV_SGBM_MISSING)
+    if backend not in ("native", "auto"):
+        raise ValueError(f"unknown stereo backend {backend!r}")
+    if device is None and isinstance(left, torch.Tensor):
+        dev = left.device
+    else:
+        dev = resolve_device(device)
+
+    def gray(im):
+        im = _upload(im, dev)
+        return device_gray_and_gradients(im)[0] if im.ndim == 3 else im
+
+    return sgm_disparity_native(gray(left), gray(right), max_disp=max_disparity)
 
 
 def _kinv(calib: Calibration, dtype, dev) -> torch.Tensor:

@@ -44,6 +44,7 @@ from unified_cvo_tpu_torch.config import CvoParams
 from unified_cvo_tpu_torch.device import resolve_device
 from unified_cvo_tpu_torch.ops import kernels, lie
 from unified_cvo_tpu_torch.ops import neighbors as nbr
+from unified_cvo_tpu_torch.ops import segment
 from unified_cvo_tpu_torch.utils.pointcloud import PointCloud
 
 IRLS_BACKENDS = ("auto", "ell", "dense")
@@ -180,14 +181,24 @@ def _weighted_blocks(poses, edge_i, edge_j, moments: EdgeMoments, edge_active):
             torch.sum(costs * w))
 
 
-def _gradient(F, edge_i, edge_j, b_a, b_b):
-    b = torch.zeros((F, 6), dtype=b_a.dtype, device=b_a.device)
-    return b.index_add(0, edge_i, b_a).index_add(0, edge_j, b_b)
+def edge_incidence(F: int, edge_i, edge_j) -> segment.Incidence:
+    """The frames' incidence table over the stacked edge ends
+    [edge_i; edge_j]: built once a solve, it sums the per-edge rows into
+    the frames in a fixed order (ops/segment.py), where index_add's atomics
+    add them in no fixed order on the card."""
+    return segment.incidence(torch.cat([edge_i, edge_j]), F)
 
 
-def _assemble_system(poses, edge_i, edge_j, moments: EdgeMoments, edge_active):
+def _gradient(inc: segment.Incidence, b_a, b_b):
+    """Each frame's sum of its edges' a-end and b-end rows [F, ...]."""
+    return segment.segment_sum(inc, b_a, b_b)
+
+
+def _assemble_system(poses, edge_i, edge_j, moments: EdgeMoments, edge_active, inc):
     """The 6F x 6F Gauss-Newton system of an edge set (irls.py:197-223):
-    (H [F, 6, F, 6], b [F, 6], cost)."""
+    (H [F, 6, F, 6], b [F, 6], cost). The blocks go in by the sorted
+    index_put_ (deterministic), the gradient by the edges' incidence table
+    `inc`."""
     F = poses.shape[0]
     H_aa, H_bb, H_ab, b_a, b_b, cost = _weighted_blocks(poses, edge_i, edge_j, moments,
                                                         edge_active)
@@ -196,7 +207,7 @@ def _assemble_system(poses, edge_i, edge_j, moments: EdgeMoments, edge_active):
     Hp.index_put_((edge_j, edge_j), H_bb, accumulate=True)
     Hp.index_put_((edge_i, edge_j), H_ab, accumulate=True)
     Hp.index_put_((edge_j, edge_i), H_ab.transpose(-1, -2), accumulate=True)
-    return Hp.permute(0, 2, 1, 3), _gradient(F, edge_i, edge_j, b_a, b_b), cost
+    return Hp.permute(0, 2, 1, 3), _gradient(inc, b_a, b_b), cost
 
 
 def _left_update(poses, delta):
@@ -231,25 +242,24 @@ def _solve_and_update(poses, H, b, pivot_mask, damping, dof_mask=None):
     return _left_update(poses, delta), torch.linalg.vector_norm(delta)
 
 
-def _solve_cg_blocks(F, edge_i, edge_j, H_aa, H_bb, H_ab, b, free6f, damping,
-                     cg_iters, tol=1e-8):
+def _solve_cg_blocks(inc: segment.Incidence, edge_i, edge_j, H_aa, H_bb, H_ab, b, free6f,
+                     damping, cg_iters, tol=1e-8):
     """Matrix-free block-sparse PCG on the normal equations (irls.py:251-311),
     the stand-in for Ceres SPARSE_SCHUR at covisibility-graph scale
     (IRLS.cpp:146-159): the matvec is three batched [E, 6, 6] x [E, 6]
-    contractions and two index_adds, preconditioned by the inverted 6x6
-    block diagonal. Solves H delta = -b on the free dims. JAX's while loop
-    stops once rz <= tol * rz0; here every one of the cg_iters iterations
-    runs and the state stops changing at that point, so the loop needs no
-    host read."""
+    contractions and a segment sum over the edge ends (`inc`, from
+    edge_incidence), preconditioned by the inverted 6x6 block diagonal.
+    Solves H delta = -b on the free dims. JAX's while loop stops once
+    rz <= tol * rz0; here every one of the cg_iters iterations runs and the
+    state stops changing at that point, so the loop needs no host read."""
     def matvec(x):
         x = x * free6f
         xa, xb = x[edge_i], x[edge_j]
         ya = (H_aa @ xa[..., None])[..., 0] + (H_ab @ xb[..., None])[..., 0]
         yb = (H_ab.transpose(-1, -2) @ xa[..., None])[..., 0] + (H_bb @ xb[..., None])[..., 0]
-        return _gradient(F, edge_i, edge_j, ya, yb) * free6f + damping * x
+        return _gradient(inc, ya, yb) * free6f + damping * x
 
-    D = torch.zeros((F, 6, 6), dtype=b.dtype, device=b.device)
-    D = D.index_add(0, edge_i, H_aa).index_add(0, edge_j, H_bb)
+    D = _gradient(inc, H_aa, H_bb)
     D = D * free6f[:, :, None] * free6f[:, None, :]
     D = D + torch.eye(6, dtype=b.dtype, device=b.device) * max(damping, 1e-8)
     D_inv = torch.linalg.inv(D)
@@ -278,24 +288,22 @@ def _solve_cg_blocks(F, edge_i, edge_j, H_aa, H_bb, H_ab, b, free6f, damping,
 
 
 def _assemble_and_solve(poses, edge_i, edge_j, moments: EdgeMoments, edge_active,
-                        pivot_mask, damping, dof_mask=None, solver: str = "dense",
-                        cg_iters: int = 100):
+                        pivot_mask, damping, inc: segment.Incidence, dof_mask=None,
+                        solver: str = "dense", cg_iters: int = 100):
     """One Gauss-Newton iteration (irls.py:314-357): 'dense' solves the
     assembled 6F x 6F system; 'cg' runs the block PCG over the edge blocks
     (O(E) memory). dof_mask: [6] 0/1 over (rot, trans); zeroed dims stay
-    fixed (the translation-only BA variant). Returns (poses, cost,
-    |delta|)."""
+    fixed (the translation-only BA variant). inc: the edges' incidence table
+    (edge_incidence). Returns (poses, cost, |delta|)."""
     if solver == "dense":
-        H, b, cost = _assemble_system(poses, edge_i, edge_j, moments, edge_active)
+        H, b, cost = _assemble_system(poses, edge_i, edge_j, moments, edge_active, inc)
         poses_new, dnorm = _solve_and_update(poses, H, b, pivot_mask, damping, dof_mask)
         return poses_new, cost, dnorm
-    F = poses.shape[0]
     H_aa, H_bb, H_ab, b_a, b_b, cost = _weighted_blocks(poses, edge_i, edge_j, moments,
                                                         edge_active)
     free6f, _ = _free_dims(poses, pivot_mask, dof_mask)
-    delta = _solve_cg_blocks(F, edge_i, edge_j, H_aa, H_bb, H_ab,
-                             _gradient(F, edge_i, edge_j, b_a, b_b), free6f, damping,
-                             cg_iters)
+    delta = _solve_cg_blocks(inc, edge_i, edge_j, H_aa, H_bb, H_ab,
+                             _gradient(inc, b_a, b_b), free6f, damping, cg_iters)
     return _left_update(poses, delta), cost, torch.linalg.vector_norm(delta)
 
 
@@ -347,9 +355,10 @@ def make_irls_kernels(params: CvoParams, chunk: int = 1024, backend: str = "auto
     def gn_fn(poses, edge_i, edge_j, moments, edge_active, pivot_mask, n_iters: int,
               damping=1e-6, dof_mask=None):
         cost = dnorm = torch.zeros((), dtype=poses.dtype, device=poses.device)
+        inc = edge_incidence(poses.shape[0], edge_i, edge_j)
         for _ in range(n_iters):
             poses, cost, dnorm = _assemble_and_solve(
-                poses, edge_i, edge_j, moments, edge_active, pivot_mask, damping,
+                poses, edge_i, edge_j, moments, edge_active, pivot_mask, damping, inc,
                 dof_mask=dof_mask, solver=solver, cg_iters=cg_iters)
         return poses, cost, dnorm
 

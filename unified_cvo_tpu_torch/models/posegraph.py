@@ -39,8 +39,8 @@ import numpy as np
 import torch
 
 from unified_cvo_tpu_torch.device import resolve_device
-from unified_cvo_tpu_torch.models.irls import _solve_cg_blocks
-from unified_cvo_tpu_torch.ops import lie
+from unified_cvo_tpu_torch.models.irls import _gradient, _solve_cg_blocks, edge_incidence
+from unified_cvo_tpu_torch.ops import lie, segment
 
 
 class RelativePose(NamedTuple):
@@ -118,11 +118,6 @@ def _edge_blocks_pg(R, t, fi, fj, Rz, tz, weights):
     return res, H_aa, H_bb, H_ab, b_a, b_b
 
 
-def _scatter_rows(F, idx, rows):
-    return torch.zeros((F,) + rows.shape[1:], dtype=rows.dtype,
-                       device=rows.device).index_add(0, idx, rows)
-
-
 def optimize_pose_graph(
     poses,                     # [F,4,4]
     fi,                        # [E] int
@@ -185,21 +180,28 @@ def optimize_pose_graph(
         w_r = torch.where(rn > robust_delta, robust_delta / torch.clamp(rn, min=1e-12), 1.0)
         return _edge_blocks_pg(R, t, fi, fj, Rz, tz, weights * w_r)
 
+    # the sums over edges go through incidence tables built once a solve
+    # (ops/segment.py): a fixed order, so two solves on the card give the
+    # same bits (index_add's atomics did not)
+    inc = edge_incidence(F, fi, fj)
+
     def step_cg(R, t):
         _, H_aa, H_bb, H_ab, b_a, b_b = blocks(R, t)
-        b = _scatter_rows(F, fi, b_a) + _scatter_rows(F, fj, b_b)
         free6f = torch.ones((F, 6), dtype=f32, device=dev) * free
-        return _solve_cg_blocks(F, fi, fj, H_aa, H_bb, H_ab, b, free6f, damping, cg_iters)
+        return _solve_cg_blocks(inc, fi, fj, H_aa, H_bb, H_ab, _gradient(inc, b_a, b_b),
+                                free6f, damping, cg_iters)
+
+    # the dense system's [F, F] blocks, keyed by destination block
+    inc_blocks = (segment.incidence(torch.cat([fi * F + fi, fj * F + fj, fi * F + fj,
+                                               fj * F + fi]), F * F)
+                  if solver != "cg" else None)
 
     def step_dense(R, t):
         _, H_aa, H_bb, H_ab, b_a, b_b = blocks(R, t)
-        # scatter the 6x6 blocks into the dense [F,F,6,6] -> [6F,6F] system
-        Hb = torch.zeros((F * F, 6, 6), dtype=f32, device=dev)
-        Hb = (Hb.index_add(0, fi * F + fi, H_aa).index_add(0, fj * F + fj, H_bb)
-              .index_add(0, fi * F + fj, H_ab)
-              .index_add(0, fj * F + fi, H_ab.transpose(1, 2)))
+        # sum the 6x6 blocks into the dense [F,F,6,6] -> [6F,6F] system
+        Hb = segment.segment_sum(inc_blocks, H_aa, H_bb, H_ab, H_ab.transpose(1, 2))
         H = Hb.reshape(F, F, 6, 6).permute(0, 2, 1, 3).reshape(6 * F, 6 * F)
-        b = (_scatter_rows(F, fi, b_a) + _scatter_rows(F, fj, b_b)).reshape(6 * F)
+        b = _gradient(inc, b_a, b_b).reshape(6 * F)
         if prior is not None:
             pR = R[prior["idx"]]
             pt = t[prior["idx"]]

@@ -27,18 +27,26 @@ REST, EDGE = 1, 2        # `kind` codes (0: not in a processed sector)
 # ---------------------------------------------------------------- L1
 
 
-def components_plain(link_v: torch.Tensor, link_h: torch.Tensor) -> torch.Tensor:
+def components_plain(link_v: torch.Tensor, link_h: torch.Tensor, link_dr=None,
+                     link_dl=None) -> torch.Tensor:
     """Connected components of the [rows, cols] grid with vertical links
     `link_v` [rows - 1, cols] ((r, c)-(r + 1, c)) and wrapped horizontal
-    links `link_h` [rows, cols] ((r, c)-(r, (c + 1) % cols)). Returns int32
-    labels [rows, cols]: the smallest cell id of each cell's component.
-    Min-label propagation over the links, then pointer jumping, until
-    nothing changes."""
+    links `link_h` [rows, cols] ((r, c)-(r, (c + 1) % cols)), and where
+    given the diagonal links `link_dr` [rows - 1, cols] ((r, c)-(r + 1,
+    c + 1), its last column False) and `link_dl` [rows - 1, cols] ((r, c)-
+    (r + 1, c - 1), its first column False). Returns int32 labels [rows,
+    cols]: the smallest cell id of each cell's component. Min-label
+    propagation over the links, then pointer jumping, until nothing
+    changes."""
     rows, cols = link_h.shape
     dev = link_h.device
     ids = torch.arange(rows * cols, device=dev).view(rows, cols)
-    a = torch.cat([ids[:-1][link_v], ids[link_h]])
-    b = torch.cat([ids[1:][link_v], ids.roll(-1, 1)[link_h]])
+    a = [ids[:-1][link_v], ids[link_h]]
+    b = [ids[1:][link_v], ids.roll(-1, 1)[link_h]]
+    if link_dr is not None:
+        a += [ids[:-1][link_dr], ids[:-1][link_dl]]
+        b += [ids[1:].roll(-1, 1)[link_dr], ids[1:].roll(1, 1)[link_dl]]
+    a, b = torch.cat(a), torch.cat(b)
     lab = ids.reshape(-1).clone()
     while True:
         low = torch.minimum(lab[a], lab[b])

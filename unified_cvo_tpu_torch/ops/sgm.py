@@ -26,12 +26,23 @@ division and with the same call on another device exactly.
 The scans are plain torch ops on [G, lines, D] states: one step of the
 horizontal scan and one of the vertical scan are each ~15 launches, W and
 H steps a frame. A hand kernel for them is a later candidate (ROADMAP).
+
+`sgm_disparity_native` is the host frontend's disparity: the C++ census-SGM
+of native/cvo_native.cpp (JAX's `native.sgm_disparity`) bit for bit. The
+stages to the median are the same arithmetic (its uint16 path costs never
+reach their 60000 cap at the default penalties, and its subpixel values
+are integers in float32 until one division and one add); it differs in
+`1.0f + uniqueness` rounded in float32 and in its speckle rule, a region
+flood fill, which `speckle_regions` computes as connected components.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from unified_cvo_tpu_torch.ops import lidar
 
 INF = 1 << 28
 MAX_COST = 24          # 24-bit census: hamming <= 24
@@ -83,7 +94,7 @@ def _shift_lines(a: torch.Tensor, fill: int) -> torch.Tensor:
 
 
 def _sgm_scan(costs: torch.Tensor, has_prev_masks, n_shift: int,
-              P1: int, P2: int) -> torch.Tensor:
+              P1: int, P2: int, cap=None) -> torch.Tensor:
     """Batched SGM recurrence.
 
     costs: [S, G, L, D] int32, contiguous: S scan steps of G direction
@@ -91,8 +102,8 @@ def _sgm_scan(costs: torch.Tensor, has_prev_masks, n_shift: int,
     predecessor exists (applied from step 1; step 0 always starts a
     scanline), or None when every line has one. The last `n_shift`
     members shift their state +1 along L between steps (the diagonal
-    directions: the predecessor is one line over). Returns the per-step Lc
-    volume [S, G, L, D] int32."""
+    directions: the predecessor is one line over). `cap` saturates Lc (None:
+    no cap). Returns the per-step Lc volume [S, G, L, D] int32."""
     S, G, L, D = costs.shape
     out = torch.empty_like(costs)
     out[0] = costs[0]
@@ -109,6 +120,8 @@ def _sgm_scan(costs: torch.Tensor, has_prev_masks, n_shift: int,
             Lp, torch.minimum(torch.minimum(pd[..., :-2], pd[..., 2:]) + P1,
                               minprev + P2))
         Lc = costs[s] + best - minprev
+        if cap is not None:
+            Lc = torch.clamp(Lc, max=cap)
         if hp is not None:
             Lc = torch.where(hp, Lc, costs[s])
         out[s] = Lc
@@ -117,12 +130,14 @@ def _sgm_scan(costs: torch.Tensor, has_prev_masks, n_shift: int,
     return out
 
 
-def _aggregate(cost: torch.Tensor, max_disp: int, p1: int, p2: int) -> torch.Tensor:
-    """Sum of the six path costs, [H, W, D] int32."""
+def _aggregate(cost: torch.Tensor, max_disp: int, p1: int, p2: int,
+               cap=None) -> torch.Tensor:
+    """Sum of the six path costs, [H, W, D] int32 (each path cost saturated
+    at `cap` where given)."""
     h, w, D = cost.shape
     # ---- horizontal scan over x: members (1,0) and (-1,0) (x-flipped)
     xs = torch.stack([cost, cost.flip(1)]).permute(2, 0, 1, 3).contiguous()  # [W,2,H,D]
-    out_h = _sgm_scan(xs, None, 0, p1, p2)
+    out_h = _sgm_scan(xs, None, 0, p1, p2, cap)
     agg = torch.empty_like(cost)
     torch.add(out_h[:, 0].permute(1, 0, 2), out_h[:, 1].flip(0).permute(1, 0, 2), out=agg)
     del out_h, xs
@@ -131,7 +146,7 @@ def _aggregate(cost: torch.Tensor, max_disp: int, p1: int, p2: int) -> torch.Ten
     ys = torch.stack([cost, cost.flip(0), cost, cost.flip(0, 1)], 1)      # [H,4,W,D]
     xcols = torch.arange(w, device=cost.device)
     hp = torch.stack([torch.ones_like(xcols, dtype=torch.bool)] * 2 + [xcols >= 1] * 2)
-    out_v = _sgm_scan(ys, hp, 2, p1, p2)
+    out_v = _sgm_scan(ys, hp, 2, p1, p2, cap)
     agg += out_v[:, 0]
     agg += out_v[:, 1].flip(0)
     agg += out_v[:, 2]
@@ -153,17 +168,18 @@ def _windows(a: torch.Tensor, r: int, fill: float) -> torch.Tensor:
     return p.unfold(0, h, 1).unfold(1, w, 1).reshape(-1, h, w)
 
 
-def sgm_disparity_device(left, right, max_disp: int = 128, p1: int = 10,
-                         p2: int = 120, uniqueness: float = 0.1,
-                         speckle_density: int = 12) -> torch.Tensor:
-    """Left disparity [H, W] float32 on the inputs' device; <= 0 where
-    invalid. left/right: [H, W] integer-valued grayscale tensors."""
+def _sgm_until_median(left, right, max_disp: int, p1: int, p2: int,
+                      uniqueness_factor, cap=None) -> torch.Tensor:
+    """The stages both SGM variants share, census to the 3x3 median: left
+    disparity [H, W] float32, -1 where invalid. `uniqueness_factor` is the
+    float32 scalar the best cost is multiplied by before it is compared with
+    the second best; `cap` saturates every path cost (None: no cap)."""
     f32 = torch.float32
     cl = census_5x5(left)
     cr = census_5x5(right)
     dev = cl.device
     D = max_disp
-    agg = _aggregate(_cost_volume(cl, cr, D), D, p1, p2)                 # [H, W, D]
+    agg = _aggregate(_cost_volume(cl, cr, D), D, p1, p2, cap)            # [H, W, D]
     h, w = cl.shape
 
     # ---- WTA (first minimum) + uniqueness + subpixel
@@ -171,7 +187,7 @@ def sgm_disparity_device(left, right, max_disp: int = 128, p1: int = 10,
     rel = torch.arange(D, device=dev) - best[..., None]
     second = torch.where(rel.abs() <= 1, INF, agg).amin(-1)
     c1 = bc.to(f32)
-    ambiguous = (second < INF) & (c1 * torch.tensor(1.0 + uniqueness, dtype=f32)
+    ambiguous = (second < INF) & (c1 * torch.tensor(uniqueness_factor, dtype=f32)
                                   > second.to(f32))
     c0 = agg.gather(-1, (best - 1).clamp(min=0)[..., None])[..., 0].to(f32)
     c2 = agg.gather(-1, (best + 1).clamp(max=D - 1)[..., None])[..., 0].to(f32)
@@ -204,11 +220,73 @@ def sgm_disparity_device(left, right, max_disp: int = 128, p1: int = 10,
     for a, b in _MEDIAN9:
         vals[a], vals[b] = torch.minimum(vals[a], vals[b]), torch.maximum(vals[a], vals[b])
     med = torch.stack(vals).gather(0, (n // 2)[None])[0]
-    disp = torch.where((disp > 0) & (n >= 5), med, disp)
+    return torch.where((disp > 0) & (n >= 5), med, disp)
 
-    # ---- density speckle suppression
+
+def sgm_disparity_device(left, right, max_disp: int = 128, p1: int = 10,
+                         p2: int = 120, uniqueness: float = 0.1,
+                         speckle_density: int = 12) -> torch.Tensor:
+    """Left disparity [H, W] float32 on the inputs' device; <= 0 where
+    invalid. left/right: [H, W] integer-valued grayscale tensors. The
+    device frontend's variant (JAX ops/sgm.py): the density speckle test."""
+    f32 = torch.float32
+    disp = _sgm_until_median(left, right, max_disp, p1, p2, np.float32(1.0 + uniqueness))
     v = disp > 0
     nb = _windows(torch.where(v, disp, 0.0), 4, 0.0)
     nv = _windows(v.to(f32), 4, 0.0) > 0
     cnt = (nv & ((nb - disp).abs() <= 2.0)).sum(0)
     return torch.where(v & (cnt < speckle_density), -1.0, disp)
+
+
+# ---------------------------------------------------------------- native/
+
+
+NATIVE_PATH_CAP = 60000     # cvo_native.cpp's uint16 path costs saturate here
+NATIVE_SPECKLE_MIN = 120    # its kSpeckleMin
+
+
+def speckle_regions(disp: torch.Tensor, min_size: int = NATIVE_SPECKLE_MIN,
+                    max_diff: float = 1.0) -> torch.Tensor:
+    """cvo_native.cpp's speckle removal: the 4-connected regions of valid
+    pixels (> 0) whose neighbours differ by at most `max_diff` (in float32)
+    are set to -1 where they hold fewer than `min_size` pixels. The regions
+    are the connected components of those links (ops/lidar.py::components:
+    the L1 kernel on the card, its plain version on the CPU), with no
+    horizontal link out of the last column, so nothing wraps."""
+    labels = lidar.components(*speckle_links(disp, max_diff)).reshape(-1).to(torch.int64)
+    size = torch.bincount(labels, minlength=labels.numel())[labels].view_as(disp)
+    return torch.where((disp > 0) & (size < min_size), -1.0, disp)
+
+
+def speckle_links(disp: torch.Tensor, max_diff: float = 1.0):
+    """(link_v [H - 1, W], link_h [H, W]) of speckle_regions: neighbours
+    both valid and within `max_diff`, no link out of the last column."""
+    v = disp > 0
+    link_v = v[:-1] & v[1:] & ((disp[1:] - disp[:-1]).abs() <= max_diff)
+    link_h = torch.zeros_like(v)
+    link_h[:, :-1] = v[:, :-1] & v[:, 1:] & ((disp[:, 1:] - disp[:, :-1]).abs() <= max_diff)
+    return link_v, link_h
+
+
+def sgm_disparity_native(left, right, max_disp: int = 128, p1: int = 10, p2: int = 120,
+                         uniqueness: float = 0.1) -> torch.Tensor:
+    """native/cvo_native.cpp's cvo_sgm_disparity (the JAX package's
+    `native.sgm_disparity`, compute_disparity's backend on a machine without
+    OpenCV) bit for bit, on the inputs' device: the shared stages to the
+    median with the C++'s float32 `1.0f + uniqueness` and its uint16 path
+    costs (saturating at 60000; a cap that binds only where p2 > 59976),
+    then the region speckle. left/right: [H, W] uint8-valued grey images.
+    Raises RuntimeError where the C++ returns -1."""
+    h, w = left.shape[-2:]
+    if tuple(right.shape) != tuple(left.shape) or left.dim() != 2:
+        raise ValueError(f"sgm_disparity_native: left {tuple(left.shape)} and right "
+                         f"{tuple(right.shape)} must be one [H, W] shape")
+    if h <= 0 or w <= 0 or max_disp <= 0 or max_disp > 256:
+        raise RuntimeError(f"cvo_sgm_disparity failed: -1 (h {h}, w {w}, max_disp {max_disp})")
+    if not (0 <= p1 <= 0xFFFF and 0 <= p2 <= 0xFFFF):
+        raise ValueError(f"sgm_disparity_native: p1 {p1} and p2 {p2} must fit the C++'s "
+                         f"uint16 costs")
+    cap = NATIVE_PATH_CAP if p2 + MAX_COST > NATIVE_PATH_CAP else None
+    disp = _sgm_until_median(left, right, max_disp, p1, p2,
+                             np.float32(1.0) + np.float32(uniqueness), cap)
+    return speckle_regions(disp)
