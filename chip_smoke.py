@@ -81,7 +81,16 @@ kernel of each path was launched:
                    kitti_odometry.run_sequence at its defaults (NL-means,
                    FAST, native disparity) over 2 pairs and one --semantic
                    pair; irls_kitti, depth_filtering and indicator_sweep,
-                   phase 15.
+                   phase 15;
+  ORB, tools       cv2's ORB as an exact port on the card against the CPU
+                   (phase 15's frame 0 from its PNG, phase 10's frame 0:
+                   keypoints, octaves, responses equal, in order; per-stage
+                   times); CANNY_EDGES selection card against CPU and one
+                   stereo pair through pointcloud_from_stereo(method=
+                   CANNY_EDGES) and align, within 5e-3 (or the CPU runs'
+                   spread) of the port's CPU pose (CANNY_CPU); gicp_align,
+                   evaluate_semantics and the prefetch loader card against
+                   CPU, phase 16.
 
 Phase 2c also holds flow_rows and step_uncached (the entry points of
 pallas_ell.flow_stats_ell_fused and step_coeffs_ell_fused, which no align
@@ -123,7 +132,8 @@ prints no result line.
 
 `--slam-only` builds, then runs phases 11-12 alone and prints their JSON
 line, no result line. `--lidar-only` does the same for phase 13, and
-`--ba-only` for phase 14, `--stereo-only` for phase 15. Phase 12d also
+`--ba-only` for phase 14, `--stereo-only` for phase 15, `--orb-only` for
+phase 16. Phase 12d also
 runs its CG loop three times on the card and fails unless they are
 bit-equal. `--assembly-compare DIR` times that loop three times and phase
 8's IRLS BA twice with the package in DIR and with this tree's, in turns
@@ -137,7 +147,7 @@ Usage: python3 chip_smoke.py [--frames 4] [--dense-ablation | --select-ablation 
                              --ell-ablation | --posegraph-ablation |
                              --compare-tree DIR | --assembly-compare DIR |
                              --slam-only | --lidar-only | --ba-only |
-                             --stereo-only]
+                             --stereo-only | --orb-only]
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails. The last line of stdout is the result object.
 """
@@ -3921,6 +3931,335 @@ def stereo_host_phase(dev, smi, results):
     return out
 
 
+ORB_FEATURES = 3333                  # 16a: nfeatures, CANNY_EDGES' expected_points // 3
+CANNY_EXPECTED = 10000               # 16b: pointcloud_from_stereo's expected_points
+CANNY_CAPACITY = 32768               # 16b: kitti_odometry.CAPACITY
+CANNY_ITER = 1500                    # 16b: the pair's iteration cap (the phase's YAML's)
+CANNY_CHECK_ITER = 10                # 16b: the cap of a second run, before the pair parts
+CANNY_POSE_TOL = 5e-3                # 16b: the North star's |log dT|, card against CPU
+# 16b's pair: phase 15's frames 1 -> 2 through pointcloud_from_stereo(method=
+# CANNY_EDGES) at its defaults, aligned from the identity at the phase YAML's
+# schedule. The lists are rebuilt every few iterations, and CPU runs with the
+# guess moved by +-1e-6 m part: by <= 4.4e-4 after 10 iterations, ~0.05 after
+# 50, up to 0.15 at the 1500 cap, where the pair stops (JAX too: its pose error
+# 0.186875, 0.1365 from the port's; frames 0 -> 1 at the first-frame schedule
+# stop mid-descent, as phase 15c's pair 0 does). Per cap: the port's CPU run
+# (its relative pose as an se(3) log, pose error, iterations, builds, the
+# largest gap of four runs with the guess moved by +-1e-6 m along x and z),
+# from `JAX_PLATFORMS=cpu python tests/test_torch_stereo_odometry.py
+# --chip-canny --jax [--caps 10]`. The card must lie within CANNY_POSE_TOL of
+# the CPU pose, or, where the pair stops at the cap, within twice the spread
+# (two runs each within the spread of the CPU's may part by twice it).
+CANNY_CPU = {
+    CANNY_CHECK_ITER: ((-0.000740468, 0.009726136, 0.011127607, 0.000528287, 0.00562755,
+                        0.008464494), 0.341726, 10, 3, 0.000442),
+    CANNY_ITER: ((0.000499234, 0.009500891, -0.000370788, 0.000547185, 0.019421048,
+                  0.300117935), 0.052473, 1500, 6, 0.15)}
+GICP_TOL = 1e-9                      # 16c: T, card against CPU (float64)
+
+
+def orb_checks(images, dev, smi):
+    """16a: cv2.ORB's exact port (frontend/orb.py) on the card against the
+    CPU on each (label, BGR) image's grey level: pt bit for bit, octave and
+    response equal, in order; the whole call's ms (host clock, synchronised:
+    its selection stages run on the host), its device kernels and busy time
+    (torch.profiler), and each stage's ms (CUDA events; the host's
+    retainBest by the host clock)."""
+    from unified_cvo_tpu_torch.frontend import image, orb
+
+    out = {}
+    for label, bgr in images:
+        gk, gc = (image.make_raw_image(bgr, denoise=False, device=d).intensity.to(torch.uint8)
+                  for d in (dev, "cpu"))
+        if not torch.equal(gk.cpu(), gc):
+            raise SystemExit(f"phase 16a {label}: the grey level differs from the CPU's")
+        kk = orb.detect(gk, ORB_FEATURES)
+        t0 = time.perf_counter()
+        kc = orb.detect(gc, ORB_FEATURES)
+        cpu_s = time.perf_counter() - t0
+        for f in ("pt", "octave", "response"):
+            if not torch.equal(getattr(kk, f).cpu(), getattr(kc, f)):
+                raise SystemExit(f"phase 16a {label}: ORB's {f} on the card differs from the "
+                                 f"CPU's ({len(kk)} / {len(kc)} keypoints)")
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orb.detect(gk, ORB_FEATURES)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        n_dev, busy = profiled(lambda: orb.detect(gk, ORB_FEATURES))
+        levels = orb.pyramid(gk)
+        budgets = orb.level_budgets(ORB_FEATURES)
+        stages = {"pyramid": event_ms(lambda: orb.pyramid(gk))[0]}
+        ms, corners = event_ms(lambda: [orb.fast_corners(im, orb.EDGE_THRESHOLD)
+                                        for im in levels])
+        stages["fast_nms_border"] = ms
+        t0 = time.perf_counter()
+        scores = [sc.tolist() for _, sc in corners]
+        picks = [orb.retain_best(sc, 2 * b) for sc, b in zip(scores, budgets)]
+        stages["retain_best_fast_host"] = 1e3 * (time.perf_counter() - t0)
+        cand = [xy[torch.tensor(p, dtype=torch.int64, device=dev)]
+                for (xy, _), p in zip(corners, picks)]
+        ms, resp = event_ms(lambda: [orb.harris_responses(im, xy)
+                                     for im, xy in zip(levels, cand)])
+        stages["harris"] = ms
+        t0 = time.perf_counter()
+        for r, b in zip(resp, budgets):
+            orb.retain_best(r.tolist(), b)
+        stages["retain_best_harris_host"] = 1e3 * (time.perf_counter() - t0)
+        row = {"shape": list(gk.shape), "keypoints": len(kk),
+               "per_level": torch.bincount(kk.octave.long().cpu(), minlength=orb.N_LEVELS)
+               .tolist(), "fast_corners": [len(sc) for sc in scores],
+               "ms": statistics.median(walls), "device_kernels": n_dev, "device_busy_ms": busy,
+               "stages_ms": stages, "cpu_s": cpu_s}
+        out[label] = row
+        log(f"phase 16a ORB ({gk.shape[1]} x {gk.shape[0]}, nfeatures {ORB_FEATURES}): "
+            f"{len(kk)} keypoints {row['per_level']} from FAST corners "
+            f"{row['fast_corners']}, card equal to the CPU (pt, octave, response, in order; "
+            f"CPU {cpu_s:.2f} s); {row['ms']:.2f} ms a call (host clock, synchronised, median "
+            f"of 5), {n_dev} device kernels+copies, busy {busy:.2f} ms; stages: "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()) + f" ({smi})")
+    return out
+
+
+def canny_pair(frames, calib, params, dev, guess=None, max_iter=CANNY_ITER, clouds=None):
+    """16b's pair on `dev`: frames 1 and 2 through
+    pointcloud_from_stereo(method=CANNY_EDGES) at its defaults (unless
+    `clouds` are given), then align from `guess` (the identity) at `params`,
+    `max_iter` iterations at most. Returns (clouds, T, ret, info)."""
+    from unified_cvo_tpu_torch.frontend import pipeline
+    from unified_cvo_tpu_torch.frontend import selector as sel
+    from unified_cvo_tpu_torch.models.align import align
+
+    if clouds is None:
+        clouds = [pipeline.pointcloud_from_stereo(l, r, calib, method=sel.CANNY_EDGES,
+                                                  capacity=CANNY_CAPACITY, device=dev)
+                  for l, r in frames[1:3]]
+    if guess is None:
+        guess = torch.eye(4, dtype=torch.float32)
+    T, ret, info = align(clouds[0], clouds[1], guess.to(dev), params, max_iter=max_iter,
+                         device=dev)
+    return clouds, T, ret, info
+
+
+def canny_gap(T, info, cap, what):
+    """The card's pose T of canny_pair at `cap` against the port's CPU run
+    (CANNY_CPU[cap]): the gap, the tolerance and the CPU run's numbers; exits
+    where the gap is not below the tolerance."""
+    if cap not in CANNY_CPU:
+        raise SystemExit(f"{what}: no CPU pose recorded at {cap} iterations (CANNY_CPU)")
+    xi, cpu_err, cpu_iters, cpu_builds, spread = CANNY_CPU[cap]
+    gap = jax_gap(xi, T)
+    tol = max(CANNY_POSE_TOL, 2 * spread) if info.iterations == cap else CANNY_POSE_TOL
+    log(f"  {what}, {cap} iterations at most: the card ran {info.iterations} iterations, "
+        f"{info.nl_rebuilds} builds; the port's CPU run: pose error {cpu_err:.6f}, "
+        f"{cpu_iters} iterations, {cpu_builds} builds, spread {spread:.3g} over +-1e-6 m "
+        f"guesses; the card lies {gap:.3g} from its pose (tolerance {tol:.3g})")
+    if not gap < tol:
+        raise SystemExit(f"{what}: the card's pose lies {gap} from the CPU run's after {cap} "
+                         f"iterations (tolerance {tol})")
+    return {"gap_to_cpu": gap, "tolerance": tol, "cpu_pose_error": cpu_err,
+            "cpu_iterations": cpu_iters, "cpu_builds": cpu_builds, "cpu_spread": spread}
+
+
+def canny_orb_checks(frames, traj, calib, params, dev, smi, results):
+    """16b: the CANNY_EDGES selection of frame 0 on the card against the CPU
+    (uv and types equal); then canny_pair on the card (the exact NL-means,
+    the native disparity, ORB, Canny, align), the launches of select,
+    flow_reduce, step_cached, components8 and L1 counted from 0 around it;
+    components8 against its plain version on frame 0's candidates, kernels
+    1-3 against theirs on the pair's clouds; the pose against the port's
+    CPU run (CANNY_CPU) within CANNY_POSE_TOL, or within twice the CPU runs'
+    spread where the pair stops at the cap, at CANNY_ITER and again at
+    CANNY_CHECK_ITER iterations (before the runs part)."""
+    from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
+    from unified_cvo_tpu_torch.frontend import image
+    from unified_cvo_tpu_torch.frontend import selector as sel
+    from unified_cvo_tpu_torch.ops import canny
+    from unified_cvo_tpu_torch.ops import lidar as lops
+
+    left = frames[0][0]
+    t0 = time.perf_counter()
+    picks = [sel.select_points(image.make_raw_image(left, denoise=False, device=d), "stereo",
+                               sel.CANNY_EDGES, CANNY_EXPECTED, seed=0) for d in (dev, "cpu")]
+    select_s = time.perf_counter() - t0
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(*picks)):
+        raise SystemExit("phase 16b: the CANNY_EDGES selection on the card differs from the "
+                         "CPU's")
+    n_surface = int(picks[1][1][:, 1].sum())
+    reset_launch_counts()
+    canny.reset_launches()
+    lops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clouds, T, ret, info = canny_pair(frames, calib, params, dev)
+    torch.cuda.synchronize()
+    pair_s = time.perf_counter() - t0
+    launches = launch_counts()
+    c8, l1 = canny.components8.launches, lops.components.launches
+    T = T.cpu().numpy().astype(np.float64)
+    err = f2f.pose_errors([T], [np.linalg.inv(traj[2]) @ traj[1]])[0]
+    row = {"select_card_and_cpu_s": select_s, "picks": len(picks[1][0]),
+           "surface_picks": n_surface, "cloud_points": [int(c.mask.sum()) for c in clouds],
+           "pair_s": pair_s, "iterations": info.iterations,
+           "builds": info.nl_rebuilds, "final_ell": float(info.final_ell), "ret": int(ret),
+           "pose_error": err, "launches": {"select": launches["select"],
+                                            "flow_reduce": launches["flow_reduce"],
+                                            "step_cached": launches["step_cached"],
+                                            "components8": c8, "lidar_components": l1}}
+    log(f"phase 16b CANNY_EDGES ({left.shape[1]} x {left.shape[0]}, expected "
+        f"{CANNY_EXPECTED}): {row['picks']} picks ({n_surface} surface), card equal to the "
+        f"CPU ({select_s:.2f} s both); frames 1 -> 2: clouds {row['cloud_points']} and "
+        f"align in {pair_s:.2f} s (host clock), {info.iterations} iterations, "
+        f"{info.nl_rebuilds} builds, final ell {row['final_ell']:.6f}, pose error {err:.6f}; "
+        f"launches {row['launches']} ({smi})")
+    if not (row["ret"] == 0 and launches["select"] >= info.nl_rebuilds > 0
+            and launches["flow_reduce"] == launches["step_cached"] == info.iterations > 0
+            and c8 == 2 and l1 == 2):
+        raise SystemExit(f"phase 16b: launches {row['launches']} do not match 2 clouds, "
+                         f"{info.nl_rebuilds} builds and {info.iterations} iterations")
+    row["cpu"] = {CANNY_ITER: canny_gap(T, info, CANNY_ITER, "phase 16b")}
+    _, Tc, _, ic = canny_pair(frames, calib, params, dev, max_iter=CANNY_CHECK_ITER,
+                              clouds=clouds)
+    row["cpu"][CANNY_CHECK_ITER] = canny_gap(Tc.cpu().numpy().astype(np.float64), ic,
+                                             CANNY_CHECK_ITER, "phase 16b")
+    gk = image.make_raw_image(left, device=dev).intensity
+    cand, _ = canny.canny_candidates(gk)
+    if not torch.equal(canny.components8(cand), canny.components8_plain(cand)):
+        raise SystemExit("phase 16b: components8 differs from its plain version")
+    driver_kernel_checks(clouds[0], clouds[1], np.linalg.inv(traj[1]) @ traj[2], params, dev,
+                         results, "phase 16b frames 1 -> 2")
+    for name in ("select", "flow_reduce", "step_cached"):
+        results[name]["launches_canny_edges_pair"] = launches[name]
+    if "components8" in results:
+        results["components8"]["launches_canny_edges_pair"] = c8
+    return row
+
+
+def tools_checks(root, dev, smi):
+    """16c: the tools on the card against the CPU: gicp_align on two PCDs
+    of PCD_POINTS points cut from two rendered HDL-64 scans as phase 13d
+    cuts them (T within GICP_TOL, iterations equal); evaluate_semantics on a
+    19-class label PNG at 1241 x 376 (confusion and IoU equal); the
+    PrefetchLoader on the scans' velodyne bins (equal to np.fromfile)."""
+    import os
+
+    from unified_cvo_tpu_torch.apps import evaluate_semantics as sem
+    from unified_cvo_tpu_torch.apps import gicp_align_two as gicp
+    from unified_cvo_tpu_torch.datasets import png
+    from unified_cvo_tpu_torch.datasets.kitti import KittiHandler
+    from unified_cvo_tpu_torch.datasets.pcd import read_pcd
+    from unified_cvo_tpu_torch.datasets.prefetch import PrefetchLoader
+    from unified_cvo_tpu_torch.utils import synth
+
+    out = {}
+    kdir = os.path.join(root, "kitti_lidar")
+    traj = synth.corridor_trajectory(2, step=0.15, yaw_rate=0.02, bob=0.0)
+    synth.write_kitti_lidar_sequence(
+        kdir, synth.room_scene(11, half=8.0, floor_y=1.8, ceil_y=-3.0, n_pillars=4), traj,
+        n_beams=LIDAR_BEAMS, n_az=LIDAR_AZ, noise=0.005, fov_deg=LIDAR_FOV)
+    bins = [os.path.join(kdir, "velodyne", f"{i:06d}.bin") for i in range(2)]
+    loader = PrefetchLoader(2)
+    tickets = [loader.submit(p, PrefetchLoader.RAW_F32) for p in bins]
+    for p, t in zip(bins, tickets):
+        if not np.array_equal(loader.get(t), np.fromfile(p, np.float32)):
+            raise SystemExit(f"phase 16c: the PrefetchLoader's {p} differs from np.fromfile")
+    loader.close()
+    reader = KittiHandler(kdir, "lidar")
+    scans = []
+    for _ in range(2):
+        scans.append(reader.read_next_lidar())
+        reader.next()
+    src, tgt = os.path.join(root, "source.pcd"), os.path.join(root, "target.pcd")
+    pcd_pair(scans, src, tgt)
+    sx, tx = read_pcd(src)[0], read_pcd(tgt)[0]
+    runs = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        runs[str(d)] = gicp.gicp_align(sx, tx, device=d) + (time.perf_counter() - t0,)
+    (Tk, ik, rk, sk), (Tc, ic, rc, sc) = runs[str(dev)], runs["cpu"]
+    gap = float(np.abs(Tk - Tc).max())
+    out["gicp"] = {"points": len(sx), "iterations": ik, "rmse": rk, "card_s": sk, "cpu_s": sc,
+                   "max_abs_T_gap": gap}
+    log(f"phase 16c gicp_align ({len(sx)} / {len(tx)} points): {ik} iterations, rmse {rk:.6f}, "
+        f"card {sk:.2f} s, CPU {sc:.2f} s (host clocks; the kNN on the host), T max abs gap "
+        f"{gap:.3g} (tolerance {GICP_TOL}) ({smi})")
+    if not (ik == ic and gap <= GICP_TOL):
+        raise SystemExit(f"phase 16c: gicp_align on the card ({ik} iterations) differs from "
+                         f"the CPU's ({ic}) by {gap}")
+    rng = np.random.default_rng(16)
+    h, w = KITTI00["rows"], KITTI00["cols"]
+    gt = rng.integers(0, STEREO_CLASSES, (h, w)).astype(np.uint8)
+    pred = np.where(rng.random((h, w)) < 0.7, gt, rng.integers(0, 255, (h, w))).astype(np.uint8)
+    paths = [os.path.join(root, f"{n}.png") for n in ("gt", "pred")]
+    for path, a in zip(paths, (gt, pred)):
+        png.imwrite(path, a)
+    labels = [sem._load(p) for p in paths]
+    ek, ec = (sem.evaluate(*labels, STEREO_CLASSES, (0,), device=d) for d in (dev, "cpu"))
+    if not (torch.equal(ek["confusion"].cpu(), ec["confusion"])
+            and np.array_equal(ek["iou"].cpu().numpy(), ec["iou"].numpy(), equal_nan=True)
+            and (ek["mean_iou"], ek["accuracy"]) == (ec["mean_iou"], ec["accuracy"])):
+        raise SystemExit("phase 16c: evaluate_semantics on the card differs from the CPU's")
+    ms, _ = event_ms(lambda: sem.confusion_matrix(*labels, STEREO_CLASSES, (0,), device=dev))
+    out["evaluate_semantics"] = {"mean_iou": ek["mean_iou"], "accuracy": ek["accuracy"],
+                                 "confusion_ms": ms}
+    log(f"phase 16c evaluate_semantics ({w} x {h}, {STEREO_CLASSES} classes): card equal to "
+        f"the CPU, mean IoU {ek['mean_iou']:.6f}, accuracy {ek['accuracy']:.6f}, confusion "
+        f"{ms:.3f} ms (CUDA events); PrefetchLoader equal to np.fromfile on 2 velodyne bins "
+        f"({smi})")
+    return out
+
+
+def orb_phase(dev, smi, results):
+    """Phase 16: cv2's ORB as an exact port, CANNY_EDGES on the card, and the
+    remaining tools. 16a: ORB on phase 15's KITTI frame 0 read back from its
+    PNG, on phase 10's 640 x 480 frame and on a 1241 x 376 block texture
+    whose every level holds more corners than its budget, card against CPU; 16b: the
+    CANNY_EDGES selection card against CPU and one stereo pair through
+    pointcloud_from_stereo(method=CANNY_EDGES) and align on the card; 16c:
+    gicp_align, evaluate_semantics and the PrefetchLoader card against CPU
+    (the viewer needs matplotlib, which the card's machine lacks). 16c runs
+    before 16b."""
+    import os
+    import tempfile
+
+    from unified_cvo_tpu_torch.config import read_cvo_params_yaml
+    from unified_cvo_tpu_torch.datasets import png
+
+    out, parts = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orb_") as root:
+        t0 = time.perf_counter()
+        calib, frames, traj = stereo_frames()
+        path = os.path.join(root, "000000.png")
+        png.imwrite(path, frames[0][0])
+        kitti_left = png.imread(path)
+        tum_bgr = rgbd_frames(poses=[0])[1][0][0]
+        # 2 x 2 blocks of seeded grey: FAST finds more corners than every
+        # level's budget, so retainBest selects (the rendered frames fill none)
+        blocks = np.kron(np.random.default_rng(16).integers(0, 256, (188, 621), np.uint8),
+                         np.ones((2, 2), np.uint8))[:KITTI00["rows"], :KITTI00["cols"]]
+        yaml = os.path.join(root, "stereo.yaml")
+        with open(yaml, "w") as f:
+            f.write(STEREO_HOST_YAML)
+        params = read_cvo_params_yaml(yaml)
+        parts["inputs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["orb"] = orb_checks([("KITTI frame 0 (PNG)", kitti_left), ("TUM frame 0", tum_bgr),
+                                 ("block texture", np.repeat(blocks[..., None], 3, -1))],
+                                dev, smi)
+        parts["16a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["tools"] = tools_checks(root, dev, smi)
+        parts["16c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["canny_edges"] = canny_orb_checks(frames, traj, calib, params, dev, smi, results)
+        parts["16b"] = time.perf_counter() - t0
+    out["seconds"] = parts
+    log("phase 16 parts: " + ", ".join(f"{k} {v:.2f} s" for k, v in parts.items()))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=MAIN_FRAMES,
@@ -3955,6 +4294,10 @@ def main(argv=None) -> int:
                            "the native census-SGM against the C++ library, Canny, the driver "
                            "at its defaults and the stereo apps), print its JSON lines, stop "
                            "without a result line")
+    mode.add_argument("--orb-only", action="store_true",
+                      help="build, then run phase 16 alone (cv2's ORB exact, CANNY_EDGES "
+                           "on the card, GICP, evaluate_semantics, the prefetch loader), "
+                           "print its JSON line, stop without a result line")
     mode.add_argument("--assembly-compare", metavar="DIR",
                       help="--assembly-times of DIR and of this tree in turns (DIR, this, "
                            "this, DIR), each in a process of its own, then stop")
@@ -4070,6 +4413,13 @@ def main(argv=None) -> int:
         log(f"phase 15: {time.perf_counter() - t0:.2f} s")
         log(json.dumps({"paths": paths}, default=str))
         log(json.dumps({"kernel_checks": results}, default=str))
+        return 0
+    if args.orb_only:
+        results = {n: {"max_abs_err": 0.0} for n in ("select", "flow_reduce", "step_cached")}
+        t0 = time.perf_counter()
+        paths = {"orb": orb_phase(dev, smi, results)}
+        log(f"phase 16: {time.perf_counter() - t0:.2f} s")
+        log(json.dumps({"paths": paths, "kernel_checks": results}, default=str))
         return 0
     check_kernels(frames_np, guess_np, params, dev, results, floor)
     t0 = time.perf_counter()
@@ -4268,6 +4618,12 @@ def main(argv=None) -> int:
     log(f"phase 15 (KITTI stereo host frontend, driver and stereo apps, CPU and C++ checks "
         f"included): {time.perf_counter() - t0:.2f} s")
 
+    # ---- phase 16: cv2's ORB exact, CANNY_EDGES on the card, the remaining tools
+    t0 = time.perf_counter()
+    results["orb"] = orb_phase(dev, smi, results)
+    log(f"phase 16 (ORB, CANNY_EDGES pair and tools, CPU checks included): "
+        f"{time.perf_counter() - t0:.2f} s")
+
     # ---- phase 5: where an iteration's time goes (profiler, not counted)
     profile_main_path(f2f, frames, guess, params, dev, label=" ELL path")
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
@@ -4276,7 +4632,7 @@ def main(argv=None) -> int:
                       label=" colour ELL path")
     paths = {name: results.pop(name) for name in ("acvo", "irls", "kitti_stereo", "tum_rgbd",
                                                    "tum_host", "slam", "lidar", "ba",
-                                                   "stereo_host")}
+                                                   "stereo_host", "orb")}
     log(json.dumps({"paths": paths}, default=str))
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,6 +6,8 @@ against the JAX package's host frontend on the CPU.
   same grey image, for rgbd, stereo and stereo with semantics, on rendered
   TUM and KITTI frames: uv equal, order included. The scores also give
   cv2's keypoints at each threshold 0..40.
+- CANNY_EDGES and EDGES_ONLY against JAX's select_points: uv and types
+  equal;
 - make_raw_image, DSO_EDGES, FULL and pointcloud_from_rgbd (masks equal,
   xyz rtol 1e-6, features abs 1e-6), pointcloud_from_stereo on a given
   disparity.
@@ -179,19 +181,18 @@ def test_dso_and_full_selection_match_jax(num_want, tum_frame, jax_opencv4):
 
 @pytest.mark.parametrize("method", [t_sel.CANNY_EDGES, t_sel.EDGES_ONLY])
 def test_canny_and_orb_selection_raise(method, tum_frame, jax_opencv4):
-    """CANNY_EDGES needs ORB, which is not ported: it raises, naming its
-    ROADMAP item. EDGES_ONLY needs Canny alone, which is: it no longer
-    raises and gives JAX's selection (tests/test_torch_stereo_native.py
-    holds it on more cases)."""
-    rt = t_image.make_raw_image(tum_frame[0], denoise=False, device=CPU)
-    if method == t_sel.CANNY_EDGES:
-        with pytest.raises(NotImplementedError, match="1.9 f"):
-            t_sel.select_points(rt, "stereo", method)
-        return
+    """CANNY_EDGES (cv2.ORB's keypoints through the port's exact ORB, then
+    the edge and uniform draws) and EDGES_ONLY (Canny alone) no longer
+    raise: each gives JAX's selection, uv and types equal, order included
+    (tests/test_torch_stereo_native.py holds them on more cases). The name
+    is the one of the days when CANNY_EDGES raised."""
     rj = j_image.make_raw_image(tum_frame[0], denoise=False)
-    uv_j, gt_j = j_sel.select_points(rj, "stereo", j_sel.EDGES_ONLY)
+    rt = t_image.make_raw_image(tum_frame[0], denoise=False, device=CPU)
+    uv_j, gt_j = j_sel.select_points(rj, "stereo", method)
     uv_t, gt_t = t_sel.select_points(rt, "stereo", method)
     assert len(uv_j) > 100
+    if method == t_sel.CANNY_EDGES:
+        assert (gt_j[:, 1] == 1).sum() > 1000                 # the uniform draw
     np.testing.assert_array_equal(uv_t.numpy(), uv_j)
     np.testing.assert_array_equal(gt_t.numpy(), gt_j)
 

@@ -1,6 +1,6 @@
 """Package rules of the PyTorch port (unified_cvo_tpu_torch): it imports
-neither jax nor the JAX package, importing it loads no OpenCV (the card's
-machine has none), it never falls back to the CPU unasked,
+neither jax nor the JAX package, importing it loads no OpenCV and no
+matplotlib (the card's machine has neither), it never falls back to the CPU unasked,
 its kernel wrappers take the plain path only for CPU tensors, and its CUDA
 build is configured for Hopper without fast math."""
 
@@ -27,8 +27,10 @@ PKG = ROOT / "unified_cvo_tpu_torch"
 PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "unified_cvo_tpu")
 # importing the port loads none of these; no module of the port imports cv2
-# (PNGs through datasets/png.py, cv2's NL-means through ops/nlm_opencv.py)
-NOT_LOADED = FORBIDDEN + ("cv2",)
+# (PNGs through datasets/png.py, cv2's NL-means through ops/nlm_opencv.py,
+# cv2's ORB through frontend/orb.py), and apps/viewer.py imports matplotlib
+# inside its functions (the card's machine has neither)
+NOT_LOADED = FORBIDDEN + ("cv2", "matplotlib")
 
 
 def _module_names():

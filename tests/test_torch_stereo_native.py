@@ -13,8 +13,9 @@ package on the CPU.
 - the region speckle against a transcription of the C++'s flood fill;
 - the device frontend's SGM keeps its density speckle (JAX's ops/sgm.py);
 - pointcloud_from_stereo on its own disparity against JAX's on the native
-  backend for CV_FAST, DSO_EDGES, FULL and EDGES_ONLY: masks equal, xyz
-  rtol/atol 1e-5; the EDGES_ONLY selection equal to JAX's.
+  backend for CV_FAST, DSO_EDGES, FULL, EDGES_ONLY and CANNY_EDGES: masks
+  equal, xyz rtol/atol 1e-5; the EDGES_ONLY and CANNY_EDGES selections
+  equal to JAX's.
 """
 
 import cv2
@@ -227,7 +228,8 @@ def _port_calib(c):
                                            c.rows)
 
 
-@pytest.mark.parametrize("method", ["CV_FAST", "DSO_EDGES", "FULL", "EDGES_ONLY"])
+@pytest.mark.parametrize("method", ["CV_FAST", "DSO_EDGES", "FULL", "EDGES_ONLY",
+                                    "CANNY_EDGES"])
 def test_pointcloud_from_stereo_matches_jax(method, stereo_frame, jax_opencv4):
     left, right, calib = stereo_frame
     cap = None if method == "FULL" else 16384
@@ -265,5 +267,21 @@ def test_edges_only_selection_matches_jax(expected, seed, stereo_frame, jax_open
     uv_j, gt_j = j_sel.select_points(rj, "stereo", j_sel.EDGES_ONLY, expected, seed)
     uv_t, gt_t = t_sel.select_points(rt, "stereo", t_sel.EDGES_ONLY, expected, seed)
     assert len(uv_j) > 50
+    np.testing.assert_array_equal(uv_t.numpy(), uv_j)
+    np.testing.assert_array_equal(gt_t.numpy(), gt_j)
+
+
+@pytest.mark.parametrize("expected,seed,denoise", [(10000, 0, False), (2000, 3, True),
+                                                   (400, 7, False)])
+def test_canny_edges_selection_matches_jax(expected, seed, denoise, stereo_frame, jax_opencv4):
+    """CANNY_EDGES: ORB's expected // 3 keypoints first (cv2's order), the
+    edge draw, the uniform draw: uv and types equal to JAX's, also on the
+    exact NL-means' image."""
+    left = stereo_frame[0]
+    rj = j_image.make_raw_image(left, denoise=denoise)
+    rt = t_image.make_raw_image(left, denoise=denoise, device=CPU)
+    uv_j, gt_j = j_sel.select_points(rj, "stereo", j_sel.CANNY_EDGES, expected, seed)
+    uv_t, gt_t = t_sel.select_points(rt, "stereo", t_sel.CANNY_EDGES, expected, seed)
+    assert len(uv_j) > expected // 2
     np.testing.assert_array_equal(uv_t.numpy(), uv_j)
     np.testing.assert_array_equal(gt_t.numpy(), gt_j)

@@ -3,8 +3,9 @@
 A copy of unified_cvo_tpu/datasets/kitti.py, kept here so that the port
 imports nothing of the JAX package, with two changes: PNGs are read by the
 port's own decoder (`datasets/png.py`, cv2.imread's bytes), so nothing here
-needs OpenCV; and velodyne scans are read with numpy.fromfile, without the JAX package's
-native prefetch loader (native/ is not ported).
+needs OpenCV; and velodyne scans are read by `datasets/prefetch.py`'s
+thread pool (np.fromfile), which takes the place of the JAX package's native
+prefetch loader: the next scan is read while the current one is registered.
 
 Reference: src/dataset_handler/KittiHandler.cpp. Sequence folder layout:
   <seq>/image_2/*.png, <seq>/image_3/*.png, <seq>/velodyne/*.bin,
@@ -19,6 +20,7 @@ from typing import Optional
 import numpy as np
 
 from unified_cvo_tpu_torch.datasets import png
+from unified_cvo_tpu_torch.datasets.prefetch import PrefetchLoader
 from unified_cvo_tpu_torch.frontend.calibration import Calibration, read_calibration
 
 
@@ -53,6 +55,14 @@ class KittiHandler:
         ]
         self.names = sorted(names)
         self.curr_index = 0
+        self._loader = PrefetchLoader(2)
+        self._pending = {}
+
+    def _read_f32(self, path):
+        ticket = self._pending.pop(path, None)
+        if ticket is None:
+            ticket = self._loader.submit(path, PrefetchLoader.RAW_F32)
+        return self._loader.get(ticket)
 
     def __len__(self):
         return len(self.names)
@@ -91,9 +101,16 @@ class KittiHandler:
         if self.curr_index >= len(self.names):
             return None
         name = self.names[self.curr_index]
-        pts = np.fromfile(
-            os.path.join(self.folder, "velodyne", name + ".bin"), np.float32
+        pts = self._read_f32(
+            os.path.join(self.folder, "velodyne", name + ".bin")
         ).reshape(-1, 4)
+        # prefetch the next scan on the loader's threads while the card
+        # registers this one
+        if self.curr_index + 1 < len(self.names):
+            nxt = self.names[self.curr_index + 1]
+            p = os.path.join(self.folder, "velodyne", nxt + ".bin")
+            if p not in self._pending:
+                self._pending[p] = self._loader.submit(p, PrefetchLoader.RAW_F32)
         xyz = pts[:, :3]
         rotated = np.stack([-xyz[:, 1], -xyz[:, 2], xyz[:, 0]], axis=1)
         return np.concatenate([rotated, pts[:, 3:4]], axis=1)

@@ -3,8 +3,8 @@
 A copy of unified_cvo_tpu/datasets/tartanair.py, kept here so that the port
 imports nothing of the JAX package, with two changes: PNGs are read by the
 port's own decoder (`datasets/png.py`, cv2.imread's bytes), and the depth
-and segmentation `.npy` files by `np.load`, the call JAX's native reader
-falls back to (native/ is not ported).
+and segmentation `.npy` files by `datasets/prefetch.py::read_npy`
+(np.load), where JAX's reader takes its native cnpy twin.
 
 Reference: src/dataset_handler/TartanAirHandler.cpp (cnpy-based). Layout:
   <traj>/image_left/NNNNNN_left.png
@@ -19,6 +19,7 @@ import os
 import numpy as np
 
 from unified_cvo_tpu_torch.datasets import png
+from unified_cvo_tpu_torch.datasets.prefetch import read_npy
 from unified_cvo_tpu_torch.frontend.calibration import Calibration
 
 # TartanAir pinhole intrinsics (fixed across the dataset)
@@ -52,7 +53,7 @@ class TartanAirHandler:
         depth_path = os.path.join(self.folder, "depth_left", f"{n}_left_depth.npy")
         if rgb is None or not os.path.isfile(depth_path):
             return None
-        return rgb, np.load(depth_path).astype(np.float32)
+        return rgb, read_npy(depth_path).astype(np.float32)
 
     def read_next_rgbd_semantic(self, num_classes: int):
         out = self.read_next_rgbd()
@@ -60,7 +61,7 @@ class TartanAirHandler:
             return None
         rgb, depth = out
         n = self.names[self.curr_index]
-        seg = np.load(os.path.join(self.folder, "seg_left", f"{n}_left_seg.npy"))
+        seg = read_npy(os.path.join(self.folder, "seg_left", f"{n}_left_seg.npy"))
         onehot = np.eye(num_classes, dtype=np.float32)[
             np.clip(seg.astype(np.int64), 0, num_classes - 1)
         ]
