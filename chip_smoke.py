@@ -90,7 +90,15 @@ kernel of each path was launched:
                    CANNY_EDGES) and align, within 5e-3 (or the CPU runs'
                    spread) of the port's CPU pose (CANNY_CPU); gicp_align,
                    evaluate_semantics and the prefetch loader card against
-                   CPU, phase 16.
+                   CPU, phase 16;
+  batch, shards    the lane axis of flow_reduce and step_cached (B = 4 x
+                   16384 points, against their plain versions and, lane by
+                   lane and at B = 1, bit-equal to the unbatched launch),
+                   parallel.batch_align.make_batch_align on 4 bench pairs
+                   against align pair by pair (iterations, builds, pose),
+                   and the sp, ring and sharded-IRLS paths on 2 gloo ranks
+                   sharing the card against the same calls in one process,
+                   phase 17.
 
 Phase 2c also holds flow_rows and step_uncached (the entry points of
 pallas_ell.flow_stats_ell_fused and step_coeffs_ell_fused, which no align
@@ -133,7 +141,7 @@ prints no result line.
 `--slam-only` builds, then runs phases 11-12 alone and prints their JSON
 line, no result line. `--lidar-only` does the same for phase 13, and
 `--ba-only` for phase 14, `--stereo-only` for phase 15, `--orb-only` for
-phase 16. Phase 12d also
+phase 16, `--parallel-only` for phase 17. Phase 12d also
 runs its CG loop three times on the card and fails unless they are
 bit-equal. `--assembly-compare DIR` times that loop three times and phase
 8's IRLS BA twice with the package in DIR and with this tree's, in turns
@@ -147,7 +155,7 @@ Usage: python3 chip_smoke.py [--frames 4] [--dense-ablation | --select-ablation 
                              --ell-ablation | --posegraph-ablation |
                              --compare-tree DIR | --assembly-compare DIR |
                              --slam-only | --lidar-only | --ba-only |
-                             --stereo-only | --orb-only]
+                             --stereo-only | --orb-only | --parallel-only]
 Exits non-zero, printing no result, without a CUDA device or when any
 phase fails. The last line of stdout is the result object.
 """
@@ -1269,18 +1277,22 @@ def launch_counts():
     return {"select": sel.select.launches, "flow_reduce": ell_ops.flow_reduce.launches,
             "flow_reduce_by_variant": dict(ell_ops.flow_reduce.variant_launches),
             "step_cached": ell_ops.step_cached.launches,
+            "flow_reduce_lanes": ell_ops.flow_reduce_lanes.launches,
+            "step_cached_lanes": ell_ops.step_cached_lanes.launches,
             "dense_flow": dense.dense_flow.launches, "dense_step": dense.dense_step.launches}
 
 
 def profile_main_path(f2f, frames, guess, params, dev, iters=200, label="", **align_kw):
     """Where an iteration's time goes: one pair capped at `iters` iterations
-    under torch.profiler. Prints wall time, device kernels and device busy
-    time per iteration, the device's idle share and the heaviest kernels."""
+    under torch.profiler, recording the device's activity alone (host events
+    slowed the loop by ~40% and took tens of seconds to trace). Prints wall
+    time, device kernels and device busy time per iteration, the device's
+    idle share and the heaviest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     f2f.run_sequence(frames[:2], guess, params, device=dev, max_iter=iters, **align_kw)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, infos = f2f.run_sequence(frames[:2], guess, params, device=dev, max_iter=iters,
                                     **align_kw)
@@ -1675,8 +1687,10 @@ def irls_phase(f2f, dev, smi, results, floor):
 
 # ---- phases 9-10: images to trajectory, the device frontends and drivers
 STEREO_FRAMES = 3            # phase 9: rendered stereo frames (2 pairs)
-RGBD_FRAMES = 5              # phase 11: rendered RGB-D frames (4 pairs)
+RGBD_FRAMES = 5              # phase 11: rendered RGB-D frames (the frontend checks)
 TUM_DEVICE_FRAMES = 3        # phase 10: the first 3 of them (2 pairs)
+TUM_HOST_FRAMES = 3          # phase 11's driver: the first 3 of them (2 pairs, to leave
+#                              room for phase 17 in the time limit)
 # KITTI odometry sequence 00's left camera and stereo baseline, full width
 KITTI00 = {"fx": 718.856, "cx": 607.1928, "cy": 185.2157, "baseline": 0.5372,
            "cols": 1241, "rows": 376}
@@ -1760,16 +1774,16 @@ def rgbd_frames(poses=range(RGBD_FRAMES)):
     return calib, frames, traj
 
 
-def profiled(fn, cpu=True):
+def profiled(fn):
     """(device kernels and copies, device busy ms) of one call of fn after a
-    warm-up call, from torch.profiler; `cpu=False` records the device's
-    activity alone (cheaper to trace for calls of ~20000 launches)."""
+    warm-up call, from torch.profiler recording the device's activity alone
+    (host events are not read, and cost seconds to trace for calls of
+    ~20000 launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     n, busy_us = 0, 0.0
@@ -2187,8 +2201,8 @@ def tum_host_phase(dev, smi, results):
     counted; select, flow_reduce and step_cached are held against their
     plain versions on the clouds of frames 0 and 1; then
     tum_odometry.run_frames with its default frontend (denoise=False: the
-    card's machine has no OpenCV) registers the 4 pairs under phase 10's
-    bound and launch checks."""
+    card's machine has no OpenCV) registers the first TUM_HOST_FRAMES - 1
+    pairs under phase 10's bound and launch checks."""
     from unified_cvo_tpu_torch.apps import tum_odometry
     from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH
     from unified_cvo_tpu_torch.frontend import image as fimg
@@ -2240,8 +2254,8 @@ def tum_host_phase(dev, smi, results):
     reset_launch_counts()
     t0 = time.perf_counter()
     poses, _, records = tum_odometry.run_frames(
-        frames, calib, KITTI_COLOR_BENCH, capacity=cap, max_iter=MAX_ITER, denoise=False,
-        device=dev, log=lambda *a: None)
+        frames[:TUM_HOST_FRAMES], calib, KITTI_COLOR_BENCH, capacity=cap, max_iter=MAX_ITER,
+        denoise=False, device=dev, log=lambda *a: None)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()
@@ -3630,8 +3644,7 @@ def disparity_checks(frames, cxx, dev, smi, results):
                          "or from the port's CPU call")
     t0 = time.perf_counter()
     ms, _ = event_ms(lambda: stereo.compute_disparity(lk, rk, backend="native"))
-    n_dev, busy = profiled(lambda: stereo.compute_disparity(lk, rk, backend="native"),
-                           cpu=False)
+    n_dev, busy = profiled(lambda: stereo.compute_disparity(lk, rk, backend="native"))
     timing_s = time.perf_counter() - t0
     glk, grk = torch.from_numpy(gl).to(dev), torch.from_numpy(gr).to(dev)
     med = sgm._sgm_until_median(glk, grk, 128, 10, 120, np.float32(1.0) + np.float32(0.1))
@@ -4260,6 +4273,428 @@ def orb_phase(dev, smi, results):
     return out
 
 
+# Phase 17: batched registration (the lane axis of the ELL consume kernels)
+# and the sharded paths (parallel/) on the card.
+LANES = 4                    # 17a-b: lanes of the lane-axis kernels, pairs of the batch
+BATCH_ITER = 200             # 17b: iteration cap of the batch and of its sequential runs
+BATCH_POSE_TOL = 2e-3        # 17b: a lane's transform against its sequential run's (abs)
+BATCH_PROFILE_ITER = 50      # 17b: iterations of the profiled batch (idle share)
+SHARD_RANKS = 2              # 17c: gloo ranks sharing the one card (NCCL takes one a card)
+SHARD_POINTS = 4096          # 17c: points of the sp / ring pair (bench frames 0 -> 1)
+# 17c: iteration cap of the sp / ring loops. Dense 'jnp' pairs stop far from
+# convergence at any cap the phase can afford, and reordered float32 sums
+# spread their poses with the iterations: on 2048 bench points (CPU) two
+# chunkings part by 1.3e-4 after 20 iterations, 2.1e-4 after 40 and 6.1e-3
+# after 120, over the sp bound. 40 keeps the comparison a test of the
+# sharding, not of that spread.
+SHARD_ITER = 40
+SHARD_TIMEOUT = 300.0        # 17c: seconds before every rank is killed
+
+
+def irls_case():
+    """test_sharding.py's sharded-IRLS setup (5 frames of 256 points, 10
+    edges, the first frame the pivot), as numpy, and its params' fields."""
+    from unified_cvo_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(0)
+    F, n = 5, 256
+    base = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n), rng.uniform(-1, 1, n)],
+                    axis=1).astype(np.float32)
+    frames = []
+    for f in range(F):
+        xi = 0.06 * rng.normal(size=6).astype(np.float32)
+        R, t = (v.numpy() for v in lie.se3_exp(torch.from_numpy(xi), 1.0))
+        if f == 0:
+            R, t = np.eye(3, dtype=np.float32), np.zeros(3, np.float32)
+        frames.append(((base - t) @ R).astype(np.float32))
+    edges = [(i, j) for i in range(F) for j in range(i + 1, F)]
+    fields = dict(ell_init=0.5, multiframe_ell_init=0.5, multiframe_ell_min=0.15,
+                  multiframe_ell_decay_rate=0.8, multiframe_iterations_per_ell=3,
+                  multiframe_iterations_per_solve=4, multiframe_min_nonzeros=10,
+                  multiframe_max_iters=40)
+    return frames, edges, [True] + [False] * (F - 1), fields
+
+
+def lane_inputs(params, frames_np, guess, dev, feats=None):
+    """[LANES, ...] inputs of the lane-axis passes: LANES bench pairs (frame
+    b -> b + 1 at the bench guess, 16384 points, K = 32): x packs, the grid
+    lists' slots (and channel factors, with feats), scalar blocks."""
+    from unified_cvo_tpu_torch.ops import ell as ell_ops
+    from unified_cvo_tpu_torch.ops import lie
+    from unified_cvo_tpu_torch.ops import neighbors as nbr
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    ell = torch.full((), params.ell_init, dtype=torch.float32, device=dev)
+    Rinv, Tinv = lie.invert_rt(guess[:3, :3], guess[:3, 3])
+    xp, ys, chans = [], [], []
+    for b in range(LANES):
+        src, tgt = (make_pointcloud(frames_np[b + i], features=feats, bucket=N_POINTS, device=dev)
+                    for i in (0, 1))
+        nl = nbr.build_neighbor_list(params, ell, src, tgt, Rinv, Tinv)
+        xp.append(ell_ops.pack_x(params, ell, src))
+        ys.append(nl.y_xyz)
+        chans.append(nl.chan)
+    scal = ell_ops.pack_scalars(params, Rinv, Tinv).expand(LANES, -1).contiguous()
+    return (torch.stack(xp), torch.stack(ys), scal,
+            None if chans[0] is None else torch.stack(chans))
+
+
+def lane_kernel_checks(frames_np, feats, guess_np, dev, results, floor):
+    """17a: flow_reduce_lanes and step_cached_lanes at B = 4 x N = 16384, K =
+    32 (geometry, and geometry x channel), also at N = 16100 and 16099, held
+    against their plain versions lane by lane (flow_agree, step_agree), each
+    lane bit-equal to the unbatched launch on its inputs, at B = 4 and at B =
+    1; two launches bit-equal; the step fed the flow's twist rows as they lie
+    in its output; one device kernel a call; the finish counters back at 0.
+    Times: one lane-axis launch against B unbatched launches, and at B = 1."""
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH
+    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH as params
+    from unified_cvo_tpu_torch.ops import ell as ell_ops
+
+    guess = torch.from_numpy(guess_np).to(dev)
+    f_err = s_err = 0.0
+    for label, p, ft in (("geo", params, None), ("geo x chan", KITTI_COLOR_BENCH, feats)):
+        full = lane_inputs(p, frames_np, guess, dev, ft)
+        for n in (None,) + N_ODD:
+            xp, y, sc, ch = (None if t is None else t if n is None else t[..., :n].contiguous()
+                             for t in full)
+            what = f"({label}, B = {LANES}, N = {xp.shape[-1]})"
+            fk = ell_ops.flow_reduce_lanes(xp, y, sc, p.c, p.d, chan=ch)
+            fk2 = ell_ops.flow_reduce_lanes(xp, y, sc, p.c, p.d, chan=ch)
+            fp = ell_ops.flow_reduce_plain(xp, y, sc, p.c, p.d, chan=ch)
+            sk = ell_ops.step_cached_lanes(xp, y, fk[4], sc, twist=fk[0])
+            sk2 = ell_ops.step_cached_lanes(xp, y, fk[4], sc, twist=fk[0])
+            sp = ell_ops.step_cached_plain(xp, y, fk[4], sc, twist=fk[0].contiguous())
+            torch.cuda.synchronize()
+            if not (all(torch.equal(a, b) for a, b in zip(fk, fk2)) and torch.equal(sk, sk2)):
+                raise SystemExit(f"two lane-axis launches on the same inputs differ {what}")
+            for b in range(LANES):
+                _, A_err, tw_err, _ = flow_agree([v[b] for v in fk], [v[b] for v in fp],
+                                                 f"lane {b} {what}")
+                f_err = max(f_err, A_err, tw_err)
+                s_err = max(s_err, step_agree(sk[b], sp[b], f"lane {b} {what}"))
+            # every lane equals the unbatched launch on its inputs, at B = 4 and B = 1
+            f1b = ell_ops.flow_reduce_lanes(xp[:1], y[:1], sc[:1], p.c, p.d,
+                                            chan=None if ch is None else ch[:1])
+            s1b = ell_ops.step_cached_lanes(xp[:1], y[:1], f1b[4], sc[:1], twist=f1b[0])
+            for b in range(LANES):
+                f1 = ell_ops.flow_reduce(xp[b], y[b], sc[b], p.c, p.d,
+                                         chan=None if ch is None else ch[b])
+                s1 = ell_ops.step_cached(xp[b], y[b], f1[4], sc[b], twist=f1[0])
+                if not (all(torch.equal(u[b], v) for u, v in zip(fk, f1))
+                        and torch.equal(sk[b], s1)):
+                    raise SystemExit(f"lane {b} differs from the unbatched launch {what}")
+                if b == 0 and not (all(torch.equal(u[0], v) for u, v in zip(f1b, f1))
+                                   and torch.equal(s1b[0], s1)):
+                    raise SystemExit(f"B = 1 differs from the unbatched launch {what}")
+            log(f"lanes  {what}: flow and step within tolerance of the plain versions lane by "
+                f"lane, every lane bit-equal to the unbatched launch (B = 1 too), reruns "
+                f"bit-equal; nonzeros per lane {fk[2].tolist()}")
+    check_counters_zero(ell_ops, dev, "phase 17a")
+
+    xp, y, sc, _ = lane_inputs(params, frames_np, guess, dev)
+    K, N = y.shape[2], y.shape[3]
+    fk = ell_ops.flow_reduce_lanes(xp, y, sc, params.c, params.d)
+    A, tw = fk[4], fk[0]
+    slot_bytes = 3 * K * N * 4 + 6 * N * 4 + 32 * 4
+    rows = {
+        "flow_reduce_lanes": (
+            lambda B: ell_ops.flow_reduce_lanes(xp[:B], y[:B], sc[:B], params.c, params.d),
+            lambda: [ell_ops.flow_reduce(xp[b], y[b], sc[b], params.c, params.d)
+                     for b in range(LANES)],
+            lambda: ell_ops.flow_reduce_plain(xp, y, sc, params.c, params.d),
+            bound(LANES * (slot_bytes + K * N * 4 + 36), LANES * FLOW_OPS_PER_SLOT * K * N),
+            f_err, "unified_cvo_tpu/ops/pallas_ell.py:184 (_flow_reduce_kernel, under jax.vmap "
+                   "of align: parallel/batch_align.py:51-55)"),
+        "step_cached_lanes": (
+            lambda B: ell_ops.step_cached_lanes(xp[:B], y[:B], A[:B], sc[:B], twist=tw[:B]),
+            lambda: [ell_ops.step_cached(xp[b], y[b], A[b], sc[b], twist=tw[b])
+                     for b in range(LANES)],
+            lambda: ell_ops.step_cached_plain(xp, y, A, sc, twist=tw.contiguous()),
+            bound(LANES * (slot_bytes + K * N * 4 + 24 + 16), LANES * STEP_OPS_PER_SLOT * K * N),
+            s_err, "unified_cvo_tpu/ops/pallas_ell.py:230 (_step_kernel_cached, under jax.vmap "
+                   "of align: parallel/batch_align.py:51-55)"),
+    }
+    for kname, (kfn, seqfn, pfn, (b_ms, b_by), err, replaces) in rows.items():
+        ms = device_ms(lambda: kfn(LANES))
+        ms1 = device_ms(lambda: kfn(1))
+        seq_ms = device_ms(seqfn)
+        plain_ms = device_ms(pfn)
+        n_dev = kernels_per_call(lambda: kfn(LANES))
+        if n_dev != 1:
+            raise SystemExit(f"{kname}: one call launched {n_dev} device kernels, not 1")
+        results[kname] = {
+            "name": kname, "route": "cuda", "source": "unified_cvo_tpu_torch/csrc/ell.cu",
+            "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "lanes": LANES, "ms_b1": ms1, "ms_sequential": seq_ms, "launches_per_call": n_dev,
+            "launch_floor_ms": floor}
+        log(f"time   {kname} (B = {LANES}): kernel {ms:.4f} ms, B = 1 {ms1:.4f} ms, {LANES} "
+            f"unbatched launches {seq_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), launch floor {floor:.4f} ms, {n_dev} device kernel a call")
+    check_counters_zero(ell_ops, dev, "phase 17a timings")
+
+
+def batch_path(frames_np, guess_np, dev, smi, results):
+    """17b: make_batch_align on LANES pairs of the bench scene (frames b ->
+    b + 1, 16384 points, KITTI_GEOMETRIC_BENCH, the bench guess, BATCH_ITER
+    iterations) against align on each pair: every lane with its sequential
+    run's iterations and builds and its transform within BATCH_POSE_TOL; one
+    host read a batched iteration; flow_reduce_lanes and step_cached_lanes
+    launched once a batched iteration and the single-pair passes never;
+    pairs/s of both, and the card's idle share under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH as params
+    from unified_cvo_tpu_torch.models.align import align
+    from unified_cvo_tpu_torch.parallel.batch_align import make_batch_align, stack_pairs
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    frames = [make_pointcloud(f, bucket=N_POINTS, device=dev) for f in frames_np[:LANES + 1]]
+    guess = torch.from_numpy(guess_np).to(dev)
+    src_b, tgt_b = stack_pairs(frames[:LANES], frames[1:])
+    init_b = guess.expand(LANES, 4, 4).contiguous()
+    batch = make_batch_align(params, max_iter=BATCH_ITER, device=dev)
+    make_batch_align(params, max_iter=10, device=dev)(src_b, tgt_b, init_b)     # warm-up
+    align(frames[0], frames[1], guess, params, device=dev, max_iter=10)
+    torch.cuda.synchronize()
+
+    seq = []
+    t0 = time.perf_counter()
+    for b in range(LANES):
+        seq.append(align(frames[b], frames[b + 1], guess, params, device=dev,
+                         max_iter=BATCH_ITER))
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    Tb, rets, iters = batch(src_b, tgt_b, init_b)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches = launch_counts()
+    info = batch.last_info
+    gaps = [float(torch.max(torch.abs(Tb[b] - seq[b][0]))) for b in range(LANES)]
+    bit_equal = [bool(torch.equal(Tb[b], seq[b][0])) for b in range(LANES)]
+    s_iters = [s[2].iterations for s in seq]
+    s_builds = [s[2].nl_rebuilds for s in seq]
+    log(f"batch path (make_batch_align, {LANES} pairs, KITTI_GEOMETRIC_BENCH, "
+        f"{BATCH_ITER}-iteration cap): {batch_s:.3f} s, {LANES / batch_s:.3f} pairs/s; the "
+        f"pairs one by one (align): {seq_s:.3f} s, {LANES / seq_s:.3f} pairs/s ({smi})")
+    log(f"  iterations batch {info.iterations} sequential {s_iters}; builds batch "
+        f"{info.nl_rebuilds} sequential {s_builds}; host reads batch {info.host_reads} "
+        f"({info.host_reads / max(info.iterations):.3f} a batched iteration), sequential "
+        f"{[s[2].host_reads for s in seq]}; transform gap per lane {gaps}, bit-equal {bit_equal}")
+    log(f"  launches {launches}")
+    if not (info.iterations == s_iters and info.nl_rebuilds == s_builds
+            and max(gaps) <= BATCH_POSE_TOL and rets.tolist() == [int(s[1]) for s in seq]
+            and iters.tolist() == s_iters and bool(torch.all(torch.isfinite(Tb)))):
+        raise SystemExit(f"batch lanes do not match their sequential runs: iterations "
+                         f"{info.iterations} vs {s_iters}, builds {info.nl_rebuilds} vs "
+                         f"{s_builds}, gaps {gaps}")
+    n_it = max(info.iterations)
+    if not (info.host_reads == n_it
+            and launches["flow_reduce_lanes"] == launches["step_cached_lanes"] == n_it
+            and launches["flow_reduce"] == launches["step_cached"] == 0
+            and launches["select"] >= sum(info.nl_rebuilds)):
+        raise SystemExit(f"batch path launches {launches}, host reads {info.host_reads}, "
+                         f"{n_it} batched iterations, builds {info.nl_rebuilds}")
+    for name in ("flow_reduce_lanes", "step_cached_lanes"):
+        results[name]["launches"] = launches[name]
+
+    short = make_batch_align(params, max_iter=BATCH_PROFILE_ITER, device=dev)
+    short(src_b, tgt_b, init_b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        short(src_b, tgt_b, init_b)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    n = max(short.last_info.iterations)
+    idle = None if not events else 1 - busy_us / wall_us
+    if events:
+        log(f"  profile ({n} batched iterations, profiler on): wall {wall_us / n:.1f} us a "
+            f"batched iteration, {len(events) / n:.1f} device kernels+copies, busy "
+            f"{busy_us / n:.1f} us, device idle share {idle:.4f}")
+    else:
+        log("  profile: the profiler recorded no device activity (idle share not measured)")
+    return {"pairs": LANES, "max_iter": BATCH_ITER, "batch_s": batch_s, "sequential_s": seq_s,
+            "pairs_per_s": LANES / batch_s, "sequential_pairs_per_s": LANES / seq_s,
+            "iterations": info.iterations, "builds": info.nl_rebuilds,
+            "host_reads": info.host_reads, "transform_gaps": gaps, "bit_equal": bit_equal,
+            "launches": launches, "idle_share": idle,
+            "profile_us_per_iteration": None if not events else wall_us / n,
+            "profile_events_per_iteration": len(events) / n}
+
+
+def shard_pair(points, dev):
+    """17c's pair: bench frames 0 -> 1 at `points` points, the bench guess."""
+    from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    frames, _ = f2f.make_sequence(points, 1)
+    src, tgt = (make_pointcloud(f, bucket=points, device=dev) for f in frames)
+    return src, tgt, torch.from_numpy(f2f.initial_guess()).to(dev)
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def shard_rank(rank, world, store, out_dir, dev_name, points, iters):
+    """17c, one rank: the sp and ring loops (a `points`-point pair, `iters`
+    iterations) and the sharded IRLS solver on device `dev_name`, in a gloo
+    group of `world` ranks (file:// store). Writes its results to
+    out_dir/rank<r>.pt."""
+    import os
+
+    import torch.distributed as dist
+
+    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH, CvoParams
+    from unified_cvo_tpu_torch.models import irls
+    from unified_cvo_tpu_torch.parallel import ring, sharded, sharded_irls
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    dev = torch.device(dev_name)
+    torch.set_num_threads(1)        # the ranks share the host's cores
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world)
+    try:
+        src, tgt, guess = shard_pair(points, dev)
+        res, sec = {}, {}
+        W = dist.group.WORLD
+        for name, fn in (
+                ("sp", sharded.make_sharded_full_align(KITTI_GEOMETRIC_BENCH, W, chunk=512,
+                                                       max_iter=iters, device=dev)),
+                ("ring", ring.make_ring_full_align(KITTI_GEOMETRIC_BENCH, W, chunk=512,
+                                                   max_iter=iters, device=dev))):
+            t0 = time.perf_counter()
+            T, ret, info = fn(src, tgt, guess)
+            sync(dev)
+            sec[name] = time.perf_counter() - t0
+            res[name] = (T.cpu(), int(info["iterations"]), float(info["final_ell"]))
+        frames, edges, pivots, fields = irls_case()
+        stacked = irls.stack_clouds([make_pointcloud(f, bucket=256, device=dev) for f in frames])
+        solver = sharded_irls.make_sharded_irls_solver(CvoParams(**fields), W, chunk=256,
+                                                       frame_sharded=True, device=dev)
+        ei, ej, valid = sharded_irls.pad_edges(np.array([e[0] for e in edges], np.int32),
+                                               np.array([e[1] for e in edges], np.int32), world)
+        t0 = time.perf_counter()
+        poses, info = solver(sharded_irls.pad_frames(stacked, world),
+                             np.tile(np.eye(3, 4, dtype=np.float32), (len(frames), 1, 1)),
+                             ei, ej, valid, np.asarray(pivots, np.float32))
+        sync(dev)
+        sec["irls"] = time.perf_counter() - t0
+        res["irls"] = (poses.cpu(), int(info["it"]), float(info["ell"]))
+        res["seconds"] = sec
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_phase(dev, smi):
+    """17c: sp, ring and the sharded IRLS solver on SHARD_RANKS gloo ranks
+    sharing the one card (NCCL refuses two ranks on one GPU; NCCL across
+    cards is untested), each held to the same call in this process on the
+    card: iterations and final ell equal (rtol 1e-6), transforms within 5e-3
+    (sp) and 1e-3 / 2e-2 rotation / translation (ring), IRLS it equal, ell
+    rtol 1e-6, poses atol 5e-4; every rank's results bit-equal."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH, CvoParams
+    from unified_cvo_tpu_torch.models import irls
+    from unified_cvo_tpu_torch.models.align import align
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    src, tgt, guess = shard_pair(SHARD_POINTS, dev)
+    t0 = time.perf_counter()
+    T1, _, info1 = align(src, tgt, guess, KITTI_GEOMETRIC_BENCH, device=dev, backend="jnp",
+                         max_iter=SHARD_ITER, chunk=512)
+    sync(dev)
+    one_s = time.perf_counter() - t0
+    frames, edges, pivots, fields = irls_case()
+    stacked = irls.stack_clouds([make_pointcloud(f, bucket=256, device=dev) for f in frames])
+    t0 = time.perf_counter()
+    ref_poses, hist = irls.irls_solve(stacked, np.tile(np.eye(3, 4, dtype=np.float32),
+                                                       (len(frames), 1, 1)),
+                                      edges, pivots, CvoParams(**fields), chunk=256,
+                                      engine="device", backend="dense", device=dev)
+    irls_one_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shards_") as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(shard_rank, args=(SHARD_RANKS, os.path.join(tmp, "store"), tmp,
+                                                   str(dev), SHARD_POINTS, SHARD_ITER),
+                                 nprocs=SHARD_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + SHARD_TIMEOUT
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                raise SystemExit(f"phase 17c: the ranks were not done after {SHARD_TIMEOUT} s")
+        ranks_s = time.perf_counter() - t0
+        got = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(SHARD_RANKS)]
+    for r in range(1, SHARD_RANKS):
+        for key in ("sp", "ring", "irls"):
+            if not (torch.equal(got[r][key][0], got[0][key][0]) and got[r][key][1:] == got[0][key][1:]):
+                raise SystemExit(f"phase 17c: rank {r}'s {key} result differs from rank 0's")
+    T1c, out = T1.cpu(), {}
+    for key, (rot_tol, tr_tol) in (("sp", (5e-3, 5e-3)), ("ring", (1e-3, 2e-2))):
+        T, it, fell = got[0][key]
+        rot, tr = (float(torch.max(torch.abs(T[:3, :3] - T1c[:3, :3]))),
+                   float(torch.max(torch.abs(T[:3, 3] - T1c[:3, 3]))))
+        ok = (it == info1.iterations and abs(fell - float(info1.final_ell))
+              <= 1e-6 * abs(float(info1.final_ell)) and rot <= rot_tol and tr <= tr_tol)
+        log(f"{key} align on {SHARD_RANKS} gloo ranks ({SHARD_POINTS} bench points, "
+            f"KITTI_GEOMETRIC_BENCH, backend jnp, {SHARD_ITER} iterations): "
+            f"{got[0]['seconds'][key]:.2f} s (one process {one_s:.2f} s), iterations {it} / "
+            f"{info1.iterations}, final ell {fell} / {float(info1.final_ell)}, rotation gap "
+            f"{rot:.3g}, translation gap {tr:.3g} ({smi})")
+        if not ok:
+            raise SystemExit(f"phase 17c: {key} does not match the one-process align")
+        out[key] = {"seconds": got[0]["seconds"][key], "one_process_s": one_s,
+                    "iterations": it, "rotation_gap": rot, "translation_gap": tr}
+    poses, it, ell = got[0]["irls"]
+    gap = float(np.max(np.abs(poses.numpy() - ref_poses)))
+    log(f"sharded IRLS on {SHARD_RANKS} gloo ranks (frame-sharded, 5 frames, 10 edges): "
+        f"{got[0]['seconds']['irls']:.2f} s (irls_solve on one process {irls_one_s:.2f} s), "
+        f"it {it} / {hist[0]['iter']}, ell {ell} / {hist[0]['ell']}, pose gap {gap:.3g}")
+    if not (it == hist[0]["iter"] and abs(ell - hist[0]["ell"]) <= 1e-6 * abs(hist[0]["ell"])
+            and gap <= 5e-4):
+        raise SystemExit("phase 17c: the sharded IRLS solve does not match irls_solve")
+    out["irls"] = {"seconds": got[0]["seconds"]["irls"], "one_process_s": irls_one_s,
+                   "it": it, "pose_gap": gap, "ranks_s": ranks_s}
+    log(f"phase 17c: {SHARD_RANKS} gloo ranks on one card, {ranks_s:.2f} s with their start; "
+        f"NCCL across cards is untested (no call here has more than one card)")
+    return out
+
+
+def parallel_phase(frames_np, feats, guess_np, dev, smi, results, floor):
+    """Phase 17: 17a the lane-axis kernels, 17b batched registration on the
+    card, 17c the sharded paths on gloo ranks sharing the card."""
+    parts, out = {}, {}
+    t0 = time.perf_counter()
+    lane_kernel_checks(frames_np, feats, guess_np, dev, results, floor)
+    parts["17a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["batch"] = batch_path(frames_np, guess_np, dev, smi, results)
+    parts["17b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["shards"] = shard_phase(dev, smi)
+    parts["17c"] = time.perf_counter() - t0
+    out["seconds"] = parts
+    log("phase 17 parts: " + ", ".join(f"{k} {v:.2f} s" for k, v in parts.items()))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=MAIN_FRAMES,
@@ -4298,6 +4733,10 @@ def main(argv=None) -> int:
                       help="build, then run phase 16 alone (cv2's ORB exact, CANNY_EDGES "
                            "on the card, GICP, evaluate_semantics, the prefetch loader), "
                            "print its JSON line, stop without a result line")
+    mode.add_argument("--parallel-only", action="store_true",
+                      help="build, then run phase 17 alone (the lane-axis ELL kernels, "
+                           "batched registration and the sp, ring and sharded-IRLS paths on "
+                           "gloo ranks), print its JSON lines, stop without a result line")
     mode.add_argument("--assembly-compare", metavar="DIR",
                       help="--assembly-times of DIR and of this tree in turns (DIR, this, "
                            "this, DIR), each in a process of its own, then stop")
@@ -4420,6 +4859,14 @@ def main(argv=None) -> int:
         paths = {"orb": orb_phase(dev, smi, results)}
         log(f"phase 16: {time.perf_counter() - t0:.2f} s")
         log(json.dumps({"paths": paths, "kernel_checks": results}, default=str))
+        return 0
+    if args.parallel_only:
+        t0 = time.perf_counter()
+        paths = {"parallel": parallel_phase(frames_np, feats, guess_np, dev, smi, results,
+                                            floor)}
+        log(f"phase 17: {time.perf_counter() - t0:.2f} s")
+        log(json.dumps({"paths": paths}, default=str))
+        log(json.dumps({"kernels": list(results.values())}, default=str))
         return 0
     check_kernels(frames_np, guess_np, params, dev, results, floor)
     t0 = time.perf_counter()
@@ -4624,6 +5071,12 @@ def main(argv=None) -> int:
     log(f"phase 16 (ORB, CANNY_EDGES pair and tools, CPU checks included): "
         f"{time.perf_counter() - t0:.2f} s")
 
+    # ---- phase 17: the lane-axis kernels, batched registration, the sharded paths
+    t0 = time.perf_counter()
+    results["parallel"] = parallel_phase(frames_np, feats, guess_np, dev, smi, results, floor)
+    log(f"phase 17 (lane-axis kernels, batched registration, sp / ring / sharded IRLS on gloo "
+        f"ranks): {time.perf_counter() - t0:.2f} s")
+
     # ---- phase 5: where an iteration's time goes (profiler, not counted)
     profile_main_path(f2f, frames, guess, params, dev, label=" ELL path")
     profile_main_path(f2f, cframes, guess, KITTI_COLOR_BENCH, dev, iters=100,
@@ -4632,7 +5085,7 @@ def main(argv=None) -> int:
                       label=" colour ELL path")
     paths = {name: results.pop(name) for name in ("acvo", "irls", "kitti_stereo", "tum_rgbd",
                                                    "tum_host", "slam", "lidar", "ba",
-                                                   "stereo_host", "orb")}
+                                                   "stereo_host", "orb", "parallel")}
     log(json.dumps({"paths": paths}, default=str))
     log(json.dumps({"kernels": list(results.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

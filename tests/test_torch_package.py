@@ -215,6 +215,49 @@ def test_import_guard_covers_the_ba_slice():
     assert all(f"unified_cvo_tpu_torch.{m}" in names for m in BA_SLICE)
 
 
+PARALLEL_SLICE = ("parallel.comm", "parallel.batch_align", "parallel.sharded", "parallel.ring",
+                  "parallel.sharded_irls")
+
+
+def test_import_guard_covers_the_parallel_slice():
+    names = _module_names()
+    assert all(f"unified_cvo_tpu_torch.{m}" in names for m in PARALLEL_SLICE)
+
+
+def test_batch_and_sharded_entry_points_raise_without_cuda():
+    """align_batch, make_batch_align (alone and over a group) and the
+    sharded makers default to the card too; the check comes before any
+    collective, so no process group is needed to see it."""
+    _needs_no_card()
+    from unified_cvo_tpu_torch.models import irls
+    from unified_cvo_tpu_torch.models.align import align_batch
+    from unified_cvo_tpu_torch.parallel import batch_align, ring, sharded, sharded_irls
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    pc = make_pointcloud(np.zeros((8, 3), np.float32), device="cpu")
+    src_b, tgt_b = batch_align.stack_pairs([pc, pc], [pc, pc])
+    eyes = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    group = object()                         # never reached
+    stacked = irls.stack_clouds([pc, pc])
+    poses = np.tile(np.eye(3, 4, dtype=np.float32), (2, 1, 1))
+    edges = (np.array([0]), np.array([1]), np.array([True]), np.array([1.0, 0.0]))
+    P = KITTI_GEOMETRIC_BENCH
+    for call in (
+            lambda: align_batch(src_b, tgt_b, eyes, P),
+            lambda: batch_align.make_batch_align(P)(src_b, tgt_b, eyes),
+            lambda: batch_align.make_batch_align(P, group=group)(src_b, tgt_b, eyes),
+            lambda: sharded.make_sharded_full_align(P, group)(pc, pc, eyes[0]),
+            lambda: sharded.make_batched_align_step(P, sharded.Groups(group, group, 1, 1))(
+                src_b, tgt_b, np.tile(np.eye(3, dtype=np.float32), (2, 1, 1)),
+                np.zeros((2, 3), np.float32), np.full((2,), 0.5, np.float32)),
+            lambda: ring.make_ring_full_align(P, group)(pc, pc, eyes[0]),
+            lambda: ring.make_ring_align_iteration(P, group)(pc, pc, np.eye(3), np.zeros(3), 0.5),
+            lambda: sharded_irls.make_sharded_ba_step(P, group)(stacked, poses, *edges, 0.5),
+            lambda: sharded_irls.make_sharded_irls_solver(P, group)(stacked, poses, *edges)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
 def test_no_module_of_the_port_imports_cv2():
     """Not even inside a function: the card's machine has no OpenCV."""
     for path in sorted(PKG.rglob("*.py")):

@@ -54,6 +54,14 @@
 //     (ops/ell.py, one set per device) and assume one stream per device, as
 //     the port runs: two launches of one kernel in flight at once on two
 //     streams would share a counter;
+//   * flow_reduce and step_cached also come with a lane axis (LANES = true,
+//     the counterparts of the vmapped Pallas kernels of the JAX package's
+//     batched registration): blockIdx.y is the lane, every input and output
+//     of a lane starts at its own stride ([B, ...] tensors), and each lane
+//     has its own finish counter, so the last block of a lane sums only that
+//     lane's partials, in block order. A lane runs the arithmetic of the
+//     unbatched launch in the same order, so each lane's outputs equal that
+//     launch's bit for bit; LANES = false compiles the offsets out;
 //   * the pose scalars arrive as a device pointer to the [32] block built
 //     by pack_scalars; the step can also take the flow's unit twist [6] as
 //     a device pointer and build the block's twist part itself (thread 0 of
@@ -296,6 +304,7 @@ __device__ __forceinline__ void step_finish(const float* part, int nblocks,
 }
 
 struct FlowArgs {
+  int lanes;          // lanes in blockIdx.y (LANES); inputs and outputs [lanes, ...]
   const float* xp;    // [6, N]
   const float* y;     // [3, K, N]
   const float* chan;  // [K, N] (variants with a channel factor)
@@ -312,6 +321,32 @@ struct FlowArgs {
   int N, K;
   float c, d;
 };
+
+// The arguments of lane `lane` of a lane-axis flow launch: every array
+// moved to the lane's stride, the lane's own finish counter.
+template <bool ROWS>
+__device__ __forceinline__ FlowArgs flow_lane(FlowArgs p, int lane, int nblocks) {
+  const size_t N = p.N, KN = (size_t)p.K * p.N, l = lane;
+  p.xp += l * 6 * N;
+  p.y += l * 3 * KN;
+  if (p.chan != nullptr) p.chan += l * KN;
+  p.scal += l * S_LEN;
+  if (ROWS) {
+    p.s_out += l * N;
+    p.wy_out += l * 3 * N;
+    p.cnt_out += l * N;
+    p.part += l * nblocks;
+    p.out += l;
+  } else {
+    p.A += l * KN;
+    p.part += l * nblocks * FLOW_NV;
+    p.out += l * 8;
+  }
+  p.part_cnt += l * nblocks;
+  p.counter += l;
+  p.out_nz += l;
+  return p;
+}
 
 // One slot of one point in a flow pass: its A, and its share of the
 // point's sums.
@@ -335,10 +370,12 @@ __device__ __forceinline__ float flow_slot(const float* s, float ya, float yb,
 // Flow pass, finished in the last block. ROWS = false (flow_reduce): A
 // written out, the flow moments reduced. ROWS = true (flow_rows): the
 // point rows s, wy and cnt written out, a_sum and nonzeros reduced.
-// KC > 0: K == KC, unrolled. VEC points a thread (N % VEC == 0).
-template <bool ROWS, bool GEO, bool CHAN, int KC, int VEC>
+// KC > 0: K == KC, unrolled. VEC points a thread (N % VEC == 0). LANES: the
+// lane axis in blockIdx.y (flow_lane).
+template <bool ROWS, bool GEO, bool CHAN, int KC, int VEC, bool LANES = false>
 __global__ void __launch_bounds__(FLOW_THREADS)
-flow_kernel(const FlowArgs p) {
+flow_kernel(const FlowArgs args) {
+  const FlowArgs p = LANES ? flow_lane<ROWS>(args, blockIdx.y, gridDim.x) : args;
   constexpr int NT = FLOW_THREADS;
   constexpr int SL = KC > 0 ? KC / FLOW_TK : 1;   // slots a thread, unrolled
   __shared__ float s[S_LEN];
@@ -556,7 +593,7 @@ __device__ __forceinline__ void step_tail(const float* s, float a, float t0,
 }
 
 struct StepArgs {
-  const float* xp;     // [6, N]
+  const float* xp;     // [6, N] ([lanes, 6, N] under LANES, as every array)
   const float* y;      // [3, K, N]
   const float* aux;    // [K, N]: A (cached), chan (uncached with a channel factor)
   const float* scal;   // [32]
@@ -565,7 +602,22 @@ struct StepArgs {
   int* counter;        // finish ticket, 0 between launches
   float* out;          // [4] out
   int N, K;
+  int twist_ld;        // LANES: floats from one lane's twist to the next
 };
+
+// The arguments of lane `lane` of a lane-axis step launch, as flow_lane.
+__device__ __forceinline__ StepArgs step_lane(StepArgs p, int lane, int nblocks) {
+  const size_t N = p.N, KN = (size_t)p.K * p.N, l = lane;
+  p.xp += l * 6 * N;
+  p.y += l * 3 * KN;
+  if (p.aux != nullptr) p.aux += l * KN;
+  p.scal += l * S_LEN;
+  if (p.twist != nullptr) p.twist += l * p.twist_ld;
+  p.part += l * nblocks * STEP_NV;
+  p.counter += l;
+  p.out += l * STEP_NV;
+  return p;
+}
 
 // One slot of one point in the step pass. CACHED takes A from `av`;
 // otherwise A is recomputed by the <GEO, CHAN> front half, with `av` the
@@ -585,12 +637,13 @@ __device__ __forceinline__ void step_slot(const float* s, float ya, float yb, fl
 }
 
 // Step pass, cached (A read) or uncached (A recomputed), finished in the
-// last block; one point a thread. KC as in flow_kernel. Both modes
+// last block; one point a thread. KC and LANES as in flow_kernel. Both modes
 // visit the slots and points in the same order, so on the same A they agree
 // bit for bit.
-template <bool CACHED, bool GEO, bool CHAN, int KC>
+template <bool CACHED, bool GEO, bool CHAN, int KC, bool LANES = false>
 __global__ void __launch_bounds__(STEP_THREADS)
-step_kernel(const StepArgs p) {
+step_kernel(const StepArgs args) {
+  const StepArgs p = LANES ? step_lane(args, blockIdx.y, gridDim.x) : args;
   constexpr int NT = STEP_THREADS;
   constexpr int SL = KC > 0 ? KC / STEP_TK : 1;   // slots a thread, unrolled
   constexpr bool READ_AUX = CACHED || CHAN;
@@ -665,17 +718,22 @@ bool aligned(const void* q, int bytes) {
   return q == nullptr || reinterpret_cast<uintptr_t>(q) % bytes == 0;
 }
 
-template <bool ROWS, bool GEO, bool CHAN, int KC, int VEC>
+template <bool ROWS, bool GEO, bool CHAN, int KC, int VEC, bool LANES>
 int launch_flow(const FlowArgs& a, cudaStream_t stream) {
   const int nblocks = (a.N + TX * VEC - 1) / (TX * VEC);
-  flow_kernel<ROWS, GEO, CHAN, KC, VEC><<<nblocks, dim3(TX, FLOW_TK), 0, stream>>>(a);
+  flow_kernel<ROWS, GEO, CHAN, KC, VEC, LANES>
+      <<<dim3(nblocks, LANES ? a.lanes : 1), dim3(TX, FLOW_TK), 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The slot loop (unrolled at K = UNROLL_K) and the points a thread (FLOW_VEC
 // where N and every pointer allow vector loads and stores, else 1) of this
 // launch.
-template <bool ROWS, bool GEO, bool CHAN>
+// The slot loop (unrolled at K = UNROLL_K) and the points a thread (FLOW_VEC
+// where N and every pointer allow vector loads and stores, else 1) of this
+// launch. Under LANES every lane's arrays start a multiple of N floats after
+// the first lane's, so N % FLOW_VEC == 0 keeps them aligned too.
+template <bool ROWS, bool GEO, bool CHAN, bool LANES>
 int dispatch_flow(const FlowArgs& a, cudaStream_t stream) {
   constexpr int V = FLOW_VEC;
   const bool vec = a.N % V == 0 && aligned(a.xp, 4 * V) && aligned(a.y, 4 * V)
@@ -683,36 +741,39 @@ int dispatch_flow(const FlowArgs& a, cudaStream_t stream) {
                    && aligned(a.s_out, 4 * V) && aligned(a.wy_out, 4 * V)
                    && aligned(a.cnt_out, 4 * V);
   if (ELL_UNROLL && a.K == UNROLL_K)
-    return vec ? launch_flow<ROWS, GEO, CHAN, UNROLL_K, V>(a, stream)
-               : launch_flow<ROWS, GEO, CHAN, UNROLL_K, 1>(a, stream);
-  return vec ? launch_flow<ROWS, GEO, CHAN, 0, V>(a, stream)
-             : launch_flow<ROWS, GEO, CHAN, 0, 1>(a, stream);
+    return vec ? launch_flow<ROWS, GEO, CHAN, UNROLL_K, V, LANES>(a, stream)
+               : launch_flow<ROWS, GEO, CHAN, UNROLL_K, 1, LANES>(a, stream);
+  return vec ? launch_flow<ROWS, GEO, CHAN, 0, V, LANES>(a, stream)
+             : launch_flow<ROWS, GEO, CHAN, 0, 1, LANES>(a, stream);
 }
 
-template <bool ROWS>
+template <bool ROWS, bool LANES = false>
 int dispatch_flow_variant(const FlowArgs& a, int variant, cudaStream_t stream) {
-  if (a.N <= 0 || a.K <= 0) return (int)cudaErrorInvalidValue;
+  if (a.N <= 0 || a.K <= 0 || a.lanes <= 0 || a.lanes > 65535)
+    return (int)cudaErrorInvalidValue;
   switch (variant) {
-    case V_GEO: return dispatch_flow<ROWS, true, false>(a, stream);
-    case V_GEO_CHAN: return dispatch_flow<ROWS, true, true>(a, stream);
-    case V_CHAN: return dispatch_flow<ROWS, false, true>(a, stream);
+    case V_GEO: return dispatch_flow<ROWS, true, false, LANES>(a, stream);
+    case V_GEO_CHAN: return dispatch_flow<ROWS, true, true, LANES>(a, stream);
+    case V_CHAN: return dispatch_flow<ROWS, false, true, LANES>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool CACHED, bool GEO, bool CHAN, int KC>
-int launch_step(const StepArgs& a, cudaStream_t stream) {
+template <bool CACHED, bool GEO, bool CHAN, int KC, bool LANES>
+int launch_step(const StepArgs& a, int lanes, cudaStream_t stream) {
   const int nblocks = (a.N + TX - 1) / TX;
-  step_kernel<CACHED, GEO, CHAN, KC><<<nblocks, dim3(TX, STEP_TK), 0, stream>>>(a);
+  step_kernel<CACHED, GEO, CHAN, KC, LANES>
+      <<<dim3(nblocks, lanes), dim3(TX, STEP_TK), 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // The slot loop of this launch: unrolled at K = UNROLL_K, else the runtime
 // loop.
-template <bool CACHED, bool GEO, bool CHAN>
-int dispatch_step(const StepArgs& a, cudaStream_t stream) {
-  if (ELL_UNROLL && a.K == UNROLL_K) return launch_step<CACHED, GEO, CHAN, UNROLL_K>(a, stream);
-  return launch_step<CACHED, GEO, CHAN, 0>(a, stream);
+template <bool CACHED, bool GEO, bool CHAN, bool LANES = false>
+int dispatch_step(const StepArgs& a, cudaStream_t stream, int lanes = 1) {
+  if (ELL_UNROLL && a.K == UNROLL_K)
+    return launch_step<CACHED, GEO, CHAN, UNROLL_K, LANES>(a, lanes, stream);
+  return launch_step<CACHED, GEO, CHAN, 0, LANES>(a, lanes, stream);
 }
 
 }  // namespace
@@ -737,9 +798,23 @@ int cvo_flow_reduce(const float* xp, const float* y, const float* chan,
                     const float* scal, float* A, float* part, int* part_cnt,
                     int* counter, float* out, int* out_nz, int N, int K, float c,
                     float d, int variant, cudaStream_t stream) {
-  const FlowArgs a{xp, y, chan, scal, A, nullptr, nullptr, nullptr, part, part_cnt,
+  const FlowArgs a{1, xp, y, chan, scal, A, nullptr, nullptr, nullptr, part, part_cnt,
                    counter, out, out_nz, N, K, c, d};
   return dispatch_flow_variant<false>(a, variant, stream);
+}
+
+// cvo_flow_reduce with a lane axis: every array [lanes, ...] (xp [lanes, 6,
+// N], y [lanes, 3, K, N], chan and A [lanes, K, N], scal [lanes, 32], part
+// [lanes, nblocks, 7], part_cnt [lanes, nblocks], out [lanes, 8], out_nz
+// [lanes]); counter points at lanes consecutive counters, 0 before and
+// after. Each lane's outputs equal cvo_flow_reduce's on that lane's inputs.
+int cvo_flow_reduce_lanes(const float* xp, const float* y, const float* chan,
+                          const float* scal, float* A, float* part, int* part_cnt,
+                          int* counter, float* out, int* out_nz, int N, int K, float c,
+                          float d, int variant, int lanes, cudaStream_t stream) {
+  const FlowArgs a{lanes, xp, y, chan, scal, A, nullptr, nullptr, nullptr, part, part_cnt,
+                   counter, out, out_nz, N, K, c, d};
+  return dispatch_flow_variant<false, true>(a, variant, stream);
 }
 
 // xp [6, N], y [3, K, N], A [K, N], scal [32], twist [6] or null -> out [4]
@@ -754,6 +829,19 @@ int cvo_step_cached(const float* xp, const float* y, const float* A,
   return dispatch_step<true, false, false>(a, stream);
 }
 
+// cvo_step_cached with a lane axis, as cvo_flow_reduce_lanes: twist [lanes,
+// 6] with twist_ld floats from one lane's row to the next (8 for the flow's
+// out rows), or null; part [lanes, nblocks, 4], out [lanes, 4], counter at
+// lanes consecutive counters.
+int cvo_step_cached_lanes(const float* xp, const float* y, const float* A,
+                          const float* scal, const float* twist, int twist_ld,
+                          float* part, int* counter, float* out, int N, int K, int lanes,
+                          cudaStream_t stream) {
+  if (N <= 0 || K <= 0 || lanes <= 0 || lanes > 65535) return (int)cudaErrorInvalidValue;
+  const StepArgs a{xp, y, A, scal, twist, part, counter, out, N, K, twist_ld};
+  return dispatch_step<true, false, false, true>(a, stream, lanes);
+}
+
 // xp [6, N], y [3, K, N], chan [K, N] (as cvo_flow_reduce), scal [32] ->
 // s_out [N], wy_out [3, N], cnt_out [N], out_asum [1], out_nz [1];
 // part [nblocks] and part_cnt [nblocks] are scratch, counter [1] is 0
@@ -762,7 +850,7 @@ int cvo_flow_rows(const float* xp, const float* y, const float* chan,
                   const float* scal, float* s_out, float* wy_out, int* cnt_out,
                   float* part, int* part_cnt, int* counter, float* out_asum,
                   int* out_nz, int N, int K, int variant, cudaStream_t stream) {
-  const FlowArgs a{xp, y, chan, scal, nullptr, s_out, wy_out, cnt_out, part, part_cnt,
+  const FlowArgs a{1, xp, y, chan, scal, nullptr, s_out, wy_out, cnt_out, part, part_cnt,
                    counter, out_asum, out_nz, N, K, 0.f, 0.f};
   return dispatch_flow_variant<true>(a, variant, stream);
 }

@@ -30,6 +30,26 @@ All state stays on the device. The loop is a Python loop that reads one
 small flag tensor back to the host per iteration (done, and on the ELL path
 with geometry drift), and counts those reads in AlignInfo.host_reads.
 
+`align_batch` registers B pairs at once, the counterpart of the JAX
+package's `jax.vmap(align)` (parallel/batch_align.py): the schedule's state
+carries a leading lane axis, the lanes iterate in lockstep, a finished lane
+is frozen (its state kept as it was, as JAX's vmapped while loop keeps it),
+and the host reads one [B, 2] (finished, drift) flag tensor per iteration.
+On 'ell' the flow and step passes take all lanes in one launch each
+(`ell.flow_reduce_lanes`, `ell.step_cached_lanes`), and a lane's list is
+rebuilt on that lane's own drift; the dense backends run their passes lane
+after lane inside the lockstep iteration. Each lane makes the iterations and
+builds of `align` on its pair.
+
+`align(group=...)` and `align(ring_group=...)` run the whole loop over
+torch.distributed process groups (JAX's psum_axis and ring_axis,
+align.py:184-210 and 364-380): with `group` this rank holds a point shard of
+the target and the flow and step sums are all-reduced every iteration; with
+`ring_group` both clouds are point shards and target shards rotate around
+the ring (parallel/ring.py). Both force the plain blocked kernels ('jnp')
+and take the schedule's decisions from all-reduced totals, so every rank
+takes the same branches.
+
 The analysis entry points `inner_product`, `function_angle`,
 `compute_association` and `compute_association_non_isotropic`
 (align.py:764-863) evaluate the kernel at a given transform, without a loop.
@@ -55,6 +75,7 @@ from unified_cvo_tpu_torch.ops import lie
 from unified_cvo_tpu_torch.ops import morton
 from unified_cvo_tpu_torch.ops import neighbors as nbr
 from unified_cvo_tpu_torch.ops.poly import step_from_poly
+from unified_cvo_tpu_torch.parallel import comm, ring
 from unified_cvo_tpu_torch.utils.pointcloud import PointCloud
 
 BACKENDS = ("auto", "ell", "pallas", "jnp")
@@ -62,6 +83,9 @@ NL_BUILDERS = ("auto", "grid", "scan")
 
 
 class AlignInfo(NamedTuple):
+    """What a solve did. From `align_batch`, iterations and nl_rebuilds are
+    per-lane lists and the tensors carry the lane axis; host_reads counts
+    the batched reads."""
     iterations: int
     final_ell: torch.Tensor
     final_step: torch.Tensor
@@ -150,33 +174,62 @@ class _Schedule:
     update, indicator and the ell schedule (decay, or under adaptive ell
     the dl gradient step), all on the device."""
 
-    def __init__(self, params, R, T, sqrt_nxny, dev, adaptive=False, history_len=None):
+    def __init__(self, params, R, T, sqrt_nxny, dev, adaptive=False, history_len=None,
+                 lanes: Optional[int] = None):
         f32 = torch.float32
         self.params, self.R, self.T, self.sqrt_nxny = params, R, T, sqrt_nxny
         self.adaptive = adaptive
         self.history = None if history_len is None else {
             name: torch.zeros((history_len,), dtype=f32, device=dev) for name in HISTORY_KEYS}
-        self.ell = torch.full((), params.ell_init, dtype=f32, device=dev)
-        self.step = torch.zeros((), dtype=f32, device=dev)
-        self.dist = torch.zeros((), dtype=f32, device=dev)
-        self.nonzeros = torch.zeros((), dtype=torch.int32, device=dev)
-        self.a_sum = torch.zeros((), dtype=f32, device=dev)
-        self.ret = torch.zeros((), dtype=torch.int32, device=dev)
-        self.ind = indicator_ops.init_state(params.indicator_window_size, dev)
+        lead = () if lanes is None else (lanes,)
+        # a lane's matrix products are the unbatched ones, so that each lane
+        # follows align's trajectory bit for bit
+        self.mm = torch.matmul if lanes is None else lie.lanewise_matmul
+        self.ell = torch.full(lead, params.ell_init, dtype=f32, device=dev)
+        self.step = torch.zeros(lead, dtype=f32, device=dev)
+        self.dist = torch.zeros(lead, dtype=f32, device=dev)
+        self.nonzeros = torch.zeros(lead, dtype=torch.int32, device=dev)
+        self.a_sum = torch.zeros(lead, dtype=f32, device=dev)
+        self.ret = torch.zeros(lead, dtype=torch.int32, device=dev)
+        self.ind = indicator_ops.init_state(params.indicator_window_size, dev, lanes)
+
+    _STATE = ("R", "T", "ell", "step", "dist", "nonzeros", "a_sum", "ret", "ind")
+
+    def advance_lanes(self, k: int, active, twist, joint_norm, nz, asum, coeffs,
+                      d2_sums=None) -> torch.Tensor:
+        """`advance` for every lane, with the lanes where `active` [B] is
+        false frozen: their state is kept as it was. Returns the lanes'
+        `finished` flags, false on frozen lanes."""
+        old = {name: getattr(self, name) for name in self._STATE}
+        finished = self.advance(k, twist, joint_norm, nz, asum, coeffs, d2_sums)
+
+        def keep(new, prev):
+            a = active.reshape(active.shape + (1,) * (new.dim() - active.dim()))
+            return torch.where(a, new, prev)
+
+        for name, prev in old.items():
+            new = getattr(self, name)
+            setattr(self, name, type(new)(*map(keep, new, prev)) if name == "ind"
+                    else keep(new, prev))
+        return finished & active
 
     def advance(self, k: int, twist, joint_norm, nz, asum, coeffs, d2_sums=None
                 ) -> torch.Tensor:
         """Apply iteration k's result; returns the on-device `finished` flag.
         Under adaptive ell, `d2_sums` holds the xy, xx and yy weighted sums
-        (sum A d2, nonzeros) of this iteration."""
+        (sum A d2, nonzeros) of this iteration. Every input may carry a
+        leading lane axis (coeffs then [B, 4] or four [B] tensors), as the
+        state does."""
         p = self.params
+        if isinstance(coeffs, torch.Tensor):
+            coeffs = coeffs.unbind(-1)
         step_new = step_from_poly(*coeffs, p.min_step, p.max_step)
         degenerate = (joint_norm < 1e-8) | torch.isnan(joint_norm)
-        eps_break = ((torch.linalg.vector_norm(twist[:3]) < p.eps)
-                     & (torch.linalg.vector_norm(twist[3:]) < p.eps))
+        eps_break = ((torch.linalg.vector_norm(twist[..., :3], dim=-1) < p.eps)
+                     & (torch.linalg.vector_norm(twist[..., 3:], dim=-1) < p.eps))
         break_now = degenerate | eps_break
-        dR, dT = lie.se3_exp(twist, step_new)
-        dist_new = lie.se3_distance(dR, dT)
+        dR, dT = lie.se3_exp(twist, step_new, mm=self.mm)
+        dist_new = lie.se3_distance(dR, dT, mm=self.mm)
         nan_break = torch.isnan(dist_new)
         self.ind, decrease = indicator_ops.update(
             self.ind, nz.to(torch.float32) / self.sqrt_nxny, p.indicator_stable_threshold)
@@ -201,15 +254,15 @@ class _Schedule:
             self.ell = torch.where(
                 decay, torch.clamp(self.ell * p.ell_decay_rate, min=p.ell_min), self.ell)
         # the reference breaks before applying the update
-        R_new = torch.where(break_now, self.R, self.R @ dR)
-        self.T = torch.where(break_now, self.T, self.R @ dT + self.T)
+        R_new = torch.where(break_now[..., None, None], self.R, self.mm(self.R, dR))
+        self.T = torch.where(break_now[..., None], self.T, self.mm(self.R, dT) + self.T)
         self.R = R_new
         self.ret = torch.where(degenerate, -1, 0).to(torch.int32)
         self.step, self.dist, self.nonzeros, self.a_sum = step_new, dist_new, nz, asum
         return finished
 
     def pose_inv(self):
-        return lie.invert_rt(self.R, self.T)
+        return lie.invert_rt(self.R, self.T, mm=self.mm)
 
 
 def align(
@@ -230,6 +283,8 @@ def align(
     chunk: int = kernels.DEFAULT_CHUNK,
     adaptive_ell: Optional[bool] = None,
     record_history: bool = False,
+    group=None,
+    ring_group=None,
 ):
     """Register target onto source. Returns (transform [4,4], ret, AlignInfo).
 
@@ -247,16 +302,38 @@ def align(
            / (nz_xx + nz_yy - 2 nz_xy),
       ell <- clip(ell - dl_step dl, ell_min, ell_max),
     in place of the indicator-window decay; None reads
-    params.is_ell_adaptive. record_history fills AlignInfo.history."""
+    params.is_ell_adaptive. record_history fills AlignInfo.history.
+
+    group / ring_group: a torch.distributed process group over which this
+    call is one rank of a sharded solve (JAX's psum_axis / ring_axis). With
+    `group`, `target` is this rank's point shard and the source is whole;
+    with `ring_group`, both are point shards. Every rank of the group calls
+    align with its shards; each returns the same result. Both run the plain
+    blocked kernels ('jnp'); they exclude each other, adaptive ell and any
+    other backend (ValueError, as in JAX)."""
     dev = resolve_device(device)
     adaptive = _adaptive(params, adaptive_ell)
+    if group is not None or ring_group is not None:
+        if group is not None and ring_group is not None:
+            raise ValueError("group and ring_group are mutually exclusive")
+        if adaptive:
+            raise ValueError("adaptive_ell is not supported under sharded align yet")
+        if backend not in ("auto", "jnp"):
+            raise ValueError("sharded align runs the blocked plain kernels per shard; "
+                             f"backend={backend!r} is not supported with group/ring_group")
+        backend = "jnp"
     backend = resolve_backend(params, source.capacity, target.capacity, backend, dev,
                               adaptive)
     max_iter = params.MAX_ITER if max_iter is None else max_iter
     source = source.to(dev)
     target = target.to(dev)
     guess = torch.as_tensor(init_guess, dtype=torch.float32).to(dev)
-    sqrt_nxny = torch.sqrt(torch.clamp(source.num_valid * target.num_valid, min=1.0))
+    nx, ny = source.num_valid, target.num_valid
+    if group is not None or ring_group is not None:
+        ny = comm.all_reduce_sum(ny, group or ring_group)
+        if ring_group is not None:
+            nx = comm.all_reduce_sum(nx, ring_group)
+    sqrt_nxny = torch.sqrt(torch.clamp(nx * ny, min=1.0))
     st = _Schedule(params, guess[:3, :3], guess[:3, 3], sqrt_nxny, dev, adaptive,
                    max_iter if record_history else None)
     if backend == "ell":
@@ -267,7 +344,7 @@ def align(
             chunk)
     else:
         k, host_reads = _dense_loop(st, source, target, max_iter, backend,
-                                    spatial_culling, tile_i, tile_j, chunk)
+                                    spatial_culling, tile_i, tile_j, chunk, group, ring_group)
         nl_overflow = rebuilds = nl_builder = None
     Rf, Tf = st.pose_inv()
     info = AlignInfo(
@@ -367,54 +444,307 @@ def _ell_loop(st: _Schedule, source, target, max_iter, nl_k, nl_skin,
     return k, host_reads, nl_overflow, rebuilds
 
 
+class _DensePasses:
+    """The flow and step passes of one pair on a dense backend
+    (align.py:324-384, 433-439): on 'pallas' with the geometric channel both
+    clouds are Morton-sorted once after padding to the tiles, the source
+    tile boxes computed once, and each iteration culls tile pairs from the
+    moved target's boxes at the current ell into one compaction that the
+    flow and step passes share; on 'jnp' the blocked plain passes, with the
+    sums all-reduced over `group` (target shards) or taken around
+    `ring_group` (both clouds sharded)."""
+
+    def __init__(self, params, source, target, backend, spatial_culling, tile_i, tile_j,
+                 chunk, group=None, ring_group=None):
+        self.params, self.backend, self.chunk = params, backend, chunk
+        self.group, self.ring_group = group, ring_group
+        self.tile_i = dense.DEFAULT_TILE_I if tile_i is None else tile_i
+        self.tile_j = dense.DEFAULT_TILE_J if tile_j is None else tile_j
+        self.culling = (spatial_culling and backend == "pallas"
+                        and bool(params.is_using_geometry))
+        if self.culling:
+            source, _ = morton.sort_cloud(kernels.pad_cloud_to_multiple(source, self.tile_i))
+            target, _ = morton.sort_cloud(kernels.pad_cloud_to_multiple(target, self.tile_j))
+            self.x_lo, self.x_hi = morton.tile_aabbs(source.xyz, source.mask, self.tile_i)
+        self.source, self.target = source, target
+
+    def run(self, ell, Rinv, Tinv, adaptive: bool):
+        """(twist, joint_norm, nonzeros, a_sum, (B, C, D, E), d2_sums) at
+        this pose and ell."""
+        params, source, chunk = self.params, self.source, self.chunk
+        y_t = self.target.transformed(Rinv, Tinv)
+        reduce = None
+        if self.ring_group is not None:
+            stats = ring.ring_flow_stats(params, ell, source, y_t, self.ring_group, chunk)
+            reduce = lambda t: comm.all_reduce_sum(t, self.ring_group)   # noqa: E731
+        elif self.backend == "jnp":
+            stats = kernels.flow_stats(params, ell, source, y_t, chunk)
+            if self.group is not None:
+                stats = comm.all_reduce_stats(stats, self.group)
+        else:
+            comp = None
+            if self.culling:
+                y_lo, y_hi = morton.tile_aabbs(y_t.xyz, y_t.mask, self.tile_j)
+                d2max = morton.tile_d2max(params, ell, source.xyz, source.mask, self.tile_i)
+                comp = dense.compact_tile_mask(
+                    morton.tile_cull_mask(self.x_lo, self.x_hi, d2max, y_lo, y_hi))
+            stats = dense.flow_stats_tiled(params, ell, source, y_t, self.tile_i, self.tile_j,
+                                           compaction=comp)
+        twist, joint_norm = kernels.flow_from_stats(params, source, stats, reduce=reduce)
+        if self.ring_group is not None:
+            coeffs = ring.ring_step_coeffs(params, ell, source, y_t, twist, self.ring_group,
+                                           chunk)
+        elif self.backend == "jnp":
+            coeffs = kernels.step_coeffs(params, ell, source, y_t, twist, chunk)
+            if self.group is not None:
+                coeffs = comm.all_reduce_sum(torch.stack(coeffs), self.group).unbind(0)
+        else:
+            coeffs = dense.step_coeffs_tiled(params, ell, source, y_t, twist,
+                                             self.tile_i, self.tile_j, compaction=comp)
+        d2_sums = None
+        if adaptive:
+            d2_sums = tuple(kernels.weighted_d2_sum(params, ell, a, b, chunk)
+                            for a, b in ((source, y_t), (source, source), (y_t, y_t)))
+        return twist, joint_norm, stats.nonzeros, stats.a_sum, coeffs, d2_sums
+
+
 def _dense_loop(st: _Schedule, source, target, max_iter, backend,
-                spatial_culling, tile_i, tile_j, chunk):
-    """One flat loop over the dense passes (align.py:433-439). On 'pallas'
-    with the geometric channel, both clouds are Morton-sorted once after
-    padding to the tiles, the source tile boxes computed once, and each
-    iteration culls tile pairs from the moved target's boxes at the current
-    ell into one compaction that the flow and step passes share
-    (align.py:324-364). Returns (iterations, host reads)."""
-    params = st.params
-    tile_i = dense.DEFAULT_TILE_I if tile_i is None else tile_i
-    tile_j = dense.DEFAULT_TILE_J if tile_j is None else tile_j
-    culling = spatial_culling and backend == "pallas" and bool(params.is_using_geometry)
-    if culling:
-        source, _ = morton.sort_cloud(kernels.pad_cloud_to_multiple(source, tile_i))
-        target, _ = morton.sort_cloud(kernels.pad_cloud_to_multiple(target, tile_j))
-        x_lo, x_hi = morton.tile_aabbs(source.xyz, source.mask, tile_i)
+                spatial_culling, tile_i, tile_j, chunk, group=None, ring_group=None):
+    """One flat loop over the dense passes (_DensePasses). Returns
+    (iterations, host reads)."""
+    passes = _DensePasses(st.params, source, target, backend, spatial_culling, tile_i,
+                          tile_j, chunk, group, ring_group)
     k = host_reads = 0
     done = False
     while not done and k < max_iter:
         Rinv, Tinv = st.pose_inv()
-        y_t = target.transformed(Rinv, Tinv)
-        if backend == "jnp":
-            stats = kernels.flow_stats(params, st.ell, source, y_t, chunk)
-        else:
-            comp = None
-            if culling:
-                y_lo, y_hi = morton.tile_aabbs(y_t.xyz, y_t.mask, tile_j)
-                d2max = morton.tile_d2max(params, st.ell, source.xyz, source.mask, tile_i)
-                comp = dense.compact_tile_mask(
-                    morton.tile_cull_mask(x_lo, x_hi, d2max, y_lo, y_hi))
-            stats = dense.flow_stats_tiled(params, st.ell, source, y_t, tile_i, tile_j,
-                                           compaction=comp)
-        twist, joint_norm = kernels.flow_from_stats(params, source, stats)
-        if backend == "jnp":
-            coeffs = kernels.step_coeffs(params, st.ell, source, y_t, twist, chunk)
-        else:
-            coeffs = dense.step_coeffs_tiled(params, st.ell, source, y_t, twist,
-                                             tile_i, tile_j, compaction=comp)
-        d2_sums = None
-        if st.adaptive:
-            d2_sums = tuple(kernels.weighted_d2_sum(params, st.ell, a, b, chunk)
-                            for a, b in ((source, y_t), (source, source), (y_t, y_t)))
-        finished = st.advance(k, twist, joint_norm, stats.nonzeros, stats.a_sum, coeffs,
-                              d2_sums)
+        twist, joint_norm, nz, asum, coeffs, d2_sums = passes.run(st.ell, Rinv, Tinv,
+                                                                  st.adaptive)
+        finished = st.advance(k, twist, joint_norm, nz, asum, coeffs, d2_sums)
         k += 1
         done = bool(finished)
         host_reads += 1
     return k, host_reads
+
+
+def align_batch(
+    sources: PointCloud,
+    targets: PointCloud,
+    init_guesses,
+    params: CvoParams,
+    device=None,
+    backend: str = "auto",
+    max_iter: Optional[int] = None,
+    nl_k: Optional[int] = None,
+    nl_skin: Optional[float] = None,
+    nl_per_cell: Optional[int] = None,
+    nl_builder: str = "auto",
+    spatial_culling: bool = True,
+    tile_i: Optional[int] = None,
+    tile_j: Optional[int] = None,
+    chunk: int = kernels.DEFAULT_CHUNK,
+    adaptive_ell: Optional[bool] = None,
+):
+    """Register B pairs at once: the counterpart of jax.vmap(align)
+    (parallel/batch_align.py). sources and targets carry a leading lane
+    axis (parallel.batch_align.stack_pairs), init_guesses is [B, 4, 4].
+    Returns (transforms [B, 4, 4], ret [B], AlignInfo with per-lane
+    iterations and builds). The backend and builder are resolved once from
+    the clouds' capacities, as for one pair; the other arguments are
+    align's. Each lane makes the iterations and builds `align` makes on its
+    pair; the lanes iterate in lockstep, a finished lane stays frozen, and
+    the host reads one [B, 2] flag tensor an iteration."""
+    dev = resolve_device(device)
+    adaptive = _adaptive(params, adaptive_ell)
+    n_src, n_tgt = sources.xyz.shape[1], targets.xyz.shape[1]
+    backend = resolve_backend(params, n_src, n_tgt, backend, dev, adaptive)
+    max_iter = params.MAX_ITER if max_iter is None else max_iter
+    sources, targets = sources.to(dev), targets.to(dev)
+    guess = torch.as_tensor(init_guesses, dtype=torch.float32).to(dev)
+    B = guess.shape[0]
+    if sources.xyz.shape[0] != B or targets.xyz.shape[0] != B:
+        raise ValueError(f"{B} guesses for {sources.xyz.shape[0]} sources and "
+                         f"{targets.xyz.shape[0]} targets")
+    sqrt_nxny = torch.sqrt(torch.clamp(torch.sum(sources.mask, -1) * torch.sum(targets.mask, -1),
+                                       min=1.0))
+    st = _Schedule(params, guess[:, :3, :3], guess[:, :3, 3], sqrt_nxny, dev, adaptive,
+                   lanes=B)
+    if backend == "ell":
+        nl_builder = resolve_nl_builder(params, n_src, n_tgt, nl_builder, adaptive)
+        iters, host_reads, nl_overflow, rebuilds = _ell_loop_lanes(
+            st, sources, targets, max_iter, nl_k, nl_skin, nl_per_cell, nl_builder, chunk)
+    else:
+        iters, host_reads = _dense_loop_lanes(st, sources, targets, max_iter, backend,
+                                              spatial_culling, tile_i, tile_j, chunk)
+        nl_overflow = rebuilds = nl_builder = None
+    Rf, Tf = st.pose_inv()
+    info = AlignInfo(iterations=iters, final_ell=st.ell, final_step=st.step,
+                     final_dist=st.dist, nonzeros=st.nonzeros, inner_product=st.a_sum,
+                     nl_overflow=nl_overflow, nl_rebuilds=rebuilds, host_reads=host_reads,
+                     backend=backend, nl_builder=nl_builder)
+    return lie.rt_to_mat44(Rf, Tf), st.ret, info
+
+
+def _ell_loop_lanes(st: _Schedule, sources, targets, max_iter, nl_k, nl_skin, nl_per_cell,
+                    nl_builder, chunk):
+    """_ell_loop for B lanes in lockstep. An iteration first builds the list
+    of every live lane that is new or drifted (lane after lane, into the
+    lanes' [B, 3, K, N] slots and [B, K, N] channel factor), then runs one
+    flow_reduce_lanes and one step_cached_lanes over all lanes, advances the
+    live lanes (frozen ones keep their state), and reads the [B, 2]
+    (finished, drift) flags. Under adaptive ell each lane's xx and yy lists
+    and its weighted sums are taken lane after lane. Returns (iterations,
+    host reads, overflow [B], builds), iterations and builds per lane."""
+    params = st.params
+    use_geo = bool(params.is_using_geometry)
+    nl_k = nbr.DEFAULT_K if nl_k is None else nl_k
+    nl_skin = nbr.DEFAULT_SKIN if nl_skin is None else nl_skin
+    nl_per_cell = nbr.PER_CELL_CAP if nl_per_cell is None else nl_per_cell
+    dev = sources.xyz.device
+    B = sources.xyz.shape[0]
+    srcs = [sources.map(lambda a: a[b]) for b in range(B)]
+    tgts = [targets.map(lambda a: a[b]) for b in range(B)]
+    I3 = torch.eye(3, dtype=torch.float32, device=dev)
+    z3 = torch.zeros((3,), dtype=torch.float32, device=dev)
+    nl_overflow = torch.zeros((B,), dtype=torch.int32, device=dev)
+
+    def build(b, x, y, Rinv, Tinv):
+        if nl_builder == "scan":
+            return nbr.build_neighbor_list_scan(params, st.ell[b], x, y, Rinv, Tinv,
+                                                k=nl_k, skin=nl_skin, chunk=chunk)
+        return nbr.build_neighbor_list(params, st.ell[b], x, y, Rinv, Tinv,
+                                       k=nl_k, skin=nl_skin, per_cell_cap=nl_per_cell)
+
+    lists = [None] * B                       # (xy, xx, yy) lists of each lane
+    y_xyz = chan = pose_build = r_max = None
+    iters, rebuilds = [0] * B, [0] * B
+    done, drift = [False] * B, [True] * B
+    done_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
+    k = host_reads = 0
+    while k < max_iter and not all(done):
+        Rinv, Tinv = st.pose_inv()
+        for b in range(B):
+            if done[b] or not drift[b]:
+                continue
+            nl = build(b, srcs[b], tgts[b], Rinv[b], Tinv[b])
+            overflow = nl.overflow
+            nl_xx = nl_yy = None
+            if st.adaptive:
+                nl_xx = build(b, srcs[b], srcs[b], I3, z3)
+                nl_yy = build(b, tgts[b].transformed(Rinv[b], Tinv[b]), tgts[b], Rinv[b],
+                              Tinv[b])
+                overflow = overflow + nl_xx.overflow + nl_yy.overflow
+            if y_xyz is None:
+                y_xyz = nl.y_xyz.new_empty((B,) + tuple(nl.y_xyz.shape))
+                chan = None if nl.chan is None else nl.chan.new_empty((B,) + tuple(nl.chan.shape))
+                pose_build = nl.pose_build.new_zeros((B, 12))
+                r_max = nl.r_max_t.new_zeros((B,))
+            y_xyz[b].copy_(nl.y_xyz)
+            if chan is not None:
+                chan[b].copy_(nl.chan)
+            pose_build[b].copy_(nl.pose_build)
+            r_max[b].copy_(nl.r_max_t)
+            nl_overflow[b] = torch.maximum(nl_overflow[b], overflow)
+            lists[b] = (nl, nl_xx, nl_yy)
+            rebuilds[b] += 1
+        active = ~done_dev
+        xp = ell_ops.pack_x(params, st.ell, sources)
+        scal = ell_ops.pack_scalars(params, Rinv, Tinv)
+        twist, joint_norm, nz, asum, A = ell_ops.flow_reduce_lanes(
+            xp, y_xyz, scal, params.c, params.d, chan=chan, use_geometry=use_geo)
+        coeffs = ell_ops.step_cached_lanes(xp, y_xyz, A, scal, twist=twist)
+        d2_sums = None
+        if st.adaptive:
+            per_lane = [_adaptive_sums(params, st.ell[b], srcs[b], tgts[b], lists[b],
+                                       Rinv[b], Tinv[b], I3, z3) for b in range(B)]
+            d2_sums = tuple(tuple(torch.stack([lane[i][j] for lane in per_lane])
+                                  for j in range(2)) for i in range(3))
+        finished = st.advance_lanes(k, active, twist, joint_norm, nz, asum, coeffs, d2_sums)
+        for b in range(B):
+            iters[b] += not done[b]
+        k += 1
+        done_dev = done_dev | finished
+        if use_geo:
+            Rinv, Tinv = st.pose_inv()
+            if st.adaptive:
+                stale = torch.stack([
+                    (nbr.stale_bound_exceeded(lists[b][0], Rinv[b], Tinv[b], st.ell[b], nl_skin)
+                     | nbr.stale_bound_exceeded(lists[b][1], I3, z3, st.ell[b], nl_skin)
+                     | nbr.stale_bound_exceeded(lists[b][2], Rinv[b], Tinv[b], st.ell[b],
+                                                nl_skin)) for b in range(B)])
+            else:
+                stale = _drift_bound_lanes(pose_build, r_max, Rinv, Tinv) > nl_skin
+            flags = torch.stack([done_dev, stale & ~done_dev], dim=-1)
+            done, drift = (list(v) for v in zip(*flags.tolist()))
+        else:
+            done, drift = done_dev.tolist(), [False] * B
+        host_reads += 1
+    return iters, host_reads, nl_overflow, rebuilds
+
+
+def _adaptive_sums(params, ell, x, y, lists, Rinv, Tinv, I3, z3):
+    """One lane's (sum A d2, nonzeros) over its xy, xx and yy lists."""
+    nl, nl_xx, nl_yy = lists
+    return (nbr.weighted_d2_sum_ell(params, ell, x, nl, Rinv, Tinv),
+            nbr.weighted_d2_sum_ell(params, ell, x, nl_xx, I3, z3),
+            nbr.weighted_d2_sum_ell(params, ell, y.transformed(Rinv, Tinv), nl_yy, Rinv, Tinv))
+
+
+def _drift_bound_lanes(pose_build, r_max, Rinv, Tinv):
+    """nbr.drift_bound_exceeded's bound for every lane: pose_build [B, 12]
+    and r_max [B] of each lane's list, the lanes' pose [B, 3, 3], [B, 3]."""
+    B = Rinv.shape[0]
+    dR = Rinv.reshape(B, 9).to(torch.float32) - pose_build[:, :9]
+    dT = Tinv.to(torch.float32) - pose_build[:, 9:]
+    return (torch.sqrt(torch.sum(dR * dR, dim=-1)) * r_max
+            + torch.sqrt(torch.sum(dT * dT, dim=-1)))
+
+
+def _dense_loop_lanes(st: _Schedule, sources, targets, max_iter, backend, spatial_culling,
+                      tile_i, tile_j, chunk):
+    """_dense_loop for B lanes in lockstep: each live lane's passes run one
+    lane after another (frozen lanes contribute zeros, which their frozen
+    state ignores), then one batched advance and one [B] flag read. Returns
+    (iterations per lane, host reads)."""
+    B = sources.xyz.shape[0]
+    passes = [_DensePasses(st.params, sources.map(lambda a: a[b]), targets.map(lambda a: a[b]), backend,
+                           spatial_culling, tile_i, tile_j, chunk) for b in range(B)]
+    dev = sources.xyz.device
+    iters = [0] * B
+    done = [False] * B
+    done_dev = torch.zeros((B,), dtype=torch.bool, device=dev)
+    k = host_reads = 0
+    while k < max_iter and not all(done):
+        Rinv, Tinv = st.pose_inv()
+        outs = []
+        for b in range(B):
+            if done[b]:
+                outs.append(None)
+                continue
+            twist, jn, nz, asum, coeffs, d2 = passes[b].run(st.ell[b], Rinv[b], Tinv[b],
+                                                            st.adaptive)
+            outs.append((twist, jn, nz, asum, torch.stack(coeffs), d2))
+        live = next(o for o in outs if o is not None)
+
+        def stacked(get):
+            return torch.stack([get(o if o is not None else live) * (o is not None)
+                                for o in outs])
+
+        d2_sums = None
+        if st.adaptive:
+            d2_sums = tuple(tuple(stacked(lambda o, i=i, j=j: o[5][i][j]) for j in range(2))
+                            for i in range(3))
+        active = ~done_dev
+        finished = st.advance_lanes(k, active, stacked(lambda o: o[0]), stacked(lambda o: o[1]),
+                                    stacked(lambda o: o[2]), stacked(lambda o: o[3]),
+                                    stacked(lambda o: o[4]), d2_sums)
+        for b in range(B):
+            iters[b] += not done[b]
+        k += 1
+        done_dev = done_dev | finished
+        done = done_dev.tolist()
+        host_reads += 1
+    return iters, host_reads
 
 
 def _moved_target(source, target, transform, dev):

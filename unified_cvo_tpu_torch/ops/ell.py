@@ -29,8 +29,17 @@ the flow's unit twist as a device tensor and builds the block's twist part
 
 Every pass runs as one launch: the last block to finish sums the per-block
 partials and resets a ticket counter. The counters (`finish_counters`, one
-int32 per kernel) are allocated once per device and assume one stream per
-device, as the port runs.
+int32 per kernel and lane) are allocated once per device and assume one
+stream per device, as the port runs.
+
+`flow_reduce_lanes` and `step_cached_lanes` are the flow and step passes
+with a lane axis: B independent pairs in one launch, every input and output
+[B, ...] (`pack_x` and `pack_scalars` take the same leading axis). They are
+the counterparts of the Pallas kernels under the JAX package's
+`jax.vmap(align)` (parallel/batch_align.py), where the batch becomes a grid
+axis. Each lane's result equals the unbatched launch's on that lane's
+inputs, bit for bit; their plain versions are flow_reduce_plain and
+step_cached_plain, which take the same leading axis.
 """
 
 from __future__ import annotations
@@ -65,7 +74,10 @@ def variant(chan, use_geometry: bool) -> str:
 
 def pack_x(params, ell, x: PointCloud) -> torch.Tensor:
     """[6, N] per-point rows for the current ell: coords, distance-gate
-    threshold (-1 for masked points), -1/(2 l_i^2), step coef 1/(2 l^2)."""
+    threshold (-1 for masked points), -1/(2 l_i^2), step coef 1/(2 l^2).
+    With a lane axis (x.xyz [B, N, 3], ell [B]): [B, 6, N]."""
+    if x.xyz.dim() == 3:
+        ell = ell[..., None]
     l_i = range_ell(ell, torch.sqrt(torch.sum(x.xyz * x.xyz, dim=-1)))
     two_l2 = 2.0 * l_i * l_i
     log_term = geometric_constants(params)[2]
@@ -73,17 +85,18 @@ def pack_x(params, ell, x: PointCloud) -> torch.Tensor:
     thres = torch.where(x.mask > 0, thres, torch.full_like(thres, -1.0))
     step_l = l_i if params.is_using_range_ell else ell * torch.ones_like(l_i)
     coef = 1.0 / (2.0 * step_l * step_l)
-    return torch.stack([x.xyz[:, 0], x.xyz[:, 1], x.xyz[:, 2], thres,
-                        -1.0 / two_l2, coef], dim=0)
+    return torch.stack([x.xyz[..., 0], x.xyz[..., 1], x.xyz[..., 2], thres,
+                        -1.0 / two_l2, coef], dim=-2)
 
 
 def _dot3(a, b):
-    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
 def _cross(w, u):
-    return torch.stack([w[1] * u[2] - w[2] * u[1], w[2] * u[0] - w[0] * u[2],
-                        w[0] * u[1] - w[1] * u[0]])
+    return torch.stack([w[..., 1] * u[..., 2] - w[..., 2] * u[..., 1],
+                        w[..., 2] * u[..., 0] - w[..., 0] * u[..., 2],
+                        w[..., 0] * u[..., 1] - w[..., 1] * u[..., 0]], dim=-1)
 
 
 def twist_scalars(twist) -> torch.Tensor:
@@ -92,38 +105,46 @@ def twist_scalars(twist) -> torch.Tensor:
     |Wv|^2, v.W^2 v, v.omega with W = skew(omega). W v and W^2 v are cross
     products with omega and every dot sums left to right, one rounding per
     operation: csrc/ell.cu::twist_scalars does the same operations in the
-    same order."""
+    same order. A leading lane axis ([B, 6] -> [B, 18]) is kept."""
     f = torch.float32
-    omega, v = twist[:3].to(f), twist[3:].to(f)
+    omega, v = twist[..., :3].to(f), twist[..., 3:].to(f)
     Wv = _cross(omega, v)
     c2 = _cross(omega, Wv)
     return torch.cat([
-        torch.stack([_dot3(omega, omega), _dot3(v, v)]), omega, v, Wv, c2,
-        torch.stack([_dot3(v, Wv), _dot3(Wv, Wv), _dot3(v, c2), _dot3(v, omega)]),
-    ])
+        torch.stack([_dot3(omega, omega), _dot3(v, v)], dim=-1), omega, v, Wv, c2,
+        torch.stack([_dot3(v, Wv), _dot3(Wv, Wv), _dot3(v, c2), _dot3(v, omega)], dim=-1),
+    ], dim=-1)
 
 
 def pack_scalars(params, R_inv, T_inv, twist=None) -> torch.Tensor:
     """[32] f32 scalar block: pose, kernel constants, and the twist's
-    Taylor vectors (`twist_scalars`; zeros when no twist is given)."""
+    Taylor vectors (`twist_scalars`; zeros when no twist is given). With a
+    lane axis (R_inv [B, 3, 3], T_inv [B, 3]): [B, 32]."""
     f = torch.float32
     sigma2, sp, _ = geometric_constants(params)
-    parts = [R_inv.reshape(9).to(f), T_inv.to(f),
-             R_inv.new_full((1,), sigma2, dtype=f),
-             R_inv.new_full((1,), sp, dtype=f)]
+    lead = tuple(R_inv.shape[:-2])
+    parts = [R_inv.reshape(lead + (9,)).to(f), T_inv.to(f),
+             R_inv.new_full(lead + (1,), sigma2, dtype=f),
+             R_inv.new_full(lead + (1,), sp, dtype=f)]
     if twist is None:
-        parts.append(R_inv.new_zeros((S_LEN - S_OM2,), dtype=f))
+        parts.append(R_inv.new_zeros(lead + (S_LEN - S_OM2,), dtype=f))
     else:
         parts.append(twist_scalars(twist))
-    return torch.cat(parts)
+    return torch.cat(parts, dim=-1)
+
+
+def _sc(scal, i):
+    """Scalar i of the block: a 0-d tensor, or [B, 1, 1] with a lane axis."""
+    return scal[i] if scal.dim() == 1 else scal[..., i, None, None]
 
 
 def _y_t(y_xyz, scal):
-    """Raw slot coordinates moved by (R_inv, T_inv): 3 x [K, N]."""
-    R = scal[S_RINV:S_RINV + 9]
-    T = scal[S_TINV:S_TINV + 3]
-    return [y_xyz[0] * R[3 * c] + y_xyz[1] * R[3 * c + 1]
-            + y_xyz[2] * R[3 * c + 2] + T[c] for c in range(3)]
+    """Raw slot coordinates moved by (R_inv, T_inv): 3 x [(B,) K, N]."""
+    def R(i):
+        return _sc(scal, S_RINV + i)
+
+    return [y_xyz[..., 0, :, :] * R(3 * c) + y_xyz[..., 1, :, :] * R(3 * c + 1)
+            + y_xyz[..., 2, :, :] * R(3 * c + 2) + _sc(scal, S_TINV + c) for c in range(3)]
 
 
 def _kernel_a(x, yt, scal, chan, use_geometry: bool):
@@ -140,36 +161,46 @@ def _kernel_a(x, yt, scal, chan, use_geometry: bool):
         ok, a = chan > 0, chan
     if use_geometry:
         d2 = (x[X0] - yt[0]) ** 2 + (x[X1] - yt[1]) ** 2 + (x[X2] - yt[2]) ** 2
-        kgeo = scal[S_SIGMA2] * torch.exp(d2 * x[NEGI2L2])
+        kgeo = _sc(scal, S_SIGMA2) * torch.exp(d2 * x[NEGI2L2])
         gate = d2 < x[THRES]
         ok = gate if ok is None else ok & gate
         a = kgeo if a is None else a * kgeo
-    return torch.where(ok & (a > scal[S_SP]), a, torch.zeros_like(a))
+    return torch.where(ok & (a > _sc(scal, S_SP)), a, torch.zeros_like(a))
+
+
+def _total(x, axes: int):
+    """Sum over the last `axes` axes; with a lane axis, lane by lane, each
+    as the unbatched full sum (one batched reduction may split its work
+    over threads differently and round differently)."""
+    if x.dim() == axes:
+        return torch.sum(x)
+    return torch.stack([torch.sum(v) for v in x])
 
 
 def _rows(xp):
-    return [xp[r:r + 1] for r in range(6)]                  # [1, N] rows
+    return [xp[..., r:r + 1, :] for r in range(6)]         # [(B,) 1, N] rows
 
 
 def flow_reduce_plain(xp, y_xyz, scal, c: float, d: float, chan=None,
                       use_geometry: bool = True):
     """Plain version of the flow kernel: (unit twist [6], joint_norm,
     nonzeros, a_sum, A [K, N]) as pallas_ell.flow_twist_ell_fused returns
-    them with emit_a=True."""
+    them with emit_a=True. With a lane axis (xp [B, 6, N], y_xyz [B, 3, K,
+    N], scal [B, 32], chan [B, K, N]) every output takes it too."""
     yt = _y_t(y_xyz, scal)
     a = _kernel_a(_rows(xp), yt, scal, chan, use_geometry)
-    s = torch.sum(a, dim=0)
-    wy = [torch.sum(a * yt[i], dim=0) for i in range(3)]
-    xr = [xp[i] for i in range(3)]
+    s = torch.sum(a, dim=-2)
+    wy = [torch.sum(a * yt[i], dim=-2) for i in range(3)]
+    xr = [xp[..., i, :] for i in range(3)]
     om = [xr[(i + 1) % 3] * wy[(i + 2) % 3] - xr[(i + 2) % 3] * wy[(i + 1) % 3]
           for i in range(3)]
     v = [wy[i] - s * xr[i] for i in range(3)]
-    t = torch.stack([torch.sum(r) for r in om + v])
-    joint = torch.cat([t[:3] / c, t[3:] / d])
-    jn = torch.linalg.vector_norm(joint)
-    unit = joint / torch.where(jn < 1e-30, torch.ones_like(jn), jn)
-    nz = torch.sum(a > 0).to(torch.int32)
-    return unit, jn, nz, torch.sum(s), a
+    t = torch.stack([_total(r, 1) for r in om + v], dim=-1)
+    joint = torch.cat([t[..., :3] / c, t[..., 3:] / d], dim=-1)
+    jn = torch.linalg.vector_norm(joint, dim=-1)
+    unit = joint / torch.where(jn < 1e-30, torch.ones_like(jn), jn)[..., None]
+    nz = torch.sum(a > 0, dim=(-2, -1)).to(torch.int32)
+    return unit, jn, nz, _total(s, 1), a
 
 
 def flow_rows_plain(xp, y_xyz, scal, chan=None, use_geometry: bool = True):
@@ -188,25 +219,29 @@ def step_cached_plain(xp, y_xyz, a, scal, twist=None) -> torch.Tensor:
     """Plain version of the step kernel: [4] = (B, C, D, E) from the cached
     kernel matrix `a` (pallas_ell._step_kernel_cached + _step_tail). Given
     the unit `twist` [6], the twist part of `scal` is `twist_scalars(twist)`
-    and scal's own is ignored."""
+    and scal's own is ignored. With a lane axis (as flow_reduce_plain, twist
+    [B, 6]): [B, 4]."""
     if twist is not None:
-        scal = torch.cat([scal[:S_OM2], twist_scalars(twist)])
+        scal = torch.cat([scal[..., :S_OM2], twist_scalars(twist)], dim=-1)
     x = _rows(xp)
     # zero y_t where A == 0: dead slots carry DEAD_COORD and beta^4 of a
     # 1e9-scale value is inf, which 0 * inf would turn into NaN
     y = [torch.where(a > 0, yc, torch.zeros_like(yc)) for yc in _y_t(y_xyz, scal)]
-    S = scal
-    om = [S[S_OMEGA + i] for i in range(3)]
-    om2 = S[S_OM2]
+
+    def S(i):
+        return _sc(scal, i)
+
+    om = [S(S_OMEGA + i) for i in range(3)]
+    om2 = S(S_OM2)
     t = y[0] * om[0] + y[1] * om[1] + y[2] * om[2]
     yy = y[0] * y[0] + y[1] * y[1] + y[2] * y[2]
     uu = om2 * yy - t * t                                    # |W y|^2
 
     def ydot(base):
-        return y[0] * S[base] + y[1] * S[base + 1] + y[2] * S[base + 2]
+        return y[0] * S(base) + y[1] * S(base + 1) + y[2] * S(base + 2)
 
     def xdot(base):
-        return x[X0] * S[base] + x[X1] * S[base + 1] + x[X2] * S[base + 2]
+        return x[X0] * S(base) + x[X1] * S(base + 1) + x[X2] * S(base + 2)
 
     yv, ywv, yc2 = ydot(S_V), ydot(S_WV), ydot(S_C2)
     u = [y[(i + 2) % 3] * om[(i + 1) % 3] - y[(i + 1) % 3] * om[(i + 2) % 3]
@@ -218,10 +253,10 @@ def step_cached_plain(xp, y_xyz, a, scal, twist=None) -> torch.Tensor:
     d2 = dw + (xdot(S_WV) - ywv)                             # diff . xi2z
     d3 = -om2 * xu + (xdot(S_C2) - yc2)                      # diff . xi3z
     d4 = -om2 * d2                                           # xi4z = -om2 xi2z
-    normxiz2 = uu - 2.0 * ywv + S[S_VV]
-    vw = S[S_VOM] * t - om2 * yv                             # v . W^2 y
-    xdx2 = yc2 - vw - S[S_VWV]
-    epsc = -om2 * uu + 2.0 * om2 * ywv + S[S_WV2] + 2.0 * S[S_VC2]
+    normxiz2 = uu - 2.0 * ywv + S(S_VV)
+    vw = S(S_VOM) * t - om2 * yv                             # v . W^2 y
+    xdx2 = yc2 - vw - S(S_VWV)
+    epsc = -om2 * uu + 2.0 * om2 * ywv + S(S_WV2) + 2.0 * S(S_VC2)
     coef = x[COEF]
     beta = -2.0 * coef * d1
     gamma = -coef * (normxiz2 + 2.0 * d2)
@@ -229,12 +264,12 @@ def step_cached_plain(xp, y_xyz, a, scal, twist=None) -> torch.Tensor:
     epsil = -coef * (epsc + 2.0 * d4)
     b2 = beta * beta
     return torch.stack([
-        torch.sum(a * beta),
-        torch.sum(a * (gamma + 0.5 * b2)),
-        torch.sum(a * (delta + beta * gamma + b2 * beta / 6.0)),
-        torch.sum(a * (epsil + beta * delta + 0.5 * b2 * gamma
-                       + 0.5 * gamma * gamma + b2 * b2 / 24.0)),
-    ])
+        _total(a * beta, 2),
+        _total(a * (gamma + 0.5 * b2), 2),
+        _total(a * (delta + beta * gamma + b2 * beta / 6.0), 2),
+        _total(a * (epsil + beta * delta + 0.5 * b2 * gamma
+                    + 0.5 * gamma * gamma + b2 * b2 / 24.0), 2),
+    ], dim=-1)
 
 
 def step_uncached_plain(xp, y_xyz, scal, chan=None, use_geometry: bool = True):
@@ -245,16 +280,22 @@ def step_uncached_plain(xp, y_xyz, scal, chan=None, use_geometry: bool = True):
     return step_cached_plain(xp, y_xyz, a, scal)
 
 
-def _common_checks(xp, y_xyz, scal, chan, who):
+def _common_checks(xp, y_xyz, scal, chan, who, lanes: bool = False):
+    """Device, K and N of a launch, after checking every input's dtype,
+    shape ([B, ...] with B = y_xyz.shape[0] when `lanes`), device and
+    layout."""
     if y_xyz.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {y_xyz.device}")
     dev = y_xyz.device
-    K, N = y_xyz.shape[1], y_xyz.shape[2]
-    cuda_lib.check_tensor(y_xyz, "y_xyz", torch.float32, (3, K, N), dev, who)
-    cuda_lib.check_tensor(xp, "xp", torch.float32, (6, N), dev, who)
-    cuda_lib.check_tensor(scal, "scal", torch.float32, (S_LEN,), dev, who)
+    lead = tuple(y_xyz.shape[:1]) if lanes else ()
+    if y_xyz.dim() != len(lead) + 3:
+        raise ValueError(f"{who}: y_xyz has shape {tuple(y_xyz.shape)}")
+    K, N = y_xyz.shape[-2], y_xyz.shape[-1]
+    cuda_lib.check_tensor(y_xyz, "y_xyz", torch.float32, lead + (3, K, N), dev, who)
+    cuda_lib.check_tensor(xp, "xp", torch.float32, lead + (6, N), dev, who)
+    cuda_lib.check_tensor(scal, "scal", torch.float32, lead + (S_LEN,), dev, who)
     if chan is not None:
-        cuda_lib.check_tensor(chan, "chan", torch.float32, (K, N), dev, who)
+        cuda_lib.check_tensor(chan, "chan", torch.float32, lead + (K, N), dev, who)
     return dev, K, N
 
 
@@ -266,27 +307,30 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-# finish counters, one per kernel, per device: index in the counter tensor
+# finish counters, one row per kernel, one column per lane, per device: row
+# index in the counter tensor (the lane-axis launches use their kernel's row)
 FLOW_REDUCE, STEP_CACHED, STEP_UNCACHED, FLOW_ROWS = range(4)
 _counters = {}
 
 
-def finish_counters(dev) -> torch.Tensor:
-    """The int32 [4] ticket counters of flow_reduce, step_cached,
-    step_uncached and flow_rows on device `dev`, 0 between launches.
-    Allocated once per device; the kernels assume one stream per device,
+def finish_counters(dev, lanes: int = 1) -> torch.Tensor:
+    """The int32 [4, L] ticket counters of flow_reduce, step_cached,
+    step_uncached and flow_rows on device `dev`, one per lane (L >= lanes),
+    0 between launches. Allocated once per device and widened, all zero,
+    when a launch has more lanes; the kernels assume one stream per device,
     as the port runs."""
     dev = torch.device(dev)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     t = _counters.get(dev)
-    if t is None:
-        t = _counters[dev] = torch.zeros((4,), dtype=torch.int32, device=dev)
+    if t is None or t.shape[1] < lanes:
+        t = _counters[dev] = torch.zeros((4, lanes), dtype=torch.int32, device=dev)
     return t
 
 
-def _counter(dev, which):
-    return finish_counters(dev).data_ptr() + 4 * which
+def _counter(dev, which, lanes: int = 1):
+    t = finish_counters(dev, lanes)
+    return t.data_ptr() + 4 * which * t.shape[1]
 
 
 def _counted(fn, v=None):
@@ -297,9 +341,10 @@ def _counted(fn, v=None):
 
 def reset_launches():
     """Set every launch count of this module to 0."""
-    for fn in (flow_reduce, step_cached, flow_rows, step_uncached):
+    for fn in (flow_reduce, step_cached, flow_rows, step_uncached, flow_reduce_lanes,
+               step_cached_lanes):
         fn.launches = 0
-    for fn in (flow_reduce, flow_rows, step_uncached):
+    for fn in (flow_reduce, flow_rows, step_uncached, flow_reduce_lanes):
         fn.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
@@ -348,6 +393,64 @@ def step_cached(xp, y_xyz, a, scal, twist=None) -> torch.Tensor:
         part.data_ptr(), _counter(dev, STEP_CACHED), out.data_ptr(), N, K, _stream(dev))
     cuda_lib.check(err, "step_cached kernel launch")
     _counted(step_cached)
+    return out
+
+
+def flow_reduce_lanes(xp, y_xyz, scal, c: float, d: float, chan=None,
+                      use_geometry: bool = True):
+    """Flow pass with a lane axis: xp [B, 6, N], y_xyz [B, 3, K, N], scal
+    [B, 32], chan [B, K, N] -> (unit twist [B, 6], joint_norm [B],
+    nonzeros [B], a_sum [B], A [B, K, N]), each lane as flow_reduce on its
+    inputs. The CUDA kernel (one launch for all lanes) on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    v = variant(chan, use_geometry)
+    if y_xyz.device.type == "cpu":
+        return flow_reduce_plain(xp, y_xyz, scal, c, d, chan, use_geometry)
+    dev, K, N = _common_checks(xp, y_xyz, scal, chan, "flow_reduce_lanes", lanes=True)
+    B = y_xyz.shape[0]
+    lib = _lib()
+    nb = lib.cvo_ell_blocks(N)
+    A = torch.empty((B, K, N), dtype=torch.float32, device=dev)
+    part = torch.empty((B, nb, 7), dtype=torch.float32, device=dev)
+    part_cnt = torch.empty((B, nb), dtype=torch.int32, device=dev)
+    out = torch.empty((B, 8), dtype=torch.float32, device=dev)
+    nz = torch.empty((B,), dtype=torch.int32, device=dev)
+    err = lib.cvo_flow_reduce_lanes(
+        xp.data_ptr(), y_xyz.data_ptr(), _ptr(chan), scal.data_ptr(), A.data_ptr(),
+        part.data_ptr(), part_cnt.data_ptr(), _counter(dev, FLOW_REDUCE, B), out.data_ptr(),
+        nz.data_ptr(), N, K, float(c), float(d), VARIANTS.index(v), B, _stream(dev))
+    cuda_lib.check(err, "flow_reduce_lanes kernel launch")
+    _counted(flow_reduce_lanes, v)
+    return out[:, :6], out[:, 6], nz, out[:, 7], A
+
+
+def step_cached_lanes(xp, y_xyz, a, scal, twist=None) -> torch.Tensor:
+    """Step pass from the cached kernel matrices with a lane axis: a [B, K,
+    N], twist [B, 6] (or None), the rest as flow_reduce_lanes -> [B, 4],
+    each lane as step_cached on its inputs. The CUDA kernel (one launch for
+    all lanes) on a CUDA tensor, the plain version on a CPU tensor."""
+    if y_xyz.device.type == "cpu":
+        return step_cached_plain(xp, y_xyz, a, scal, twist)
+    dev, K, N = _common_checks(xp, y_xyz, scal, None, "step_cached_lanes", lanes=True)
+    B = y_xyz.shape[0]
+    cuda_lib.check_tensor(a, "a", torch.float32, (B, K, N), dev, "step_cached_lanes")
+    ld = 6
+    if twist is not None:
+        # rows of the flow's [B, 8] output are taken as they lie (stride 8)
+        if twist.dtype != torch.float32 or twist.device != dev or tuple(twist.shape) != (B, 6) \
+                or twist.stride(-1) != 1:
+            raise ValueError(f"step_cached_lanes: twist must be a float32 [{B}, 6] tensor on "
+                             f"{dev} with unit stride along its rows; got {twist.dtype} "
+                             f"{tuple(twist.shape)} on {twist.device}, strides {twist.stride()}")
+        ld = twist.stride(0)
+    lib = _lib()
+    part = torch.empty((B, lib.cvo_ell_blocks(N), 4), dtype=torch.float32, device=dev)
+    out = torch.empty((B, 4), dtype=torch.float32, device=dev)
+    err = lib.cvo_step_cached_lanes(
+        xp.data_ptr(), y_xyz.data_ptr(), a.data_ptr(), scal.data_ptr(), _ptr(twist), ld,
+        part.data_ptr(), _counter(dev, STEP_CACHED, B), out.data_ptr(), N, K, B, _stream(dev))
+    cuda_lib.check(err, "step_cached_lanes kernel launch")
+    _counted(step_cached_lanes)
     return out
 
 
@@ -456,5 +559,9 @@ def bind(lib):
         lib.cvo_flow_rows.restype = I
         lib.cvo_step_uncached.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
         lib.cvo_step_uncached.restype = I
+        lib.cvo_flow_reduce_lanes.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, F, F, I, I, P]
+        lib.cvo_flow_reduce_lanes.restype = I
+        lib.cvo_step_cached_lanes.argtypes = [P, P, P, P, P, I, P, P, P, I, I, I, P]
+        lib.cvo_step_cached_lanes.restype = I
         lib._argtypes_set = True
     return lib

@@ -16,7 +16,7 @@ anything back to the host.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,31 +32,38 @@ class IndicatorState(NamedTuple):
     esum: torch.Tensor
 
 
-def init_state(window: int, device=None) -> IndicatorState:
-    z32 = torch.zeros((), dtype=torch.int32, device=device)
-    zf = torch.zeros((), dtype=torch.float32, device=device)
-    buf = torch.zeros((window,), dtype=torch.float32, device=device)
+def init_state(window: int, device=None, lanes: Optional[int] = None) -> IndicatorState:
+    """Empty windows; with `lanes`, one state per lane (buffers [lanes, W],
+    the rest [lanes])."""
+    lead = () if lanes is None else (lanes,)
+    z32 = torch.zeros(lead, dtype=torch.int32, device=device)
+    zf = torch.zeros(lead, dtype=torch.float32, device=device)
+    buf = torch.zeros(lead + (window,), dtype=torch.float32, device=device)
     return IndicatorState(buf, z32, z32, zf, buf, z32, z32, zf)
 
 
 def update(state: IndicatorState, indicator: torch.Tensor,
            stable_threshold: float):
-    """One indicator observation -> (new_state, decrease_ell: bool tensor)."""
-    W = state.sbuf.shape[0]
+    """One indicator observation -> (new_state, decrease_ell: bool tensor).
+    A state with a lane axis takes one observation per lane."""
+    W = state.sbuf.shape[-1]
     ind = indicator.to(torch.float32)
     lane = torch.arange(W, device=ind.device)
     sbuf, shead, scnt, ssum, ebuf, ehead, ecnt, esum = state
 
+    def col(v):
+        return v[..., None]          # a per-state value against the buffers
+
     # cond 1: start window not yet full -> push (CvoGPU.cu:1177-1181)
     c1 = scnt < W
-    sbuf = torch.where(c1 & (lane == torch.remainder(shead + scnt, W)), ind, sbuf)
+    sbuf = torch.where(col(c1) & (lane == col(torch.remainder(shead + scnt, W))), col(ind), sbuf)
     ssum = torch.where(c1, ssum + ind, ssum)
     scnt = scnt + c1.to(torch.int32)
 
     # cond 2: start full, end not full -> push the same value into end
     # (CvoGPU.cu:1182-1186; evaluated with the updated start count)
     c2 = (scnt >= W) & (ecnt < W)
-    ebuf = torch.where(c2 & (lane == torch.remainder(ehead + ecnt, W)), ind, ebuf)
+    ebuf = torch.where(col(c2) & (lane == col(torch.remainder(ehead + ecnt, W))), col(ind), ebuf)
     esum = torch.where(c2, esum + ind, esum)
     ecnt = ecnt + c2.to(torch.int32)
 
@@ -68,14 +75,14 @@ def update(state: IndicatorState, indicator: torch.Tensor,
     shift = both_full & ~stable
 
     # shift: move end.front into start (dropping start.front), append ind
-    at_s = lane == shead
-    at_e = lane == ehead
-    f = torch.sum(torch.where(at_e, ebuf, torch.zeros_like(ebuf)))
-    sf = torch.sum(torch.where(at_s, sbuf, torch.zeros_like(sbuf)))
-    sbuf = torch.where(shift & at_s, f, sbuf)
+    at_s = lane == col(shead)
+    at_e = lane == col(ehead)
+    f = torch.sum(torch.where(at_e, ebuf, torch.zeros_like(ebuf)), dim=-1)
+    sf = torch.sum(torch.where(at_s, sbuf, torch.zeros_like(sbuf)), dim=-1)
+    sbuf = torch.where(col(shift) & at_s, col(f), sbuf)
     ssum = torch.where(shift, ssum + f - sf, ssum)
     shead = torch.where(shift, torch.remainder(shead + 1, W), shead)
-    ebuf = torch.where(shift & at_e, ind, ebuf)
+    ebuf = torch.where(col(shift) & at_e, col(ind), ebuf)
     esum = torch.where(shift, esum + ind - f, esum)
     ehead = torch.where(shift, torch.remainder(ehead + 1, W), ehead)
 
@@ -84,11 +91,11 @@ def update(state: IndicatorState, indicator: torch.Tensor,
     zf = torch.zeros_like(ssum)
     zi = torch.zeros_like(scnt)
     new = IndicatorState(
-        sbuf=torch.where(keep, sbuf, torch.zeros_like(sbuf)),
+        sbuf=torch.where(col(keep), sbuf, torch.zeros_like(sbuf)),
         shead=torch.where(keep, shead, zi),
         scnt=torch.where(keep, scnt, zi),
         ssum=torch.where(keep, ssum, zf),
-        ebuf=torch.where(keep, ebuf, torch.zeros_like(ebuf)),
+        ebuf=torch.where(col(keep), ebuf, torch.zeros_like(ebuf)),
         ehead=torch.where(keep, ehead, zi),
         ecnt=torch.where(keep, ecnt, zi),
         esum=torch.where(keep, esum, zf),

@@ -62,14 +62,18 @@ class FlowStats(NamedTuple):
     a_sum: torch.Tensor      # scalar sum of A (the RKHS inner product value)
 
 
-def flow_from_stats(params, x: PointCloud, stats: FlowStats):
+def flow_from_stats(params, x: PointCloud, stats: FlowStats, reduce=None):
     """se(3) gradient flow (reference compute_flow, CvoGPU.cu:729-848).
 
     Returns (unit_twist [6], joint_norm): [omega, v] jointly normalized, and
-    the pre-normalization magnitude used for the degeneracy test."""
+    the pre-normalization magnitude used for the degeneracy test. When x is
+    a source-point shard (ring-sharded align), `reduce` sums the joint
+    6-vector over the shards before the normalization (JAX's psum_axis)."""
     omega = torch.sum(torch.linalg.cross(x.xyz, stats.row_wy, dim=-1), dim=0) / params.c
     v = torch.sum(stats.row_wy - stats.row_sum[:, None] * x.xyz, dim=0) / params.d
     joint = torch.cat([omega, v])
+    if reduce is not None:
+        joint = reduce(joint)
     jn = torch.linalg.vector_norm(joint)
     unit = joint / torch.where(jn < 1e-30, torch.ones_like(jn), jn)
     return unit, jn

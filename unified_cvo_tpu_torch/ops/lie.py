@@ -4,6 +4,11 @@ Reference: src/cvo/LieGroup.cpp:203-283, include/UnifiedCvo/cvo/LieGroup.h:14-70
 Small-angle branches are Taylor expansions chosen with `torch.where` over
 guarded operands, so everything stays on the device with no host branch.
 
+`mm` arguments take the matrix product (default torch.matmul);
+`lanewise_matmul` is the product that a loop over lanes uses (align_batch):
+each lane's product is the unbatched one, bit for bit, where a batched
+product may round differently.
+
 Conventions: se(3) tangent vectors are [omega(3), v(3)]; `se3_exp(xi, dt)`
 integrates the flow for time dt: R = exp(dt w^), t = Jl(dt, w) v with
 Jl = dt I + ((1 - cos(dt th)) / th^2) w^ + ((dt th - sin(dt th)) / th^3) w^2
@@ -15,6 +20,11 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-6  # reference TOLERANCE (LieGroup.cpp:9)
+
+
+def lanewise_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b over a leading lane axis, one unbatched product a lane."""
+    return torch.stack([a[i] @ b[i] for i in range(a.shape[0])])
 
 
 def skew(w: torch.Tensor) -> torch.Tensor:
@@ -72,15 +82,17 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     return unskew(_bc(coef) * (R - R.transpose(-1, -2)))
 
 
-def se3_exp(xi: torch.Tensor, dt=1.0):
+def se3_exp(xi: torch.Tensor, dt=1.0, mm=torch.matmul):
     """Integrate the twist xi = [w, v] for time dt -> (R [3,3], t [3]).
-    `dt` may be a Python float or a tensor on xi's device."""
+    `dt` may be a Python float or a tensor on xi's device; with a leading
+    batch shape, xi [..., 6] and dt [...] (one time each) give [..., 3, 3]
+    and [..., 3]."""
     w, v = xi[..., :3], xi[..., 3:6]
     theta, theta2, small = _safe_theta(w)
     st = torch.where(small, torch.ones_like(theta), theta)
     dtt = dt * st
     A = skew(w)
-    A2 = A @ A
+    A2 = mm(A, A)
     k1 = torch.where(small, dt * (1.0 - dt * dt * theta2 / 6.0), torch.sin(dtt) / st)
     k2 = torch.where(small, 0.5 * dt * dt * torch.ones_like(st),
                      (1.0 - torch.cos(dtt)) / (st * st))
@@ -88,12 +100,12 @@ def se3_exp(xi: torch.Tensor, dt=1.0):
     R = eye + _bc(k1) * A + _bc(k2) * A2
     b = torch.where(small, dt ** 3 / 6.0 * torch.ones_like(st),
                     (dtt - torch.sin(dtt)) / (st ** 3))
-    Jl = dt * eye + _bc(k2) * A + _bc(b) * A2
-    t = (Jl @ v[..., None])[..., 0]
+    Jl = (_bc(dt) if isinstance(dt, torch.Tensor) else dt) * eye + _bc(k2) * A + _bc(b) * A2
+    t = mm(Jl, v[..., None])[..., 0]
     return R, t
 
 
-def left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
+def left_jacobian_inv(w: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """Inverse left Jacobian of SO(3), used by se3_log."""
     theta, theta2, small = _safe_theta(w)
     st = torch.where(small, torch.ones_like(theta), theta)
@@ -106,26 +118,26 @@ def left_jacobian_inv(w: torch.Tensor) -> torch.Tensor:
     )
     A = skew(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device)
-    return eye - 0.5 * A + _bc(cot_term) * (A @ A)
+    return eye - 0.5 * A + _bc(cot_term) * mm(A, A)
 
 
-def se3_log(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def se3_log(R: torch.Tensor, t: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """(R, t) -> xi = [w, v] with exp([w, v]) == (R, t)."""
     w = so3_log(R)
-    v = (left_jacobian_inv(w) @ t[..., None])[..., 0]
+    v = mm(left_jacobian_inv(w, mm), t[..., None])[..., 0]
     return torch.cat([w, v], dim=-1)
 
 
-def se3_distance(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def se3_distance(R: torch.Tensor, t: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """||log(R, t)||: the per-iteration step distance tested against eps_2
     (reference CvoGPU.cu:1477-1484)."""
-    return torch.linalg.vector_norm(se3_log(R, t), dim=-1)
+    return torch.linalg.vector_norm(se3_log(R, t, mm), dim=-1)
 
 
-def invert_rt(R: torch.Tensor, t: torch.Tensor):
+def invert_rt(R: torch.Tensor, t: torch.Tensor, mm=torch.matmul):
     """(R, t) -> (R^T, -R^T t) (reference update_tf, CvoGPU.cu:94-112)."""
     Rinv = R.transpose(-1, -2)
-    return Rinv, -(Rinv @ t[..., None])[..., 0]
+    return Rinv, -mm(Rinv, t[..., None])[..., 0]
 
 
 def rt_to_mat44(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

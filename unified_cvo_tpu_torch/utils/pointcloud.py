@@ -52,6 +52,11 @@ class PointCloud:
         transform_pointcloud_thrust, CvoGPU_impl.cu:164-173)."""
         return dataclasses.replace(self, xyz=self.xyz @ R.transpose(-1, -2) + t)
 
+    def map(self, fn) -> "PointCloud":
+        """fn applied to every field the cloud has (None stays None)."""
+        return PointCloud(*(None if a is None else fn(a) for a in (
+            self.xyz, self.mask, self.features, self.labels, self.geometric_types)))
+
     def to(self, device) -> "PointCloud":
         def mv(a):
             return None if a is None else a.to(device)
