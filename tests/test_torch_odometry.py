@@ -9,8 +9,10 @@ read, against the JAX package on the CPU.
   read the same files, written once.
 - run_frames over the same images in memory gives run_sequence's poses.
 - the stereo host frontend runs (tests/test_torch_stereo_apps.py holds it
-  to JAX); its StereoSGBM backend, not ported, raises; --semantic with the
-  device frontend raises as in JAX.
+  to JAX); with its StereoSGBM backend (`stereo_backend="opencv"`)
+  pointcloud_from_stereo and kitti_odometry.run_sequence match JAX's, the
+  poses within POSE_TOL; --semantic with the device frontend raises as in
+  JAX.
 - the copies (utils.metrics, read_calibration, the pose-row writers and
   readers, synth's texture and renderer) give JAX's values.
 
@@ -30,7 +32,9 @@ one (with `--port`, the port's runs too): JAX's own spread on that pair, which
     JAX_PLATFORMS=cpu python tests/test_torch_odometry.py [stereo|rgbd] [--spread] [--port]
 
 `stereo_host --spread [--port]` does the same for phase 15c's first pair:
-the host frontend at its defaults (NL-means, FAST, the native census-SGM).
+the host frontend at its defaults (NL-means, FAST, the native census-SGM);
+`stereo_sgbm --spread [--port]` for phase 15e's pair, the same frontend on
+the StereoSGBM backend (cv2 in JAX, ops/sgbm_opencv.py in the port).
 """
 
 import dataclasses
@@ -53,6 +57,7 @@ from unified_cvo_tpu.apps import tum_odometry as j_tum
 from unified_cvo_tpu.datasets import kitti as j_kitti_ds
 from unified_cvo_tpu.datasets import tum as j_tum_ds
 from unified_cvo_tpu.frontend import calibration as j_calib
+from unified_cvo_tpu.frontend import pipeline as j_pipeline
 from unified_cvo_tpu.utils import logging as j_logging
 from unified_cvo_tpu.utils import metrics as j_metrics
 from unified_cvo_tpu.utils import synth as j_synth
@@ -68,6 +73,7 @@ from unified_cvo_tpu_torch.ops import lie as t_lie
 from unified_cvo_tpu_torch.utils import logging as t_logging
 from unified_cvo_tpu_torch.utils import metrics as t_metrics
 from unified_cvo_tpu_torch.utils import synth as t_synth
+from test_torch_frontend_host import jax_opencv4  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
 
@@ -75,6 +81,9 @@ POSE_TOL = 5e-3
 MAX_ITER = 300
 CAPACITY = 4096
 SHORT_ITER = 20      # the in-memory run against the file run: equal bits, any length
+# the StereoSGBM backend's pairs of the kitti fixture still descend at MAX_ITER
+# (and at 600), where the two packages' poses part by more than POSE_TOL
+SGBM_ITER = 1000
 
 
 def _quiet(*a):
@@ -184,20 +193,38 @@ def test_tum_device_frontend_with_nlm_matches_jax(tum_dir, params_yaml, tmp_path
     assert list(rows_t[:, 0]) == list(rows_j[:, 0])
 
 
-def test_host_frontend_raises_until_ported(kitti_dir, tum_dir, params_yaml, tmp_path):
-    """The stereo host frontend is ported with compute_disparity's native
-    backend; what still raises is the StereoSGBM backend ('opencv')."""
+def test_host_frontend_raises_until_ported(kitti_dir, tum_dir, params_yaml, tmp_path,
+                                          jax_opencv4):
+    """The name is the test's from before the StereoSGBM backend was
+    ported: kitti_odometry.run_sequence and pointcloud_from_stereo with
+    stereo_backend="opencv" now match JAX's (the clouds to 1e-5, the poses
+    within POSE_TOL at SGBM_ITER iterations); the empty sequence, the flat
+    image and --semantic with the device frontend behave as before."""
     calib = t_calib.read_calibration(f"{kitti_dir}/cvo_calib.txt", "stereo")
+    j_cal = j_kitti_ds.KittiHandler(kitti_dir, "stereo").calibration()
     params = read_cvo_params_yaml(params_yaml)
-    with pytest.raises(NotImplementedError, match="1.9 g"):
-        t_kitti.run_sequence(kitti_dir, params_yaml, str(tmp_path / "a.txt"), device="cpu",
-                             stereo_backend="opencv", denoise=False)
+    kw = dict(max_iter=SGBM_ITER, capacity=CAPACITY, stereo_backend="opencv", denoise=False,
+              log=_quiet)
+    pj = j_kitti.run_sequence(kitti_dir, params_yaml, str(tmp_path / "j.txt"), **kw)
+    pt = t_kitti.run_sequence(kitti_dir, params_yaml, str(tmp_path / "a.txt"), device="cpu",
+                              **kw)
+    assert pt.shape == pj.shape == (3, 4, 4)
+    gaps = [_gap(a, b) for a, b in zip(pj, pt)]
+    assert max(gaps) < POSE_TOL, gaps
+    assert 0.05 < pt[1][0, 3] < 0.2, pt[1]           # ~0.1 m a frame along x
     with pytest.raises(RuntimeError, match="empty sequence"):
         t_kitti.run_frames([], calib, params, device="cpu")
+    left = cv2.imread(f"{kitti_dir}/image_2/000000.png")
+    right = cv2.imread(f"{kitti_dir}/image_3/000000.png")
+    cj = j_pipeline.pointcloud_from_stereo(left, right, j_cal, denoise=False,
+                                           capacity=CAPACITY, stereo_backend="opencv")
+    ct = t_pipeline.pointcloud_from_stereo(left, right, calib, denoise=False,
+                                           capacity=CAPACITY, stereo_backend="opencv",
+                                           device="cpu")
+    np.testing.assert_array_equal(ct.mask.numpy(), np.asarray(cj.mask))
+    assert float(ct.mask.sum()) > 500
+    np.testing.assert_allclose(ct.xyz.numpy(), np.asarray(cj.xyz), rtol=1e-5, atol=1e-5)
     left = np.zeros((32, 48, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="1.9 g"):
-        t_pipeline.pointcloud_from_stereo(left, left, calib, denoise=False,
-                                          stereo_backend="opencv", device="cpu")
     cloud = t_pipeline.pointcloud_from_stereo(left, left, calib, denoise=False, device="cpu")
     assert float(cloud.mask.sum()) == 0.0        # a flat image: no disparity, no point
     with pytest.raises(ValueError, match="semantic"):
@@ -385,8 +412,8 @@ def _chip_phase_chain(kind: str, port: bool):
 
 
 def _first_pair_spread(kind: str, port: bool):
-    """The first pair of chip_smoke.py phase 9 (`stereo`), 10 (`rgbd`) or
-    15c (`stereo_host`, `--spread` only) as
+    """The first pair of chip_smoke.py phase 9 (`stereo`), 10 (`rgbd`), 15c
+    (`stereo_host`, `--spread` only) or 15e (`stereo_sgbm`, `--spread` only) as
     the driver loop aligns it (the first-frame parameters, the identity
     guess) through JAX on the CPU, then again with the guess's translation
     moved by +-1e-6 m along x and along z, and with every source coordinate
@@ -413,18 +440,19 @@ def _first_pair_spread(kind: str, port: bool):
         j_clouds = [j_dev.device_pointcloud_from_stereo(f[0], f[1], jc, **kw) for f in frames[:2]]
         t_clouds = [t_dev.device_pointcloud_from_stereo(f[0], f[1], calib, device="cpu", **kw)
                     for f in frames[:2]] if port else None
-    elif kind == "stereo_host":
+    elif kind in ("stereo_host", "stereo_sgbm"):
         # phase 15c: the host frontend at its defaults, JAX on its native
-        # census-SGM with OpenCV 4's grey level (the port's)
+        # census-SGM with OpenCV 4's grey level (the port's); phase 15e: the
+        # same on both packages' StereoSGBM backend
         from unified_cvo_tpu.frontend import pipeline as j_pipeline
         from test_torch_frontend_host import opencv4_gray
 
         cvt = cv2.cvtColor
         cv2.cvtColor = lambda img, code, *a, **k: (
             opencv4_gray(img) if code == cv2.COLOR_BGR2GRAY else cvt(img, code, *a, **k))
-        kw = dict(capacity=t_kitti.CAPACITY)
-        j_clouds = [j_pipeline.pointcloud_from_stereo(f[0], f[1], jc, stereo_backend="native",
-                                                      **kw) for f in frames[:2]]
+        kw = dict(capacity=t_kitti.CAPACITY,
+                  stereo_backend="opencv" if kind == "stereo_sgbm" else "native")
+        j_clouds = [j_pipeline.pointcloud_from_stereo(f[0], f[1], jc, **kw) for f in frames[:2]]
         t_clouds = [t_pipeline.pointcloud_from_stereo(f[0], f[1], calib, device="cpu", **kw)
                     for f in frames[:2]] if port else None
     else:
@@ -479,7 +507,8 @@ def main(argv):
 
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(4)
-    kinds = [k for k in ("stereo", "rgbd", "stereo_host") if k in argv] or ["stereo", "rgbd"]
+    kinds = ([k for k in ("stereo", "rgbd", "stereo_host", "stereo_sgbm") if k in argv]
+             or ["stereo", "rgbd"])
     if "--spread" in argv:
         for kind in kinds:
             _first_pair_spread(kind, "--port" in argv)

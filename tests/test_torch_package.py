@@ -28,7 +28,8 @@ PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "unified_cvo_tpu")
 # importing the port loads none of these; no module of the port imports cv2
 # (PNGs through datasets/png.py, cv2's NL-means through ops/nlm_opencv.py,
-# cv2's ORB through frontend/orb.py), and apps/viewer.py imports matplotlib
+# cv2's ORB through frontend/orb.py, cv2's StereoSGBM through
+# ops/sgbm_opencv.py), and apps/viewer.py imports matplotlib
 # inside its functions (the card's machine has neither)
 NOT_LOADED = FORBIDDEN + ("cv2", "matplotlib")
 
@@ -134,6 +135,7 @@ def test_frontends_and_drivers_raise_without_cuda(tmp_path):
 
 
 SLAM_SLICE = ("frontend.image", "frontend.selector", "frontend.stereo", "frontend.pipeline",
+              "ops.sgbm_opencv",
               "models.posegraph", "models.bki", "models.keyframe", "apps.local_mapping",
               "utils.trajectory")
 
@@ -166,6 +168,24 @@ def test_host_frontend_and_slam_entry_points_raise_without_cuda():
                  lambda: bki.SemanticBKIMap(),
                  lambda: local_mapping.run_frames([(img, depth, "0")], calib,
                                                   KITTI_GEOMETRIC_BENCH, denoise=False)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_stereo_sgbm_backend_raises_without_cuda():
+    """compute_disparity(backend="opencv") and pointcloud_from_stereo on it
+    default to the card too; the emulation never falls back to the CPU or
+    to the native backend."""
+    _needs_no_card()
+    from unified_cvo_tpu_torch.frontend import pipeline, stereo
+    from unified_cvo_tpu_torch.frontend.calibration import Calibration
+
+    img = np.zeros((64, 160, 3), np.uint8)
+    calib = Calibration(np.array([[50.0, 0, 80], [0, 50.0, 32], [0, 0, 1]], np.float32),
+                        baseline=0.5, cols=160, rows=64)
+    for call in (lambda: stereo.compute_disparity(img, img, max_disparity=16, backend="opencv"),
+                 lambda: pipeline.pointcloud_from_stereo(img, img, calib, denoise=False,
+                                                         stereo_backend="opencv")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

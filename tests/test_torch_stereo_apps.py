@@ -24,9 +24,10 @@ script, it prints JAX's own spread on each kitti_odometry case at its
 settings (the first pair's guess moved by +-1e-6 m along x and z) and the
 port's gap to JAX (~3 minutes); with
 `--chip`, each pair's pose error of JAX's driver on chip_smoke.py phase
-15c's frames at 1241 x 376 (with `--port`, the port's on the CPU too):
+15c's frames at 1241 x 376 (with `--port`, the port's on the CPU too; with
+`--opencv`, phase 15e's pair, frames 0 -> 1 on the StereoSGBM backend):
 
-    JAX_PLATFORMS=cpu python tests/test_torch_stereo_apps.py [--chip [--port]]
+    JAX_PLATFORMS=cpu python tests/test_torch_stereo_apps.py [--chip [--port] [--opencv]]
 """
 
 import os
@@ -251,28 +252,36 @@ def jax_kitti_spread():
                   f"(tolerance {POSE_TOL})", flush=True)
 
 
-def chip_phase_chain(port: bool):
+def chip_phase_chain(port: bool, opencv: bool = False):
     """chip_smoke.py phase 15c's inputs through JAX's kitti_odometry on the
     CPU at the same settings (the host frontend at its defaults, JAX on its
     native census-SGM, the phase's YAML; OpenCV 4's grey level), and with
     `port` the port's driver on the CPU: each pair's pose error against the
-    rendered trajectory and its relative pose as an se(3) log."""
+    rendered trajectory and its relative pose as an se(3) log. With
+    `opencv`, phase 15e's pair instead: frames 0 -> 1 on
+    stereo_backend="opencv" (cv2.StereoSGBM in JAX)."""
     import tempfile
 
     import chip_smoke
     from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
     from test_torch_frontend_host import opencv4_gray
 
-    j_pipeline.compute_disparity = _native(j_pipeline.compute_disparity)
+    if not opencv:
+        j_pipeline.compute_disparity = _native(j_pipeline.compute_disparity)
     cvt = cv2.cvtColor
     cv2.cvtColor = lambda img, code, *a, **k: (opencv4_gray(img) if code == cv2.COLOR_BGR2GRAY
                                                else cvt(img, code, *a, **k))
     with tempfile.TemporaryDirectory() as root:
         _, runs = chip_smoke.write_stereo_host_inputs(root)
+        if opencv:
+            seq, yaml, _, traj = runs["phase 15c"]
+            runs = {"phase 15e": (seq, yaml, {"max_frames": 2, "stereo_backend": "opencv"},
+                                  traj[:2])}
         for label, (seq, yaml, kw, traj) in runs.items():
             packages = [("JAX", j_kitti)] + ([("port", t_kitti)] if port else [])
             for name, mod in packages:
-                extra = {"device": CPU} if name == "port" else {"stereo_backend": "native"}
+                extra = ({"device": CPU} if name == "port" else
+                         {} if opencv else {"stereo_backend": "native"})
                 t0 = time.perf_counter()
                 poses = mod.run_sequence(seq, yaml, os.path.join(root, "out.txt"), log=_quiet,
                                          **kw, **extra)
@@ -291,6 +300,6 @@ if __name__ == "__main__":
 
     torch.set_num_threads(4)
     if "--chip" in sys.argv:
-        chip_phase_chain("--port" in sys.argv)
+        chip_phase_chain("--port" in sys.argv, "--opencv" in sys.argv)
     else:
         jax_kitti_spread()

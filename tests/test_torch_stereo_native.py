@@ -12,6 +12,8 @@ package on the CPU.
   them;
 - the region speckle against a transcription of the C++'s flood fill;
 - the device frontend's SGM keeps its density speckle (JAX's ops/sgm.py);
+- compute_disparity(backend="opencv") gives JAX's map (cv2.StereoSGBM;
+  tests/test_torch_sgbm_opencv.py holds it to cv2 stage by stage);
 - pointcloud_from_stereo on its own disparity against JAX's on the native
   backend for CV_FAST, DSO_EDGES, FULL, EDGES_ONLY and CANNY_EDGES: masks
   equal, xyz rtol/atol 1e-5; the EDGES_ONLY and CANNY_EDGES selections
@@ -155,9 +157,17 @@ def test_native_disparity_rejects_bad_args(max_disp):
 
 
 def test_opencv_backend_is_not_ported():
-    z = np.zeros((8, 8), np.uint8)
-    with pytest.raises(NotImplementedError, match="1.9 g"):
-        t_stereo.compute_disparity(z, z, backend="opencv", device=CPU)
+    """The name is the test's from before the StereoSGBM backend was ported
+    (ops/sgbm_opencv.py): it now gives JAX's float32 map exactly, where
+    "auto" stays native."""
+    left, right = occluded_pair(64, 160, 5, seed=2)
+    want = j_stereo.compute_disparity(left, right, max_disparity=32, backend="opencv")
+    got = t_stereo.compute_disparity(left, right, max_disparity=32, backend="opencv",
+                                     device=CPU)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want > 0).mean() > 0.5
+    native_map = t_stereo.compute_disparity(left, right, max_disparity=32, device=CPU)
+    assert not torch.equal(native_map, got)
 
 
 def _flood_speckle(disp, min_size=120, max_diff=1.0):

@@ -10,12 +10,13 @@ the disparity path's rays in float32), with K^{-1} the float32 inverse numpy
 takes of the float32 intrinsic. Divisors are device tensors, so CUDA divides
 as numpy does instead of multiplying by a reciprocal.
 
-`compute_disparity` is JAX's with its native backend: the C++ census-SGM of
-native/cvo_native.cpp bit for bit, as `ops/sgm.py::sgm_disparity_native` on
-the inputs' device. `backend="auto"` means native here even where cv2
-imports (JAX takes cv2.StereoSGBM there; on a machine without OpenCV, such
-as the card's, its "auto" is native too); `backend="opencv"`, StereoSGBM
-3WAY, is not ported (ROADMAP item 1.9 g).
+`compute_disparity` is JAX's with both its backends, on the inputs' device:
+"native" is the C++ census-SGM of native/cvo_native.cpp bit for bit
+(`ops/sgm.py::sgm_disparity_native`); "opencv" is cv2.StereoSGBM in
+MODE_SGBM_3WAY at JAX's settings, its int16 map bit for bit
+(`ops/sgbm_opencv.py::sgbm_3way`) divided by 16. `backend="auto"` means
+native here even where cv2 imports (JAX takes cv2.StereoSGBM there; on a
+machine without OpenCV, such as the card's, its "auto" is native too).
 """
 
 from __future__ import annotations
@@ -26,12 +27,19 @@ import torch
 from unified_cvo_tpu_torch.device import resolve_device
 from unified_cvo_tpu_torch.frontend.calibration import Calibration
 from unified_cvo_tpu_torch.frontend.device import _upload, device_gray_and_gradients
+from unified_cvo_tpu_torch.ops.sgbm_opencv import sgbm_3way
 from unified_cvo_tpu_torch.ops.sgm import sgm_disparity_native
 
-OPENCV_SGBM_MISSING = (
-    "compute_disparity(backend='opencv') needs cv2.StereoSGBM (MODE_SGBM_3WAY), which is "
-    "not ported (ROADMAP item 1.9 g: an exact emulation, the card's machine has no "
-    "OpenCV); backend='native' or 'auto' runs the native census-SGM")
+
+def opencv_settings(max_disparity: int) -> dict:
+    """JAX's StereoSGBM settings (unified_cvo_tpu/frontend/stereo.py): block
+    7, P1 8 * 49, P2 32 * 49, disp12MaxDiff 1, uniquenessRatio 10, speckle
+    window 100 and range 2, preFilterCap 31, as `sgbm_3way`'s keywords."""
+    block = 7
+    return dict(min_disparity=0, num_disparities=max_disparity, block_size=block,
+                p1=8 * block * block, p2=32 * block * block, disp12_max_diff=1,
+                uniqueness_ratio=10, speckle_window_size=100, speckle_range=2,
+                pre_filter_cap=31)
 
 
 def compute_disparity(left, right, max_disparity: int = 128, backend: str = "auto",
@@ -41,10 +49,9 @@ def compute_disparity(left, right, max_disparity: int = 128, backend: str = "aut
     card). left / right: BGR [H, W, 3] or grey [H, W] uint8 images, colour
     converted by OpenCV 4's fixed-point BGR2GRAY. backend 'native' and
     'auto': native/cvo_native.cpp's census-SGM bit for bit (p1 10, p2 120,
-    uniqueness 0.1, the 120-pixel region speckle)."""
-    if backend == "opencv":
-        raise NotImplementedError(OPENCV_SGBM_MISSING)
-    if backend not in ("native", "auto"):
+    uniqueness 0.1, the 120-pixel region speckle); 'opencv': StereoSGBM
+    3WAY at `opencv_settings`, its int16 map / 16 (invalid pixels -1)."""
+    if backend not in ("native", "auto", "opencv"):
         raise ValueError(f"unknown stereo backend {backend!r}")
     if device is None and isinstance(left, torch.Tensor):
         dev = left.device
@@ -53,8 +60,11 @@ def compute_disparity(left, right, max_disparity: int = 128, backend: str = "aut
 
     def gray(im):
         im = _upload(im, dev)
-        return device_gray_and_gradients(im)[0] if im.ndim == 3 else im
+        return device_gray_and_gradients(im)[0].to(torch.uint8) if im.ndim == 3 else im
 
+    if backend == "opencv":
+        disp = sgbm_3way(gray(left), gray(right), **opencv_settings(max_disparity))
+        return disp.to(torch.float32) / 16.0
     return sgm_disparity_native(gray(left), gray(right), max_disp=max_disparity)
 
 
