@@ -203,14 +203,44 @@ def test_plain_consume_passes_match_jax():
 
 def _select_case(name):
     """(tab, cbase, xr2, pose, k, p, grid_dims) as torch CPU tensors for one
-    contract case; 256 source rows (a block of pool_select)."""
+    contract case; 256 source rows (a block of pool_select). The `irls_`
+    cases are at the IRLS list's shape, K = 128 and P = 32 (pool 864): kept
+    well over K on a full pool, kept just over K with an exact d2 tie across
+    slot K, kept under K, masked rows (chip_smoke.py's `select_irls_case`
+    rebuilds them on the card)."""
     rng = np.random.default_rng(11)
     jp, tp = _params()
     k, p, dims, skin = 32, 8, (16, 8, 16), 0.3
     eye = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
     R, T = _pose()
     r2 = None
-    if name == "equidistant":
+    if name.startswith("irls_"):
+        k, p = 128, 32
+    if name == "irls_kept_over_k":
+        # 20000 targets in a 3 m cube: every pool cell full, r2 4 m^2 keeps
+        # 139-727 of the 864 candidates a row; two far targets on the z axis
+        # keep the sources off the grid's z faces, where JAX's z-dilated pool
+        # takes the cells one further in (a radius past the cell size finds
+        # them)
+        xyz = rng.uniform(-1.5, 1.5, (256, 3)).astype(np.float32) + np.float32([0, 0, 6])
+        xyz2 = np.concatenate([
+            rng.uniform(-1.5, 1.5, (20000, 3)).astype(np.float32) + np.float32([0, 0, 6]),
+            np.float32([[0, 0, -4], [0, 0, 16]])])
+        r2 = 4.0
+    elif name == "irls_binding_tie":
+        # a 6^3 integer lattice, every target 5 times: d2 0, 1, 2 and 3
+        # exactly, up to 135 kept (129-134 where the table's cap drops none
+        # of them), slot K inside the 40 entries at d2 = 3
+        g = np.stack(np.meshgrid(*[np.arange(6.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        xyz = (g + np.float32([0, 0, 5])).astype(np.float32)
+        xyz2 = np.concatenate([xyz] * 5)
+        (R, T), r2 = eye, 3.1
+    elif name in ("irls_kept_under_k", "irls_masked_rows"):
+        xyz = rng.uniform(-2.5, 2.5, (256, 3)).astype(np.float32) + np.float32([0, 0, 6])
+        xyz2 = xyz + rng.normal(scale=0.05, size=xyz.shape).astype(np.float32)
+        if name == "irls_masked_rows":
+            xyz = xyz[:200]
+    elif name == "equidistant":
         # integer lattice, every target twice: d2 of 0 and 1 exactly, ties
         # between duplicates and between the six lattice neighbours
         g = np.stack(np.meshgrid(*[np.arange(5.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
@@ -234,6 +264,8 @@ def _select_case(name):
         xyz[::2, 2] = 45.0 + rng.uniform(0, 5, 128).astype(np.float32)
         xyz2 = _scene(rng, 256)
         xyz2[:, 2] = np.clip(xyz2[:, 2], 2, 20)
+    elif name.startswith("irls_"):
+        raise ValueError(name)
     elif name in ("masked_rows", "nine_cell_pool"):
         xyz = rng.uniform(-2.5, 2.5, (256, 3)).astype(np.float32) + np.float32([0, 0, 6])
         xyz2 = xyz + rng.normal(scale=0.05, size=xyz.shape).astype(np.float32)
@@ -287,7 +319,22 @@ def _brute_select(tab, cbase, xr2, pose, k, p, dims):
 
 
 SELECT_CASES = ["equidistant", "equidistant_binding", "kept_over_k", "kept_zero",
-                "masked_rows", "nine_cell_pool", "per_cell_cap_24"]
+                "masked_rows", "nine_cell_pool", "per_cell_cap_24", "irls_kept_over_k",
+                "irls_binding_tie", "irls_kept_under_k", "irls_masked_rows"]
+# ties straddling slot K: JAX's kernel may pick other members of the tie
+# (pallas_select.py:16-20)
+TIE_CASES = ("equidistant_binding", "irls_binding_tie")
+
+
+def _slot_d2(xr2, pose, y):
+    """[K, N] float64 d2 of each slot's raw target, moved by the pose, from
+    its row's source point (inf on dead slots)."""
+    x, P, yv = xr2.numpy().astype(np.float64), pose.numpy().astype(np.float64), np.asarray(y)
+    yv = yv.astype(np.float64)
+    t = [yv[0] * P[3 * j] + yv[1] * P[3 * j + 1] + yv[2] * P[3 * j + 2] + P[9 + j]
+         for j in range(3)]
+    d2 = sum((x[None, :, j] - t[j]) ** 2 for j in range(3))
+    return np.where(yv[0] < t_nbr.DEAD_COORD, d2, np.inf)
 
 
 @pytest.mark.parametrize("name", SELECT_CASES)
@@ -310,6 +357,18 @@ def test_select_plain_matches_brute_force_order(name):
         assert (kept.numpy()[200:] == 0).all() and (idx.numpy()[:, 200:] == -1).all()
     if name == "kept_over_k":
         assert (kept_b > k).sum() > 100
+    if name == "irls_kept_over_k":
+        assert (kept_b > k).all() and kept_b.max() > 600
+    if name == "irls_binding_tie":
+        # rows just over K whose slot K lies inside a tie of exact d2 = 3
+        over = np.nonzero((args[2].numpy()[:, 3] >= 0) & (kept.numpy() > k))[0]
+        d2 = _slot_d2(args[2], args[3], y_b)
+        assert len(over) > 10 and kept.numpy()[over].max() <= k + 7
+        assert (d2[k - 1, over] == 3.0).all() and (d2[k - 41, over] == 2.0).all()
+    if name == "irls_kept_under_k":
+        assert (kept_b <= k).all() and kept_b.max() > 10
+    if name == "irls_masked_rows":
+        assert (kept.numpy()[200:] == 0).all() and (idx.numpy()[:, 200:] == -1).all()
 
 
 @pytest.mark.parametrize("name", [c for c in SELECT_CASES if c != "equidistant_binding"])
@@ -317,8 +376,10 @@ def test_select_plain_matches_pallas_select(name):
     """JAX's pool_select (interpret mode) fed the pool JAX's grid builder
     gathers from the same table (z-dilated rows, pallas_select.py:124):
     per-row sets equal with their raw coordinates, kept total exact. Ties
-    straddling slot K would pick different members (pallas_select.py:16-20),
-    so the case where they do is held against the brute force only."""
+    straddling slot K may pick different members (pallas_select.py:16-20):
+    on irls_binding_tie each row's slot d2s are equal as a sorted list and
+    the slots below the row's largest d2 as a set; equidistant_binding is
+    held against the brute force only, as before."""
     from unified_cvo_tpu.ops import pallas_select
     from unified_cvo_tpu_torch.ops import select as t_sel
 
@@ -345,6 +406,15 @@ def test_select_plain_matches_pallas_select(name):
     idx_j = np.asarray(co).T.astype(np.int32)                # [K, N]
     y_j = np.stack([np.asarray(v).T for v in (y0, y1, y2)])
     idx_t, y_t = idx.numpy(), y.numpy()
+    if name in TIE_CASES:
+        d2_t, d2_j = _slot_d2(xr2, pose, y_t), _slot_d2(xr2, pose, y_j)
+        np.testing.assert_array_equal(np.sort(d2_t, axis=0), np.sort(d2_j, axis=0))
+        top = np.max(np.where(np.isfinite(d2_t), d2_t, -1.0), axis=0)
+        for n in range(N):
+            below_t, below_j = d2_t[:, n] < top[n], d2_j[:, n] < top[n]
+            assert sorted(idx_t[below_t, n]) == sorted(idx_j[below_j, n]), n
+        assert (top == 3.0).sum() > 10
+        return
     oj, ot = np.argsort(idx_j, axis=0), np.argsort(idx_t, axis=0)
     np.testing.assert_array_equal(np.take_along_axis(idx_t, ot, 0),
                                   np.take_along_axis(idx_j, oj, 0))

@@ -35,6 +35,10 @@ one (with `--port`, the port's runs too): JAX's own spread on that pair, which
 the host frontend at its defaults (NL-means, FAST, the native census-SGM);
 `stereo_sgbm --spread [--port]` for phase 15e's pair, the same frontend on
 the StereoSGBM backend (cv2 in JAX, ops/sgbm_opencv.py in the port).
+`tartan_corridor [--port]` runs phase 14c's test_e2e_accuracy.py corridor
+through tartan_odometry.run_sequence at its defaults, unmoved and with pair
+1's guess moved by +-1e-6 m along x and z (JAX about 10 minutes, the port
+longer): `chip_smoke.JAX_MISSES["phase 14c corridor"]`.
 """
 
 import dataclasses
@@ -225,7 +229,8 @@ def test_host_frontend_raises_until_ported(kitti_dir, tum_dir, params_yaml, tmp_
     assert float(ct.mask.sum()) > 500
     np.testing.assert_allclose(ct.xyz.numpy(), np.asarray(cj.xyz), rtol=1e-5, atol=1e-5)
     left = np.zeros((32, 48, 3), np.uint8)
-    cloud = t_pipeline.pointcloud_from_stereo(left, left, calib, denoise=False, device="cpu")
+    cloud = t_pipeline.pointcloud_from_stereo(left, left, calib, denoise=False,
+                                              stereo_backend="native", device="cpu")
     assert float(cloud.mask.sum()) == 0.0        # a flat image: no disparity, no point
     with pytest.raises(ValueError, match="semantic"):
         t_kitti.run_sequence(kitti_dir, params_yaml, str(tmp_path / "c.txt"), semantic=True,
@@ -502,6 +507,81 @@ def _first_pair_spread(kind: str, port: bool):
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
+def _tartan_corridor_spread(port: bool):
+    """chip_smoke.py phase 14c's corridor run (test_e2e_accuracy.py's
+    TartanAir corridor, 3 frames at 640 x 480, `write_e2e_corridor`) through
+    JAX's tartan_odometry.run_sequence at its defaults and TARTAN_YAML on the
+    CPU (OpenCV 4's grey level, the port's), then again with pair 1's guess
+    moved by +-1e-6 m along x and along z; with `port`, the same five runs
+    through the port's driver on the CPU. Prints each run's pair errors and,
+    for pair 1, iterations, list builds, its distance |log dT| from JAX's
+    unmoved pair 1 and (JAX's unmoved run) its se(3) log: what
+    chip_smoke.JAX_MISSES["phase 14c corridor"] records."""
+    import os
+    import tempfile
+
+    import chip_smoke
+    from unified_cvo_tpu.apps import _odometry_common as j_common
+    from unified_cvo_tpu.apps import tartan_odometry as j_tartan
+    from unified_cvo_tpu_torch.apps import _odometry_common as t_common
+    from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
+    from unified_cvo_tpu_torch.apps import tartan_odometry as t_tartan
+    from test_torch_frontend_host import opencv4_gray
+
+    cvt = cv2.cvtColor
+    cv2.cvtColor = lambda img, code, *a, **k: (
+        opencv4_gray(img) if code == cv2.COLOR_BGR2GRAY else cvt(img, code, *a, **k))
+    cases = [(0, 0.0), (0, 1e-6), (0, -1e-6), (2, 1e-6), (2, -1e-6)]
+    with tempfile.TemporaryDirectory() as root:
+        d, traj = chip_smoke.write_e2e_corridor(root)
+        yaml = os.path.join(root, "tartan.yaml")
+        with open(yaml, "w") as f:
+            f.write(chip_smoke.TARTAN_YAML)
+        true = [np.linalg.inv(traj[k + 1]) @ traj[k] for k in range(len(traj) - 1)]
+        ref = None
+        for package in ["JAX"] + (["port"] if port else []):
+            common = j_common if package == "JAX" else t_common
+            align = common.align
+            for axis, dt in cases:
+                infos = []
+
+                def moved(src, tgt, guess, *a, **k):
+                    if len(infos) == 1 and dt:
+                        if package == "JAX":
+                            guess = guess.at[axis, 3].add(dt)
+                        else:
+                            guess = guess.clone()
+                            guess[axis, 3] += dt
+                    out = align(src, tgt, guess, *a, **k)
+                    infos.append(out[2])
+                    return out
+
+                common.align = moved
+                t0 = time.perf_counter()
+                try:
+                    if package == "JAX":
+                        poses = j_tartan.run_sequence(d, yaml, os.path.join(root, "o.txt"),
+                                                      log=_quiet)
+                    else:
+                        poses = t_tartan.run_sequence(d, yaml, os.path.join(root, "o.txt"),
+                                                      log=_quiet, device="cpu")
+                finally:
+                    common.align = align
+                rel = [np.linalg.inv(poses[k]) @ poses[k + 1] for k in range(len(poses) - 1)]
+                errs = f2f.pose_errors(rel, true)
+                T = np.asarray(rel[1], np.float64)
+                ref = T if ref is None else ref
+                xi = t_lie.se3_log(torch.from_numpy(T[:3, :3].astype(np.float32)),
+                                   torch.from_numpy(T[:3, 3].astype(np.float32))).numpy()
+                info = infos[1]
+                print(f"corridor, {package}, pair 1 guess t[{'xyz'[axis]}] {dt:+.0e} m: pose "
+                      f"errors {[round(float(e), 6) for e in errs]}, pair 1 iterations "
+                      f"{int(info.iterations)}, builds {int(info.nl_rebuilds)}, "
+                      f"{_gap(ref, T):.3g} from JAX's unmoved pair 1, log "
+                      f"{np.array2string(xi.astype(np.float64), precision=9, max_line_width=200)}"
+                      f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
 def main(argv):
     import jax
 
@@ -509,6 +589,9 @@ def main(argv):
     torch.set_num_threads(4)
     kinds = ([k for k in ("stereo", "rgbd", "stereo_host", "stereo_sgbm") if k in argv]
              or ["stereo", "rgbd"])
+    if "tartan_corridor" in argv:
+        _tartan_corridor_spread("--port" in argv)
+        return 0
     if "--spread" in argv:
         for kind in kinds:
             _first_pair_spread(kind, "--port" in argv)

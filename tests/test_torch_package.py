@@ -279,7 +279,7 @@ def test_batch_and_sharded_entry_points_raise_without_cuda():
 
 
 def test_no_module_of_the_port_imports_cv2():
-    """Not even inside a function: the card's machine has no OpenCV."""
+    """Not even inside a function: the port runs without OpenCV."""
     for path in sorted(PKG.rglob("*.py")):
         for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
             if isinstance(node, ast.Import):

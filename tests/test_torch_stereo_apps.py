@@ -8,10 +8,11 @@ file of their own, so that pytest-xdist runs them beside these).
 - depth_filtering.run: both PCDs equal (colours) and within 1e-5 m;
 - indicator_sweep.main: the CSV rows equal.
 
-JAX's compute_disparity takes cv2.StereoSGBM where cv2 imports; the card's
-machine has no OpenCV, where JAX's "auto" is its native census-SGM, the
-port's. So the tests give JAX's pipeline the native backend
-(`jax_native_disparity`). indicator_sweep builds 32768-point clouds, whose
+Both packages' compute_disparity take cv2.StereoSGBM for "auto" where cv2
+imports (the port its exact emulation, seconds a frame on the CPU), and the
+native census-SGM where it does not. So the tests run both pipelines on
+the native backend
+(`jax_native_disparity` pins both packages' "auto" to it). indicator_sweep builds 32768-point clouds, whose
 function angle the port's dense CPU path takes ~50 s for; the test builds
 them at 2048 points in both packages (`small_sweep_clouds`).
 
@@ -53,6 +54,7 @@ from unified_cvo_tpu_torch.apps import irls_kitti as t_irls
 from unified_cvo_tpu_torch.apps import kitti_odometry as t_kitti
 from unified_cvo_tpu_torch.datasets.graph import write_graph_file
 from unified_cvo_tpu_torch.datasets.pcd import read_pcd
+from unified_cvo_tpu_torch.frontend import stereo as t_stereo
 from unified_cvo_tpu_torch.ops import lie as t_lie
 
 torch.set_num_threads(1)
@@ -141,11 +143,19 @@ def _native(compute_disparity):
     return native
 
 
+def pin_native():
+    """Both packages' "auto" disparity on the native census-SGM, as on a
+    machine without OpenCV."""
+    j_pipeline.compute_disparity = _native(j_pipeline.compute_disparity)
+    t_stereo.auto_backend = lambda: "native"
+
+
 @pytest.fixture
 def jax_native_disparity(monkeypatch, native_built):
-    """JAX's stereo pipeline on its native census-SGM, as on a machine
-    without OpenCV."""
+    """JAX's stereo pipeline and the port's "auto" on the native census-SGM,
+    as on a machine without OpenCV."""
     monkeypatch.setattr(j_pipeline, "compute_disparity", _native(j_pipeline.compute_disparity))
+    monkeypatch.setattr(t_stereo, "auto_backend", lambda: "native")
 
 
 CASES = {"defaults": dict(denoise=True, max_iter=150),
@@ -220,7 +230,7 @@ def jax_kitti_spread():
 
     from unified_cvo_tpu.apps import _odometry_common as j_common
 
-    j_pipeline.compute_disparity = _native(j_pipeline.compute_disparity)
+    pin_native()
     align = j_common.align
     with tempfile.TemporaryDirectory() as root:
         root = Path(root)
@@ -267,7 +277,7 @@ def chip_phase_chain(port: bool, opencv: bool = False):
     from test_torch_frontend_host import opencv4_gray
 
     if not opencv:
-        j_pipeline.compute_disparity = _native(j_pipeline.compute_disparity)
+        pin_native()
     cvt = cv2.cvtColor
     cv2.cvtColor = lambda img, code, *a, **k: (opencv4_gray(img) if code == cv2.COLOR_BGR2GRAY
                                                else cvt(img, code, *a, **k))

@@ -14,11 +14,15 @@ package on the CPU.
 - the device frontend's SGM keeps its density speckle (JAX's ops/sgm.py);
 - compute_disparity(backend="opencv") gives JAX's map (cv2.StereoSGBM;
   tests/test_torch_sgbm_opencv.py holds it to cv2 stage by stage);
+- backend="auto" follows JAX's rule: JAX's "auto" map where cv2 is
+  importable (cv2.StereoSGBM), the native map where it is not;
 - pointcloud_from_stereo on its own disparity against JAX's on the native
   backend for CV_FAST, DSO_EDGES, FULL, EDGES_ONLY and CANNY_EDGES: masks
   equal, xyz rtol/atol 1e-5; the EDGES_ONLY and CANNY_EDGES selections
   equal to JAX's.
 """
+
+import importlib.util
 
 import cv2
 import numpy as np
@@ -94,10 +98,11 @@ def test_native_disparity_is_the_cpp_bit_for_bit(h, w, max_disp, shift):
     assert got.dtype == torch.float32 and got.device.type == "cpu"
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want > 0).mean() > 0.8
-    # "auto" is native in the port
-    np.testing.assert_array_equal(
-        t_stereo.compute_disparity(left, right, max_disparity=max_disp, device=CPU).numpy(),
-        want)
+    # "auto" is native where cv2 is not importable
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(importlib.util, "find_spec", lambda name, *a: None)
+        auto = t_stereo.compute_disparity(left, right, max_disparity=max_disp, device=CPU)
+    np.testing.assert_array_equal(auto.numpy(), want)
 
 
 def test_native_disparity_constant_shift():
@@ -150,7 +155,7 @@ def test_native_disparity_rejects_bad_args(max_disp):
     with pytest.raises(RuntimeError):
         native.sgm_disparity(z, z, max_disp=max_disp)
     with pytest.raises(RuntimeError):
-        t_stereo.compute_disparity(z, z, max_disparity=max_disp, device=CPU)
+        t_stereo.compute_disparity(z, z, max_disparity=max_disp, backend="native", device=CPU)
     with pytest.raises(RuntimeError):
         t_sgm.sgm_disparity_native(torch.zeros((0, 4), dtype=torch.uint8),
                                    torch.zeros((0, 4), dtype=torch.uint8), 16)
@@ -158,16 +163,36 @@ def test_native_disparity_rejects_bad_args(max_disp):
 
 def test_opencv_backend_is_not_ported():
     """The name is the test's from before the StereoSGBM backend was ported
-    (ops/sgbm_opencv.py): it now gives JAX's float32 map exactly, where
-    "auto" stays native."""
+    (ops/sgbm_opencv.py): it now gives JAX's float32 map exactly, which the
+    native backend's differs from."""
     left, right = occluded_pair(64, 160, 5, seed=2)
     want = j_stereo.compute_disparity(left, right, max_disparity=32, backend="opencv")
     got = t_stereo.compute_disparity(left, right, max_disparity=32, backend="opencv",
                                      device=CPU)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want > 0).mean() > 0.5
-    native_map = t_stereo.compute_disparity(left, right, max_disparity=32, device=CPU)
+    native_map = t_stereo.compute_disparity(left, right, max_disparity=32, backend="native",
+                                            device=CPU)
     assert not torch.equal(native_map, got)
+
+
+def test_auto_backend_follows_jax_rule(monkeypatch):
+    """backend="auto" is JAX's rule: cv2.StereoSGBM where cv2 is importable
+    (here: the port's map equals JAX's "auto" map, which is cv2's), the
+    native census-SGM where importlib finds no cv2."""
+    left, right = occluded_pair(64, 160, 5, seed=2)
+    assert importlib.util.find_spec("cv2") is not None and t_stereo.auto_backend() == "opencv"
+    want = j_stereo.compute_disparity(left, right, max_disparity=32)
+    np.testing.assert_array_equal(
+        want, j_stereo.compute_disparity(left, right, max_disparity=32, backend="opencv"))
+    got = t_stereo.compute_disparity(left, right, max_disparity=32, device=CPU)
+    np.testing.assert_array_equal(got.numpy(), want)
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: None)
+    assert t_stereo.auto_backend() == "native"
+    native_map = j_stereo.compute_disparity(left, right, max_disparity=32, backend="native")
+    got = t_stereo.compute_disparity(left, right, max_disparity=32, device=CPU)
+    np.testing.assert_array_equal(got.numpy(), native_map)
+    assert not np.array_equal(native_map, want)
 
 
 def _flood_speckle(disp, min_size=120, max_diff=1.0):
@@ -246,7 +271,8 @@ def test_pointcloud_from_stereo_matches_jax(method, stereo_frame, jax_opencv4):
     cj = j_pipeline.pointcloud_from_stereo(left, right, calib, method=method, denoise=False,
                                            capacity=cap, stereo_backend="native")
     ct = t_pipeline.pointcloud_from_stereo(left, right, _port_calib(calib), method=method,
-                                           denoise=False, capacity=cap, device=CPU)
+                                           denoise=False, capacity=cap, stereo_backend="native",
+                                           device=CPU)
     np.testing.assert_array_equal(ct.mask.numpy(), np.asarray(cj.mask))
     assert float(ct.mask.sum()) > 500
     np.testing.assert_allclose(ct.xyz.numpy(), np.asarray(cj.xyz), rtol=1e-5, atol=1e-5)
@@ -259,12 +285,13 @@ def test_pointcloud_from_stereo_matches_jax(method, stereo_frame, jax_opencv4):
 def test_pointcloud_from_stereo_takes_a_tensor_disparity(stereo_frame):
     left, right, calib = stereo_frame
     pc = _port_calib(calib)
-    disp = t_stereo.compute_disparity(left, right, device=CPU)
+    disp = t_stereo.compute_disparity(left, right, backend="native", device=CPU)
     a = t_pipeline.pointcloud_from_stereo(left, right, pc, denoise=False, disparity=disp,
                                           device=CPU)
     b = t_pipeline.pointcloud_from_stereo(left, right, pc, denoise=False,
                                           disparity=disp.numpy(), device=CPU)
-    c = t_pipeline.pointcloud_from_stereo(left, right, pc, denoise=False, device=CPU)
+    c = t_pipeline.pointcloud_from_stereo(left, right, pc, denoise=False,
+                                          stereo_backend="native", device=CPU)
     for x in (b, c):
         assert torch.equal(a.xyz, x.xyz) and torch.equal(a.mask, x.mask)
 

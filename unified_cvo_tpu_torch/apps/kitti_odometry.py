@@ -12,9 +12,11 @@ accumulate, and stream KITTI-format rows to OUT. The first pair uses the
 *_first_frame parameter swap (main:40-46,156-161).
 
 The default `frontend="host"` is the JAX package's: FAST selection on the
-NL-means-denoised left image and the native census-SGM disparity of the raw
-pair (frontend/pipeline.py::pointcloud_from_stereo), each cloud built on the
-card. With --semantic, per-pixel 19-class distributions are read beside the
+NL-means-denoised left image and the disparity of the raw pair
+(frontend/pipeline.py::pointcloud_from_stereo), each cloud built on the
+card. `stereo_backend` picks the disparity: "native" the census-SGM of
+native/cvo_native.cpp, "opencv" cv2.StereoSGBM 3WAY, both bit for bit, and
+"auto" JAX's rule: "opencv" where cv2 is importable, else "native". With --semantic, per-pixel 19-class distributions are read beside the
 stereo pair and attached to the clouds, the cvo_align_gpu_semantic_img twin
 (main_cvo_semantic_gpu_align_raw_image.cpp). `--device-frontend` builds each
 cloud with the device frontend instead (census-SGM with the density
@@ -93,7 +95,8 @@ def run_frames(
 
     Writes one KITTI row per aligned frame to `out` (a text file, when
     given) and returns (poses [N, 4, 4] float64, a PairRecord for each
-    pair). `first_params` defaults to
+    pair). `stereo_backend` as in the module docstring (the host
+    frontend only). `first_params` defaults to
     `params.first_frame()`; `device=None` means the card."""
     dev = resolve_device(device)
     build_cloud = _stereo_frontend(frontend, calib, capacity, device_max_disp, False, dev,

@@ -2,7 +2,7 @@
 
 JAX's CANNY_EDGES selection (unified_cvo_tpu/frontend/selector.py:188-191,
 the reference's stereo_surface_sampling, CvoPointCloud.cpp:151-256) runs
-OpenCV's ORB detector at its defaults; the card's machine has no OpenCV, so
+OpenCV's ORB detector at its defaults; the port imports no OpenCV, so
 this module gives the keypoints of OpenCV 5.0's orb.cpp (computeKeyPoints,
 HARRIS_SCORE) bit for bit and in its order:
 

@@ -104,9 +104,9 @@ def pointcloud_from_stereo(
 ) -> PointCloud:
     """JAX's signature, plus `device` (None means the card). Without
     `disparity` the disparity of the raw (not denoised) pair is computed on
-    `dev` by compute_disparity (`stereo_backend` 'auto' or 'native': the
-    native census-SGM bit for bit; 'opencv': cv2.StereoSGBM 3WAY bit for
-    bit). A given `disparity`, a numpy array or a tensor on any device, goes
+    `dev` by compute_disparity (`stereo_backend` 'native': the native
+    census-SGM bit for bit; 'opencv': cv2.StereoSGBM 3WAY bit for bit;
+    'auto': JAX's rule, 'opencv' where cv2 is importable, else 'native'). A given `disparity`, a numpy array or a tensor on any device, goes
     to `dev`."""
     dev = resolve_device(device)
     raw = make_raw_image(left, semantics=semantics, denoise=denoise, device=dev)

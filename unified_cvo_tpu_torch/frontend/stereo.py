@@ -14,12 +14,14 @@ as numpy does instead of multiplying by a reciprocal.
 "native" is the C++ census-SGM of native/cvo_native.cpp bit for bit
 (`ops/sgm.py::sgm_disparity_native`); "opencv" is cv2.StereoSGBM in
 MODE_SGBM_3WAY at JAX's settings, its int16 map bit for bit
-(`ops/sgbm_opencv.py::sgbm_3way`) divided by 16. `backend="auto"` means
-native here even where cv2 imports (JAX takes cv2.StereoSGBM there; on a
-machine without OpenCV, such as the card's, its "auto" is native too).
+(`ops/sgbm_opencv.py::sgbm_3way`) divided by 16. `backend="auto"` is
+JAX's rule: "opencv" where cv2 is importable, "native" elsewhere
+(`auto_backend`, which looks for the module without importing it).
 """
 
 from __future__ import annotations
+
+import importlib.util
 
 import numpy as np
 import torch
@@ -42,17 +44,26 @@ def opencv_settings(max_disparity: int) -> dict:
                 pre_filter_cap=31)
 
 
+def auto_backend() -> str:
+    """The backend "auto" stands for: "opencv" where cv2 is importable (JAX
+    then takes cv2.StereoSGBM), else "native"."""
+    return "opencv" if importlib.util.find_spec("cv2") is not None else "native"
+
+
 def compute_disparity(left, right, max_disparity: int = 128, backend: str = "auto",
                       device=None) -> torch.Tensor:
     """Left-image disparity map [H, W] float32, invalid pixels <= 0, on
     `device` (None: the inputs' device where they are tensors, else the
     card). left / right: BGR [H, W, 3] or grey [H, W] uint8 images, colour
-    converted by OpenCV 4's fixed-point BGR2GRAY. backend 'native' and
-    'auto': native/cvo_native.cpp's census-SGM bit for bit (p1 10, p2 120,
+    converted by OpenCV 4's fixed-point BGR2GRAY. backend 'native':
+    native/cvo_native.cpp's census-SGM bit for bit (p1 10, p2 120,
     uniqueness 0.1, the 120-pixel region speckle); 'opencv': StereoSGBM
-    3WAY at `opencv_settings`, its int16 map / 16 (invalid pixels -1)."""
+    3WAY at `opencv_settings`, its int16 map / 16 (invalid pixels -1);
+    'auto': `auto_backend()`, JAX's rule."""
     if backend not in ("native", "auto", "opencv"):
         raise ValueError(f"unknown stereo backend {backend!r}")
+    if backend == "auto":
+        backend = auto_backend()
     if device is None and isinstance(left, torch.Tensor):
         dev = left.device
     else:

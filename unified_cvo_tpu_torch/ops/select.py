@@ -1,13 +1,19 @@
 """K-nearest candidate selection of the neighbor-list build.
 
 `select` replaces the TPU kernel unified_cvo_tpu/ops/pallas_select.py::
-_select_kernel. On a CUDA tensor it launches csrc/select.cu (a warp per
-source point at a time: a branch-free gather of the 27 cells, a threshold
-pick and a warp sort, slot rows stored in runs); on a CPU tensor it runs
-`select_plain`, the sort path of the JAX grid builder (neighbors.py:348-396):
-exact filter, a stable sort on the squared distance carrying the candidate
-position, first K. The kernel breaks ties by pool position too, so both
-give the same slots in the same order.
+_select_kernel. On a CUDA tensor it launches csrc/select.cu, one kernel a
+call, by one of two routes its dispatch picks from the shapes: the align
+list (P = 8, K <= 32) gathers a point's whole pool into registers
+branch-free and ranks the kept candidates by counting; every other shape
+(the IRLS list: P = 32, K = 128) streams the pool a candidate a lane,
+reading coordinates only behind a live index, keeps the kept candidates in
+a list in shared memory, picks the K nearest by a bitwise search for the
+K-th d2 and ranks those K by counting. Both stage the [K, points] output
+tile in shared memory and store slot rows in whole sectors. On a CPU
+tensor it runs `select_plain`, the sort path of the JAX grid builder
+(neighbors.py:348-396): exact filter, a stable sort on the squared distance
+carrying the candidate position, first K. The kernel breaks ties by pool
+position too, so both give the same slots in the same order.
 
 Contract (both versions): for source point n and its 27-cell pool (cells
 in dx, dy, dz order, P slots each), keep candidates with index >= 0 and
@@ -112,32 +118,10 @@ def select(tab, cbase, xr2, pose, k: int, p: int, grid_dims):
 
 select.launches = 0
 
-_measurement_build = None
-
-# csrc/select.cu's measurement switches, in cvo_select_design's order
-DESIGN_KEYS = ("SELECT_ITER_ARGMIN", "SELECT_DIRECT_STORE")
-
-
-def use_build(lib=None) -> None:
-    """Route `select` through `lib`, a measurement build from
-    cuda_lib.load_variant("select", ...), or back to the package's build."""
-    global _measurement_build
-    _measurement_build = lib
-
-
-def library_design() -> dict:
-    """The loaded build's measurement switches."""
-    out = (ctypes.c_int * len(DESIGN_KEYS))()
-    _lib().cvo_select_design(out)
-    return dict(zip(DESIGN_KEYS, out))
-
 
 def _lib():
-    return bind(_measurement_build or cuda_lib.load("select"))
-
-
-def bind(lib):
-    """Declare the C interface of a build of csrc/select.cu."""
+    """The package's build of csrc/select.cu, its C interface declared."""
+    lib = cuda_lib.load("select")
     if not getattr(lib, "_argtypes_set", False):
         P = ctypes.c_void_p
         I = ctypes.c_int
@@ -145,7 +129,5 @@ def bind(lib):
         lib.cvo_select.restype = I
         lib.cvo_select_max_pool.argtypes = []
         lib.cvo_select_max_pool.restype = I
-        lib.cvo_select_design.argtypes = [P]
-        lib.cvo_select_design.restype = None
         lib._argtypes_set = True
     return lib
