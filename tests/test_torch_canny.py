@@ -8,6 +8,9 @@ plain version of its hysteresis kernel (components8_plain) against scipy.
   labels the smallest pixel id of each component; the wrapper takes the
   plain version for a CPU tensor;
 - L1's plain version keeps its labels with the diagonal links absent.
+- on chip_smoke.py's three fixed union-find cases (every link, no link, a
+  serpentine; `cc_cases`, at 70 x 100 here), both wrappers on the CPU give
+  the known labels the card's kernels are held to.
 """
 
 import cv2
@@ -19,7 +22,6 @@ import torch
 from unified_cvo_tpu.utils import synth as j_synth
 from unified_cvo_tpu_torch.ops import canny as C
 from unified_cvo_tpu_torch.ops import lidar as L
-from test_torch_frontend_host import opencv4_gray
 
 torch.set_num_threads(1)
 
@@ -43,11 +45,11 @@ def _image(name):
         scene = j_synth.corridor_scene(5, half_width=2.5, floor_y=1.2, ceil_y=-1.2,
                                        length=30.0)
         T = j_synth.corridor_trajectory(2, step=0.08, yaw_rate=0.015, bob=0.005)[1]
-        return opencv4_gray(j_synth.render_frame(scene, calib, T)[0])
+        return cv2.cvtColor(j_synth.render_frame(scene, calib, T)[0], cv2.COLOR_BGR2GRAY)
     calib = j_synth.kitti_calibration(W=1241, H=376, fx=718.856)
     scene = j_synth.corridor_scene(seed=3)
     left = j_synth.render_stereo(scene, calib, j_synth.corridor_trajectory(1, step=0.35)[0])[0]
-    return opencv4_gray(left)
+    return cv2.cvtColor(left, cv2.COLOR_BGR2GRAY)
 
 
 @pytest.mark.parametrize("name", ["noise", "blurred", "blocks", "tum", "kitti"])
@@ -90,3 +92,16 @@ def test_components_plain_without_diagonals_keeps_l1s_labels():
     lh = torch.from_numpy(rng.random((16, 40)) < 0.5)
     none = torch.zeros_like(lv)
     assert torch.equal(L.components_plain(lv, lh), L.components_plain(lv, lh, none, none))
+
+
+@pytest.mark.parametrize("case", ["every link", "no link", "serpentine"])
+def test_fixed_union_find_cases_give_their_labels(case, monkeypatch):
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "CC_SHAPE", (70, 100))
+    lv, lh, l1_want, mask, c8_want = chip_smoke.cc_cases(torch.device("cpu"))[case]
+    assert torch.equal(L.components(lv, lh), l1_want)
+    assert torch.equal(C.components8(mask), c8_want)
+    if case == "serpentine":              # one path through every cell / every masked pixel
+        assert int(lv.sum() + lh.sum()) == 70 * 100 - 1
+        assert int((c8_want == 0).sum()) == int(mask.sum())

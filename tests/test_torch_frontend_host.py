@@ -13,12 +13,14 @@ against the JAX package's host frontend on the CPU.
   disparity.
 - the capacity cap's indices against np.linspace at seeded n in
   4097-300000 (capacities 4096, 8192, 16384), where torch.linspace differs.
+- the two grey levels on all 2^24 colours (one 4096 x 4096 image): the host
+  frontend's (frontend/image.py::opencv_gray) equal to cv2.cvtColor's
+  BGR2GRAY, which JAX's host frontend calls, and the device frontends'
+  (frontend/device.py::device_gray_and_gradients) equal to JAX's device
+  frontend's.
 
-The port's grey level is OpenCV 4's fixed-point BGR2GRAY (the reference's
-OpenCV; the card's machine has none). The OpenCV installed here (5.x) rounds
-some colours the other way, so where JAX's code converts a colour image the
-test gives it OpenCV 4's conversion (`opencv4_gray`), and the FAST tests feed
-both packages one grey image.
+JAX runs as it is, on the installed cv2: nothing here patches its
+cv2.cvtColor. The FAST tests feed both packages one grey image.
 """
 
 import sys
@@ -28,11 +30,13 @@ import numpy as np
 import pytest
 import torch
 
+from unified_cvo_tpu.frontend import device as j_dev
 from unified_cvo_tpu.frontend import image as j_image
 from unified_cvo_tpu.frontend import pipeline as j_pipe
 from unified_cvo_tpu.frontend import selector as j_sel
 from unified_cvo_tpu.utils import synth as j_synth
 from unified_cvo_tpu_torch import convert
+from unified_cvo_tpu_torch.frontend import device as t_dev
 from unified_cvo_tpu_torch.frontend import image as t_image
 from unified_cvo_tpu_torch.frontend import pipeline as t_pipe
 from unified_cvo_tpu_torch.frontend import selector as t_sel
@@ -40,22 +44,37 @@ from unified_cvo_tpu_torch.frontend import selector as t_sel
 torch.set_num_threads(1)
 
 CPU = "cpu"
-_CV_CVTCOLOR = cv2.cvtColor
 
 
-def opencv4_gray(img):
-    """OpenCV 4's BGR2GRAY: (1868 B + 9617 G + 4899 R + 8192) >> 14."""
-    b, g, r = (img[..., i].astype(np.int64) for i in range(3))
-    return ((1868 * b + 9617 * g + 4899 * r + 8192) >> 14).astype(np.uint8)
+def every_colour():
+    """All 2^24 BGR colours as one 4096 x 4096 uint8 image."""
+    v = np.arange(1 << 24, dtype=np.uint32)
+    return np.stack([v >> 16, (v >> 8) & 255, v & 255], -1).astype(np.uint8).reshape(
+        4096, 4096, 3)
 
 
-@pytest.fixture
-def jax_opencv4(monkeypatch):
-    def cvt(img, code, *a, **kw):
-        if code == cv2.COLOR_BGR2GRAY:
-            return opencv4_gray(img)
-        return _CV_CVTCOLOR(img, code, *a, **kw)
-    monkeypatch.setattr(cv2, "cvtColor", cvt)
+def test_host_grey_is_cv2s_on_every_colour():
+    """opencv_gray is cv2.cvtColor(COLOR_BGR2GRAY) on all 2^24 colours, and
+    is not the device frontends' 14-bit rule, which parts from it on
+    43864 colours by one."""
+    img = every_colour()
+    want = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    got = t_image.opencv_gray(torch.from_numpy(img))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+    dev = t_dev.device_gray_and_gradients(torch.from_numpy(img))[0].numpy()
+    diff = dev - want.astype(np.float32)
+    assert int((diff != 0).sum()) == 43864 and float(np.abs(diff).max()) == 1.0
+
+
+def test_device_grey_is_jaxs_on_every_colour():
+    """device_gray_and_gradients' grey (and its gradients) equal JAX's
+    device frontend's on all 2^24 colours."""
+    img = every_colour()
+    want = j_dev.device_gray_and_gradients(img)
+    got = t_dev.device_gray_and_gradients(torch.from_numpy(img))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 def _port_calib(c):
@@ -134,10 +153,10 @@ def test_fast_threshold_search_keeps_the_reference_quirks():
 
 @pytest.mark.parametrize("grey", [False, True], ids=["bgr", "grey"])
 @pytest.mark.parametrize("denoise", [False, True], ids=["raw", "opencv_nlm"])
-def test_make_raw_image_matches_jax(grey, denoise, tum_frame, jax_opencv4):
+def test_make_raw_image_matches_jax(grey, denoise, tum_frame):
     img = tum_frame[0][::2, ::2].copy()          # 160 x 120: cv2's NL-means is slow
     if grey:
-        img = opencv4_gray(img)
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
     rj = j_image.make_raw_image(img, denoise=denoise)
     rt = t_image.make_raw_image(img, denoise=denoise, device=CPU)
     np.testing.assert_array_equal(rt.image.numpy(), rj.image)
@@ -165,7 +184,7 @@ def test_opencv_denoiser_without_opencv_gives_cv2s_output(tum_frame, monkeypatch
 
 
 @pytest.mark.parametrize("num_want", [1000, 3000, 10000])
-def test_dso_and_full_selection_match_jax(num_want, tum_frame, jax_opencv4):
+def test_dso_and_full_selection_match_jax(num_want, tum_frame):
     rj = j_image.make_raw_image(tum_frame[0], denoise=False)
     rt = t_image.make_raw_image(tum_frame[0], denoise=False, device=CPU)
     uv_j, gt_j = j_sel.select_points(rj, "rgbd", j_sel.DSO_EDGES, expected_points=num_want)
@@ -180,7 +199,7 @@ def test_dso_and_full_selection_match_jax(num_want, tum_frame, jax_opencv4):
 
 
 @pytest.mark.parametrize("method", [t_sel.CANNY_EDGES, t_sel.EDGES_ONLY])
-def test_canny_and_orb_selection_raise(method, tum_frame, jax_opencv4):
+def test_canny_and_orb_selection_raise(method, tum_frame):
     """CANNY_EDGES (cv2.ORB's keypoints through the port's exact ORB, then
     the edge and uniform draws) and EDGES_ONLY (Canny alone) no longer
     raise: each gives JAX's selection, uv and types equal, order included
@@ -227,7 +246,7 @@ def _clouds_equal(pt, pj):
 
 
 @pytest.mark.parametrize("capacity,semantic", [(None, False), (4096, False), (4096, True)])
-def test_pointcloud_from_rgbd_matches_jax(capacity, semantic, tum_frame, jax_opencv4):
+def test_pointcloud_from_rgbd_matches_jax(capacity, semantic, tum_frame):
     bgr, d16, _, calib = tum_frame
     sem = None
     if semantic:
@@ -241,7 +260,7 @@ def test_pointcloud_from_rgbd_matches_jax(capacity, semantic, tum_frame, jax_ope
     _clouds_equal(pt, pj)
 
 
-def test_pointcloud_from_stereo_on_a_given_disparity_matches_jax(kitti_frame, jax_opencv4):
+def test_pointcloud_from_stereo_on_a_given_disparity_matches_jax(kitti_frame):
     left, depth, calib = kitti_frame
     disp = j_synth.gt_disparity(depth, calib)
     pj = j_pipe.pointcloud_from_stereo(left, left, calib, denoise=False, capacity=16384,

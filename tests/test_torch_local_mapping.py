@@ -25,8 +25,8 @@ tests/test_torch_local_mapping.py --fixture-spread CAP 1e-6,0 -1e-6,0
 - the online mode's odometry replay (run_frames(odometry=...)) reproduces
   the run it came from exactly.
 
-Where JAX's code converts a colour image to grey, the test gives it OpenCV
-4's BGR2GRAY, the port's (test_torch_frontend_host.py).
+JAX converts colour to grey with the installed cv2, whose BGR2GRAY the
+port's host frontend computes (frontend/image.py::opencv_gray).
 """
 
 import sys
@@ -35,7 +35,6 @@ from pathlib import Path
 if __name__ == "__main__":      # as a script: the repo root on the path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import cv2
 import numpy as np
 import pytest
 import torch
@@ -54,19 +53,6 @@ torch.set_num_threads(1)
 POSE_TOL = 5e-3
 KW = dict(max_frames=5, resolution=0.1, capacity=4096, num_classes=3,
           keyframe_function_angle=0.99, log=lambda *a: None)
-_CV_CVTCOLOR = cv2.cvtColor
-
-
-def _opencv4_gray(img, code, *a, **kw):
-    if code != cv2.COLOR_BGR2GRAY:
-        return _CV_CVTCOLOR(img, code, *a, **kw)
-    b, g, r = (img[..., i].astype(np.int64) for i in range(3))
-    return ((1868 * b + 9617 * g + 4899 * r + 8192) >> 14).astype(np.uint8)
-
-
-@pytest.fixture(autouse=True)
-def jax_opencv4(monkeypatch):
-    monkeypatch.setattr(cv2, "cvtColor", _opencv4_gray)
 
 
 def write_fixture(root, max_iter=900):
@@ -356,7 +342,6 @@ if __name__ == "__main__":
     import chip_smoke
     from unified_cvo_tpu_torch.utils import synth as t_synth
 
-    cv2.cvtColor = _opencv4_gray        # the port's grey level, on the JAX side
     if "--fixture-spread" in sys.argv:
         at = sys.argv.index("--fixture-spread")
         fixture_spread(int(sys.argv[at + 1]),

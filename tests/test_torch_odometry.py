@@ -37,8 +37,16 @@ the host frontend at its defaults (NL-means, FAST, the native census-SGM);
 the StereoSGBM backend (cv2 in JAX, ops/sgbm_opencv.py in the port).
 `tartan_corridor [--port]` runs phase 14c's test_e2e_accuracy.py corridor
 through tartan_odometry.run_sequence at its defaults, unmoved and with pair
-1's guess moved by +-1e-6 m along x and z (JAX about 10 minutes, the port
-longer): `chip_smoke.JAX_MISSES["phase 14c corridor"]`.
+1's guess moved by +-1e-6 m and +-2e-6 m along x and z, with its source
+moved by one ulp, and with pair 0's guess moved by +-1e-6 m (JAX about 5
+minutes a run, the port about 25 on one thread):
+`chip_smoke.JAX_MISSES["phase 14c corridor"]`.
+
+`--only JAX|port` and `--cases I,J,...` (indices into the list of runs, in
+the order above) run a part of a spread, so that its parts can run in
+processes of their own; each run prints its se(3) log, and the gaps to
+JAX's unmoved run are then taken from those logs (`_gap` of their
+exponentials). The gap a part prints is to its own first run.
 """
 
 import dataclasses
@@ -77,7 +85,6 @@ from unified_cvo_tpu_torch.ops import lie as t_lie
 from unified_cvo_tpu_torch.utils import logging as t_logging
 from unified_cvo_tpu_torch.utils import metrics as t_metrics
 from unified_cvo_tpu_torch.utils import synth as t_synth
-from test_torch_frontend_host import jax_opencv4  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
 
@@ -197,8 +204,7 @@ def test_tum_device_frontend_with_nlm_matches_jax(tum_dir, params_yaml, tmp_path
     assert list(rows_t[:, 0]) == list(rows_j[:, 0])
 
 
-def test_host_frontend_raises_until_ported(kitti_dir, tum_dir, params_yaml, tmp_path,
-                                          jax_opencv4):
+def test_host_frontend_raises_until_ported(kitti_dir, tum_dir, params_yaml, tmp_path):
     """The name is the test's from before the StereoSGBM backend was
     ported: kitti_odometry.run_sequence and pointcloud_from_stereo with
     stereo_backend="opencv" now match JAX's (the clouds to 1e-5, the poses
@@ -416,7 +422,26 @@ def _chip_phase_chain(kind: str, port: bool):
     return jax_rows, port_rows
 
 
-def _first_pair_spread(kind: str, port: bool):
+def _ulp(xyz, seed):
+    """Every coordinate one ulp up or down, by a seeded draw."""
+    up = np.random.default_rng(seed).integers(0, 2, xyz.shape).astype(bool)
+    return np.where(up, np.nextafter(xyz, np.inf), np.nextafter(xyz, -np.inf))
+
+
+def _subset(argv):
+    """(packages, case indices or None) of `--only` / `--cases`."""
+    only = argv[argv.index("--only") + 1] if "--only" in argv else None
+    cases = ([int(c) for c in argv[argv.index("--cases") + 1].split(",")]
+             if "--cases" in argv else None)
+    return only, cases
+
+
+def _pick(packages, cases, only, picks):
+    return ([p for p in packages if only in (None, p)],
+            [c for i, c in enumerate(cases) if picks is None or i in picks])
+
+
+def _first_pair_spread(kind: str, port: bool, only=None, picks=None):
     """The first pair of chip_smoke.py phase 9 (`stereo`), 10 (`rgbd`), 15c
     (`stereo_host`, `--spread` only) or 15e (`stereo_sgbm`, `--spread` only) as
     the driver loop aligns it (the first-frame parameters, the identity
@@ -424,8 +449,8 @@ def _first_pair_spread(kind: str, port: bool):
     moved by +-1e-6 m along x and along z, and with every source coordinate
     moved by one ulp (two seeds); with `port`, the same runs through the
     port's frontend and align on the CPU. Prints each run's pose error, final
-    ell, iterations, list builds, se(3) log and distance |log dT| from JAX's
-    unmoved run."""
+    ell, iterations, list builds, se(3) log and distance |log dT| from the
+    first run (JAX's unmoved run, unless `only` / `picks` leave it out)."""
     import jax.numpy as jnp
 
     import chip_smoke
@@ -446,15 +471,10 @@ def _first_pair_spread(kind: str, port: bool):
         t_clouds = [t_dev.device_pointcloud_from_stereo(f[0], f[1], calib, device="cpu", **kw)
                     for f in frames[:2]] if port else None
     elif kind in ("stereo_host", "stereo_sgbm"):
-        # phase 15c: the host frontend at its defaults, JAX on its native
-        # census-SGM with OpenCV 4's grey level (the port's); phase 15e: the
-        # same on both packages' StereoSGBM backend
+        # phase 15c: the host frontend at its defaults, on both packages'
+        # native census-SGM; phase 15e: the same on their StereoSGBM backend
         from unified_cvo_tpu.frontend import pipeline as j_pipeline
-        from test_torch_frontend_host import opencv4_gray
 
-        cvt = cv2.cvtColor
-        cv2.cvtColor = lambda img, code, *a, **k: (
-            opencv4_gray(img) if code == cv2.COLOR_BGR2GRAY else cvt(img, code, *a, **k))
         kw = dict(capacity=t_kitti.CAPACITY,
                   stereo_backend="opencv" if kind == "stereo_sgbm" else "native")
         j_clouds = [j_pipeline.pointcloud_from_stereo(f[0], f[1], jc, **kw) for f in frames[:2]]
@@ -469,14 +489,10 @@ def _first_pair_spread(kind: str, port: bool):
     params = KITTI_COLOR_BENCH.first_frame()
     jp = JaxParams(**dataclasses.asdict(params))
 
-    def ulp(xyz, seed):            # every coordinate one ulp up or down
-        up = np.random.default_rng(seed).integers(0, 2, xyz.shape).astype(bool)
-        return np.where(up, np.nextafter(xyz, np.inf), np.nextafter(xyz, -np.inf))
-
     cases = [(f"guess t[{'xyz'[axis]}] {dt:+.0e} m", axis, dt, None)
              for axis, dt in ((0, 0.0), (0, 1e-6), (0, -1e-6), (2, 1e-6), (2, -1e-6))]
     cases += [(f"source xyz +-1 ulp (seed {seed})", 0, 0.0, seed) for seed in (0, 1)]
-    packages = ["JAX"] + (["port"] if port else [])
+    packages, cases = _pick(["JAX"] + (["port"] if port else []), cases, only, picks)
     ref = None
     for package in packages:
         for label, axis, dt, seed in cases:
@@ -486,14 +502,14 @@ def _first_pair_spread(kind: str, port: bool):
             if package == "JAX":
                 src, tgt = j_clouds
                 if seed is not None:
-                    src = src._replace(xyz=jnp.asarray(ulp(np.asarray(src.xyz), seed)))
+                    src = src._replace(xyz=jnp.asarray(_ulp(np.asarray(src.xyz), seed)))
                 T, _, info = j_align(src, tgt, jnp.asarray(guess), jp,
                                      max_iter=chip_smoke.MAX_ITER)
             else:
                 src, tgt = t_clouds
                 if seed is not None:
                     src = dataclasses.replace(
-                        src, xyz=torch.from_numpy(ulp(src.xyz.numpy(), seed)))
+                        src, xyz=torch.from_numpy(_ulp(src.xyz.numpy(), seed)))
                 T, _, info = t_align(src, tgt, guess, params, device="cpu",
                                      max_iter=chip_smoke.MAX_ITER)
             T = np.asarray(T, np.float64)
@@ -502,23 +518,28 @@ def _first_pair_spread(kind: str, port: bool):
             print(f"{kind} pair 0, {package}, {label}: pose error "
                   f"{f2f.pose_errors([T.astype(np.float32)], [true])[0]:.6f}, final ell "
                   f"{float(info.final_ell):.6f}, iterations {int(info.iterations)}, builds "
-                  f"{int(info.nl_rebuilds)}, {_gap(ref, T):.3g} from JAX's unmoved run, log "
+                  f"{int(info.nl_rebuilds)}, {_gap(ref, T):.3g} from the first run, log "
                   f"{np.array2string(xi, precision=9, max_line_width=200)} "
                   f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def _tartan_corridor_spread(port: bool):
+def _tartan_corridor_spread(port: bool, only=None, picks=None):
     """chip_smoke.py phase 14c's corridor run (test_e2e_accuracy.py's
     TartanAir corridor, 3 frames at 640 x 480, `write_e2e_corridor`) through
     JAX's tartan_odometry.run_sequence at its defaults and TARTAN_YAML on the
-    CPU (OpenCV 4's grey level, the port's), then again with pair 1's guess
-    moved by +-1e-6 m along x and along z; with `port`, the same five runs
-    through the port's driver on the CPU. Prints each run's pair errors and,
-    for pair 1, iterations, list builds, its distance |log dT| from JAX's
-    unmoved pair 1 and (JAX's unmoved run) its se(3) log: what
+    CPU, then again with pair 1's guess moved by +-1e-6 m and +-2e-6 m along
+    x and along z, with pair 1's source cloud moved by one ulp (two seeds),
+    and with pair 0's guess moved by +-1e-6 m along x and z (pair 1 starts
+    from where pair 0 ends); with `port`, the same fifteen runs through the
+    port's driver on the CPU.
+    Prints each run's pair errors and, for pair 1, iterations, list builds,
+    its distance |log dT| from the first run's pair 1 (JAX's unmoved run,
+    unless `only` / `picks` leave it out) and its se(3) log: what
     chip_smoke.JAX_MISSES["phase 14c corridor"] records."""
     import os
     import tempfile
+
+    import jax.numpy as jnp
 
     import chip_smoke
     from unified_cvo_tpu.apps import _odometry_common as j_common
@@ -526,12 +547,12 @@ def _tartan_corridor_spread(port: bool):
     from unified_cvo_tpu_torch.apps import _odometry_common as t_common
     from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
     from unified_cvo_tpu_torch.apps import tartan_odometry as t_tartan
-    from test_torch_frontend_host import opencv4_gray
 
-    cvt = cv2.cvtColor
-    cv2.cvtColor = lambda img, code, *a, **k: (
-        opencv4_gray(img) if code == cv2.COLOR_BGR2GRAY else cvt(img, code, *a, **k))
-    cases = [(0, 0.0), (0, 1e-6), (0, -1e-6), (2, 1e-6), (2, -1e-6)]
+    # (the pair moved, axis, guess move, ulp seed of its source)
+    cases = [(1, 0, 0.0, None), (1, 0, 1e-6, None), (1, 0, -1e-6, None), (1, 2, 1e-6, None),
+             (1, 2, -1e-6, None), (1, 0, 2e-6, None), (1, 0, -2e-6, None), (1, 2, 2e-6, None),
+             (1, 2, -2e-6, None), (1, 0, 0.0, 0), (1, 0, 0.0, 1),
+             (0, 0, 1e-6, None), (0, 0, -1e-6, None), (0, 2, 1e-6, None), (0, 2, -1e-6, None)]
     with tempfile.TemporaryDirectory() as root:
         d, traj = chip_smoke.write_e2e_corridor(root)
         yaml = os.path.join(root, "tartan.yaml")
@@ -539,19 +560,26 @@ def _tartan_corridor_spread(port: bool):
             f.write(chip_smoke.TARTAN_YAML)
         true = [np.linalg.inv(traj[k + 1]) @ traj[k] for k in range(len(traj) - 1)]
         ref = None
-        for package in ["JAX"] + (["port"] if port else []):
+        packages, cases = _pick(["JAX"] + (["port"] if port else []), cases, only, picks)
+        for package in packages:
             common = j_common if package == "JAX" else t_common
             align = common.align
-            for axis, dt in cases:
+            for pair, axis, dt, seed in cases:
                 infos = []
 
                 def moved(src, tgt, guess, *a, **k):
-                    if len(infos) == 1 and dt:
+                    if len(infos) == pair and dt:
                         if package == "JAX":
                             guess = guess.at[axis, 3].add(dt)
                         else:
                             guess = guess.clone()
                             guess[axis, 3] += dt
+                    if len(infos) == pair and seed is not None:
+                        if package == "JAX":
+                            src = src._replace(xyz=jnp.asarray(_ulp(np.asarray(src.xyz), seed)))
+                        else:
+                            src = dataclasses.replace(src, xyz=torch.from_numpy(
+                                _ulp(src.xyz.cpu().numpy(), seed)).to(src.xyz.device))
                     out = align(src, tgt, guess, *a, **k)
                     infos.append(out[2])
                     return out
@@ -574,10 +602,12 @@ def _tartan_corridor_spread(port: bool):
                 xi = t_lie.se3_log(torch.from_numpy(T[:3, :3].astype(np.float32)),
                                    torch.from_numpy(T[:3, 3].astype(np.float32))).numpy()
                 info = infos[1]
-                print(f"corridor, {package}, pair 1 guess t[{'xyz'[axis]}] {dt:+.0e} m: pose "
+                label = (f"source xyz +-1 ulp (seed {seed})" if seed is not None
+                         else f"guess t[{'xyz'[axis]}] {dt:+.0e} m")
+                print(f"corridor, {package}, pair {pair} {label}: pose "
                       f"errors {[round(float(e), 6) for e in errs]}, pair 1 iterations "
                       f"{int(info.iterations)}, builds {int(info.nl_rebuilds)}, "
-                      f"{_gap(ref, T):.3g} from JAX's unmoved pair 1, log "
+                      f"{_gap(ref, T):.3g} from the first run's pair 1, log "
                       f"{np.array2string(xi.astype(np.float64), precision=9, max_line_width=200)}"
                       f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -590,11 +620,11 @@ def main(argv):
     kinds = ([k for k in ("stereo", "rgbd", "stereo_host", "stereo_sgbm") if k in argv]
              or ["stereo", "rgbd"])
     if "tartan_corridor" in argv:
-        _tartan_corridor_spread("--port" in argv)
+        _tartan_corridor_spread("--port" in argv, *_subset(argv))
         return 0
     if "--spread" in argv:
         for kind in kinds:
-            _first_pair_spread(kind, "--port" in argv)
+            _first_pair_spread(kind, "--port" in argv, *_subset(argv))
         return 0
     for kind in kinds:
         jax_rows, port_rows = _chip_phase_chain(kind, "--port" in argv)

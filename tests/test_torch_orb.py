@@ -17,8 +17,8 @@ the tests import), stage by stage, on the CPU:
   flat image (no keypoints) and on images too small for 8 levels: pt,
   octave and response bit-equal and in cv2's order.
 
-The grey level fed to both is one uint8 image (OpenCV 4's BGR2GRAY of the
-rendered colour frames, as tests/test_torch_frontend_host.py does).
+The grey level fed to both is one uint8 image (cv2's BGR2GRAY of the
+rendered colour frames, which the port's host frontend computes).
 """
 
 import shutil
@@ -31,7 +31,6 @@ import torch
 
 from unified_cvo_tpu.utils import synth as j_synth
 from unified_cvo_tpu_torch.frontend import orb
-from test_torch_frontend_host import opencv4_gray
 
 torch.set_num_threads(1)
 
@@ -50,11 +49,12 @@ def frames():
     the TUM camera in the TUM corridor, blurred noise at KITTI size."""
     kc = j_synth.kitti_calibration(*KITTI_SIZE, fx=718.856)
     T = j_synth.corridor_trajectory(2, step=0.35)[1]
-    kitti = opencv4_gray(j_synth.render_stereo(j_synth.corridor_scene(seed=3), kc, T)[0])
+    kitti = cv2.cvtColor(j_synth.render_stereo(j_synth.corridor_scene(seed=3), kc, T)[0],
+                         cv2.COLOR_BGR2GRAY)
     tc = j_synth.tum_calibration(*TUM_SIZE, fx=525.0)
     scene = j_synth.corridor_scene(5, half_width=2.5, floor_y=1.2, ceil_y=-1.2, length=30.0)
     T = j_synth.corridor_trajectory(2, step=0.08, yaw_rate=0.015, bob=0.005)[1]
-    tum = opencv4_gray(j_synth.render_frame(scene, tc, T)[0])
+    tum = cv2.cvtColor(j_synth.render_frame(scene, tc, T)[0], cv2.COLOR_BGR2GRAY)
     return {"kitti": kitti, "tum": tum, "noise": _noise(KITTI_SIZE[1], KITTI_SIZE[0], 3)}
 
 

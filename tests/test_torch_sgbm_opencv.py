@@ -15,8 +15,8 @@ an installed cv2 (OpenCV 5.0.0), on the CPU.
 - medianBlur(3) and filterSpeckles on their own against cv2's, with
   regions of exactly the window size and one more (the size rule is <=);
 - compute_disparity(backend="opencv") of both packages gives the same
-  float32 map, on grey and, under OpenCV 4's grey (`jax_opencv4`), colour
-  pairs;
+  float32 map, on grey and colour pairs (JAX's grey from cv2.cvtColor, the
+  port's from frontend/image.py::opencv_gray);
 - chip_smoke.py phase 15e's frame (1241 x 376, D 128): its input digest and
   cv2's map digest are the constants the card's run is held to, and the
   port's CPU map equals cv2's (~15 s on one thread);
@@ -35,7 +35,6 @@ from unified_cvo_tpu.frontend import stereo as j_stereo
 from unified_cvo_tpu.utils import synth as j_synth
 from unified_cvo_tpu_torch.frontend import stereo as t_stereo
 from unified_cvo_tpu_torch.ops import sgbm_opencv as sg
-from test_torch_frontend_host import jax_opencv4, opencv4_gray  # noqa: F401 (fixture)
 from test_torch_stereo_native import _textured, occluded_pair
 
 torch.set_num_threads(1)
@@ -77,15 +76,16 @@ def _assert_cv2(left, right, kw, valid_share=None):
 
 @pytest.fixture(scope="module")
 def rendered():
-    """Rendered corridor stereo pairs in OpenCV 4's grey: {width: (left,
-    right)} at 620 x 188 (phase 9's frame at half width) and 320 x 120."""
+    """Rendered corridor stereo pairs in cv2's grey: {width: (left, right)}
+    at 620 x 188 (phase 9's frame at half width) and 320 x 120."""
     out = {}
     for w, h, fx in ((620, 188, 359.428), (320, 120, 185.5)):
         calib = j_synth.kitti_calibration(W=w, H=h, fx=fx)
         scene = j_synth.corridor_scene(seed=3)
         left, right, _ = j_synth.render_stereo(scene, calib,
                                                j_synth.corridor_trajectory(1)[0])
-        out[w] = opencv4_gray(left), opencv4_gray(right)
+        out[w] = cv2.cvtColor(left, cv2.COLOR_BGR2GRAY), cv2.cvtColor(right,
+                                                                      cv2.COLOR_BGR2GRAY)
     return out
 
 
@@ -213,7 +213,7 @@ def test_compute_disparity_matches_jax_grey(rendered):
     assert (want > 0).mean() > 0.3
 
 
-def test_compute_disparity_matches_jax_colour(jax_opencv4):
+def test_compute_disparity_matches_jax_colour():
     left, right = occluded_pair(96, 200, 6, seed=9)
     rng = np.random.default_rng(4)
     tint = rng.integers(-40, 41, (1, 1, 3))
@@ -236,7 +236,7 @@ def test_phase15e_frame_digests_and_full_size():
     left, right = frames[0]
     assert hashlib.sha256(left.tobytes() + right.tobytes()).hexdigest() == \
         chip_smoke.SGBM_INPUT_SHA256
-    gl, gr = opencv4_gray(left), opencv4_gray(right)
+    gl, gr = (cv2.cvtColor(im, cv2.COLOR_BGR2GRAY) for im in (left, right))
     kw = t_stereo.opencv_settings(128)
     want = _cv2(gl, gr, **kw)
     assert hashlib.sha256(want.astype("<i2").tobytes()).hexdigest() == \

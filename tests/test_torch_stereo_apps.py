@@ -265,7 +265,7 @@ def jax_kitti_spread():
 def chip_phase_chain(port: bool, opencv: bool = False):
     """chip_smoke.py phase 15c's inputs through JAX's kitti_odometry on the
     CPU at the same settings (the host frontend at its defaults, JAX on its
-    native census-SGM, the phase's YAML; OpenCV 4's grey level), and with
+    native census-SGM, the phase's YAML), and with
     `port` the port's driver on the CPU: each pair's pose error against the
     rendered trajectory and its relative pose as an se(3) log. With
     `opencv`, phase 15e's pair instead: frames 0 -> 1 on
@@ -274,13 +274,9 @@ def chip_phase_chain(port: bool, opencv: bool = False):
 
     import chip_smoke
     from unified_cvo_tpu_torch.apps import f2f_sequence as f2f
-    from test_torch_frontend_host import opencv4_gray
 
     if not opencv:
         pin_native()
-    cvt = cv2.cvtColor
-    cv2.cvtColor = lambda img, code, *a, **k: (opencv4_gray(img) if code == cv2.COLOR_BGR2GRAY
-                                               else cvt(img, code, *a, **k))
     with tempfile.TemporaryDirectory() as root:
         _, runs = chip_smoke.write_stereo_host_inputs(root)
         if opencv:

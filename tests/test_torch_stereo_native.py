@@ -6,16 +6,19 @@ package on the CPU.
   (the C++ census-SGM of native/cvo_native.cpp): np.array_equal on three
   textured pairs with an occlusion block (64 x 96 at D 32, 120 x 200 at D
   64, 220 x 256 at D 32), on test_native.py's constant shift, on a rendered
-  KITTI-layout pair at half width, on a colour pair (grey by OpenCV 4's
-  fixed-point BGR2GRAY in both packages) and at penalties where the C++'s
-  uint16 path costs saturate; the bad arguments raise as the C++ refuses
-  them;
+  KITTI-layout pair at half width, on a colour pair (grey by cv2's
+  BGR2GRAY in both packages: the port's frontend/image.py::opencv_gray) and
+  at penalties where the C++'s uint16 path costs saturate; the bad
+  arguments raise as the C++ refuses them;
 - the region speckle against a transcription of the C++'s flood fill;
 - the device frontend's SGM keeps its density speckle (JAX's ops/sgm.py);
 - compute_disparity(backend="opencv") gives JAX's map (cv2.StereoSGBM;
   tests/test_torch_sgbm_opencv.py holds it to cv2 stage by stage);
 - backend="auto" follows JAX's rule: JAX's "auto" map where cv2 is
   importable (cv2.StereoSGBM), the native map where it is not;
+- a colour pair whose grey the device frontends' 14-bit rule would change
+  gives JAX's map on "native", "opencv" and "auto" (JAX on the installed
+  cv2's cvtColor, unpatched);
 - pointcloud_from_stereo on its own disparity against JAX's on the native
   backend for CV_FAST, DSO_EDGES, FULL, EDGES_ONLY and CANNY_EDGES: masks
   equal, xyz rtol/atol 1e-5; the EDGES_ONLY and CANNY_EDGES selections
@@ -43,7 +46,7 @@ from unified_cvo_tpu_torch.frontend import pipeline as t_pipeline
 from unified_cvo_tpu_torch.frontend import selector as t_sel
 from unified_cvo_tpu_torch.frontend import stereo as t_stereo
 from unified_cvo_tpu_torch.ops import sgm as t_sgm
-from test_torch_frontend_host import jax_opencv4, opencv4_gray  # noqa: F401 (fixture)
+from unified_cvo_tpu_torch.frontend import device as t_dev
 
 torch.set_num_threads(1)
 
@@ -78,7 +81,7 @@ def kitti_half():
     calib = j_synth.kitti_calibration(W=620, H=188, fx=359.428)
     scene = j_synth.corridor_scene(seed=3)
     left, right, _ = j_synth.render_stereo(scene, calib, j_synth.corridor_trajectory(1)[0])
-    return opencv4_gray(left), opencv4_gray(right)
+    return cv2.cvtColor(left, cv2.COLOR_BGR2GRAY), cv2.cvtColor(right, cv2.COLOR_BGR2GRAY)
 
 
 def _both(left, right, max_disp, **kw):
@@ -125,7 +128,7 @@ def test_native_disparity_on_a_rendered_pair(kitti_half):
     assert int(((before > 0) & (got <= 0)).sum()) > 100
 
 
-def test_native_disparity_colour_pair(jax_opencv4):
+def test_native_disparity_colour_pair():
     left, right = occluded_pair(96, 128, 6, seed=9)
     rng = np.random.default_rng(4)
     tint = rng.integers(-40, 41, (1, 1, 3))
@@ -136,6 +139,45 @@ def test_native_disparity_colour_pair(jax_opencv4):
                                      max_disparity=32, backend="native")
     assert got.device.type == "cpu"                   # a tensor's own device
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _colour_pair():
+    """A 96 x 160 pair of 4 x 4 blocks of random colours, every other block
+    one that the device frontends' 14-bit grey rule rounds otherwise than
+    cv2 does; the right image shifted by 6 px with a block of fresh
+    colours."""
+    rng = np.random.default_rng(12)
+    pool = rng.integers(0, 256, (400000, 3), np.uint8)
+    b, g, r = (pool[:, i].astype(np.int64) for i in range(3))
+    parts = ((1868 * b + 9617 * g + 4899 * r + 8192) >> 14
+             != (3735 * b + 19235 * g + 9798 * r + 16384) >> 15)
+    base = rng.integers(0, 256, (24 * 40, 3), np.uint8)
+    base[::2] = pool[parts][:480]
+    left = np.kron(base.reshape(24, 40, 3), np.ones((4, 4, 1), np.uint8))
+    right = np.roll(left, -6, axis=1)
+    right[30:60, 60:90] = rng.integers(0, 256, (30, 30, 3))
+    return left, right
+
+
+@pytest.mark.parametrize("backend", ["native", "opencv", "auto"])
+def test_compute_disparity_colour_pair_matches_jax(backend):
+    """Colour in, every backend: the port's map equals JAX's, whose grey is
+    the installed cv2's cvtColor. The pair is one where that grey and the
+    device frontends' 14-bit rule part (on half the pixels), and so do the
+    maps made from the two greys."""
+    left, right = _colour_pair()
+    grey = cv2.cvtColor(left, cv2.COLOR_BGR2GRAY)
+    rule14 = t_dev.device_gray_and_gradients(torch.from_numpy(left))[0].numpy()
+    assert int((rule14 != grey).sum()) > 6000
+    want = j_stereo.compute_disparity(left, right, max_disparity=32, backend=backend)
+    got = t_stereo.compute_disparity(left, right, max_disparity=32, backend=backend,
+                                     device=CPU)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want > 0).mean() > 0.5
+    other = t_stereo.compute_disparity(
+        *(t_dev.device_gray_and_gradients(torch.from_numpy(im))[0].to(torch.uint8)
+          for im in (left, right)), max_disparity=32, backend=backend, device=CPU)
+    assert not torch.equal(other, got)
 
 
 @pytest.mark.parametrize("kw", [dict(p1=10, p2=60000), dict(p1=30000, p2=65000),
@@ -265,7 +307,7 @@ def _port_calib(c):
 
 @pytest.mark.parametrize("method", ["CV_FAST", "DSO_EDGES", "FULL", "EDGES_ONLY",
                                     "CANNY_EDGES"])
-def test_pointcloud_from_stereo_matches_jax(method, stereo_frame, jax_opencv4):
+def test_pointcloud_from_stereo_matches_jax(method, stereo_frame):
     left, right, calib = stereo_frame
     cap = None if method == "FULL" else 16384
     cj = j_pipeline.pointcloud_from_stereo(left, right, calib, method=method, denoise=False,
@@ -297,7 +339,7 @@ def test_pointcloud_from_stereo_takes_a_tensor_disparity(stereo_frame):
 
 
 @pytest.mark.parametrize("expected,seed", [(10000, 0), (2000, 3), (400, 7)])
-def test_edges_only_selection_matches_jax(expected, seed, stereo_frame, jax_opencv4):
+def test_edges_only_selection_matches_jax(expected, seed, stereo_frame):
     left = stereo_frame[0]
     rj = j_image.make_raw_image(left, denoise=False)
     rt = t_image.make_raw_image(left, denoise=False, device=CPU)
@@ -310,7 +352,7 @@ def test_edges_only_selection_matches_jax(expected, seed, stereo_frame, jax_open
 
 @pytest.mark.parametrize("expected,seed,denoise", [(10000, 0, False), (2000, 3, True),
                                                    (400, 7, False)])
-def test_canny_edges_selection_matches_jax(expected, seed, denoise, stereo_frame, jax_opencv4):
+def test_canny_edges_selection_matches_jax(expected, seed, denoise, stereo_frame):
     """CANNY_EDGES: ORB's expected // 3 keypoints first (cv2's order), the
     edge draw, the uniform draw: uv and types equal to JAX's, also on the
     exact NL-means' image."""

@@ -89,8 +89,7 @@ def test_canny_edges_pair_matches_jax(kitti_dir, fast_yaml, jax_native_disparity
 def chip_canny_record(with_jax: bool, caps=None):
     """chip_smoke.CANNY_CPU's entries, one a cap (by default CANNY_CHECK_ITER
     and CANNY_ITER), and with `with_jax` JAX's pose of the same pair at each cap
-    (its host frontend on the native disparity with OpenCV 4's grey level,
-    then JAX align)."""
+    (its host frontend on the native disparity, then JAX align)."""
     import tempfile
     import time
 
@@ -125,18 +124,13 @@ def chip_canny_record(with_jax: bool, caps=None):
               f"{max(gaps):.3g}),  # gaps {[f'{g:.3g}' for g in gaps]}, "
               f"{time.perf_counter() - t0:.0f} s", flush=True)
     if with_jax:
-        import cv2
         import jax.numpy as jnp
 
         from unified_cvo_tpu.config import read_cvo_params_yaml as j_params
         from unified_cvo_tpu.frontend import calibration as j_calib
         from unified_cvo_tpu.frontend import pipeline as j_pipeline
         from unified_cvo_tpu.models.align import align as j_align
-        from test_torch_frontend_host import opencv4_gray
 
-        cvt = cv2.cvtColor
-        cv2.cvtColor = lambda img, code, *a, **k: (
-            opencv4_gray(img) if code == cv2.COLOR_BGR2GRAY else cvt(img, code, *a, **k))
         jc = j_calib.Calibration(np.asarray(calib.intrinsic), baseline=calib.baseline,
                                  depth_scale=calib.depth_scale, cols=calib.cols,
                                  rows=calib.rows)

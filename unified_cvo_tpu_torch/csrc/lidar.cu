@@ -7,11 +7,12 @@
 //
 // L1 `cvo_lidar_components` replaces segment_range_image's
 // connected_components (lidar.py:245-251): union-find on the [rows, cols]
-// range image (cc.cuh). The links (vertical, and horizontal with the
-// column wrap) are decided in torch and come in as bytes; one thread a cell
-// hooks its two links. The labels are the smallest cell id of each
-// component. The host stereo frontend's speckle rule also runs it
-// (ops/sgm.py::speckle_regions, no wrap: the last column's links are 0).
+// range image (cc.cuh: tile, border and compress passes). The links
+// (vertical, and horizontal with the column wrap) are decided in torch and
+// come in as bytes. The labels are the smallest cell id of each component.
+// The host stereo frontend's speckle rule also runs it
+// (ops/sgm.py::speckle_regions, no wrap: the last column's links are 0),
+// and so does StereoSGBM's filterSpeckles (ops/sgbm_opencv.py).
 //
 // L2 `cvo_lidar_loam_features` replaces _loam_extract_features' ring loop
 // (lidar.py:280-337): one warp a ring. The warp compacts the ring's kept
@@ -29,9 +30,10 @@
 // stream, as JAX draws it sector by sector.
 //
 // What bounds them on this card: neither moves much (0.7 MB a scan each
-// at 64 x 1800) nor computes much; L1 is three short launches, L2 is
-// latency-bound on its serial greedy steps (64 warps, one per ring). A
-// correct simple design first; the times are in PERF.md.
+// at 64 x 1800) nor computes much; L1 is three short launches (cc.cuh says
+// what its design does about the long chains of large components), L2 is
+// latency-bound on its serial greedy steps (64 warps, one per ring). The
+// times are in PERF.md.
 //
 // Compiled with -fmad=false: the curvature's adds and multiplies round as
 // the plain version's separate torch ops and numpy's do.
@@ -51,13 +53,62 @@ constexpr int MAX_COLS = 3400;       // 14 B of shared memory a column, under 48
 
 // link_v [rows - 1, cols]: cell (r, c) joins (r + 1, c); link_h [rows,
 // cols]: (r, c) joins (r, (c + 1) % cols).
-__global__ void cc_hook(const uint8_t* link_v, const uint8_t* link_h, int* parent, int rows,
-                        int cols) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * cols) return;
-  const int r = i / cols, c = i - r * cols;
-  if (r < rows - 1 && link_v[i]) cc::unite(parent, i, i + cols);
-  if (link_h[i]) cc::unite(parent, i, r * cols + (c + 1 == cols ? 0 : c + 1));
+//
+// Tile pass: block (TILE_W, TILE_H) threads, grid (tiles across, tiles
+// down). The links that stay inside the tile (to the right but not out of
+// its last column, down but not out of its last row) are joined here.
+__global__ void __launch_bounds__(cc::TILE_W * cc::TILE_H)
+    cc_tile4(const uint8_t* __restrict__ link_v, const uint8_t* __restrict__ link_h,
+             int* __restrict__ labels, int rows, int cols) {
+  using cc::TILE_H;
+  using cc::TILE_W;
+  __shared__ int s[TILE_W * TILE_H];
+  __shared__ unsigned right_of[TILE_H];              // per tile row: bit j joins j and j + 1
+  const int lc = threadIdx.x, lr = threadIdx.y;
+  const int r0 = blockIdx.y * TILE_H, c0 = blockIdx.x * TILE_W;
+  const int r = r0 + lr, c = c0 + lc, i = r * cols + c, li = lr * TILE_W + lc;
+  const bool in = r < rows && c < cols;
+  const bool h = in && lc + 1 < TILE_W && c + 1 < cols && __ldg(link_h + i);
+  const bool v = in && lr + 1 < TILE_H && r + 1 < rows && __ldg(link_v + i);
+  const unsigned hb = __ballot_sync(cc::FULL, h), vb = __ballot_sync(cc::FULL, v);
+  s[li] = lr * TILE_W + cc::run_start(hb, lc);
+  if (lc == 0) right_of[lr] = hb;
+  __syncthreads();
+  // the runs of rows lr and lr + 1 that meet at lc-1 and lc are joined by
+  // the cell at lc-1 (or further left): one union per pair of runs
+  if (v && !(lc > 0 && ((vb & hb & right_of[lr + 1]) >> (lc - 1) & 1u)))
+    cc::unite_shared(s, li, li + TILE_W);
+  __syncthreads();
+  if (in) labels[i] = cc::global_id(cc::find_shared(s, li), r0, c0, cols);
+}
+
+// Border pass: TILE_W + TILE_H threads a tile, grid (tiles across, tiles
+// down). Threads 0..TILE_W-1 take the tile's bottom row (its links down into
+// the next tile row), the rest its last column (the links to the right out
+// of the tile, and the wrap from the last column to column 0).
+__global__ void cc_border4(const uint8_t* __restrict__ link_v,
+                           const uint8_t* __restrict__ link_h, int* labels, int rows,
+                           int cols) {
+  using cc::TILE_H;
+  using cc::TILE_W;
+  const int r0 = blockIdx.y * TILE_H, c0 = blockIdx.x * TILE_W, t = threadIdx.x;
+  if (t < TILE_W) {
+    const int r = r0 + TILE_H - 1, c = c0 + t, i = r * cols + c;
+    if (r + 1 >= rows || c >= cols || !__ldg(link_v + i)) return;
+    // (r, c-1) makes the same union where it links down and both rows link it to c
+    if (t > 0 && __ldg(link_v + i - 1) && __ldg(link_h + i - 1) && __ldg(link_h + i - 1 + cols))
+      return;
+    cc::unite_global(labels, i, i + cols);
+  } else {
+    const int lr = t - TILE_W, r = r0 + lr, c = min(c0 + TILE_W, cols) - 1, i = r * cols + c;
+    if (r >= rows || !__ldg(link_h + i)) return;
+    const int cn = c + 1 == cols ? 0 : c + 1;        // in the next tile, or the wrap
+    // (r-1, c) makes the same union where it links right and both columns link down to r
+    if (lr > 0 && __ldg(link_h + i - cols) && __ldg(link_v + i - cols)
+        && __ldg(link_v + (r - 1) * cols + cn))
+      return;
+    cc::unite_global(labels, i, r * cols + cn);
+  }
 }
 
 __device__ __forceinline__ bool better(float c, int k, float best, int bk) {
@@ -205,8 +256,10 @@ int cvo_lidar_components(const uint8_t* link_v, const uint8_t* link_h, int* labe
                          int cols, cudaStream_t stream) {
   if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
   const int n = rows * cols, threads = 256, blocks = (n + threads - 1) / threads;
-  cc::init<<<blocks, threads, 0, stream>>>(labels, n);
-  cc_hook<<<blocks, threads, 0, stream>>>(link_v, link_h, labels, rows, cols);
+  const dim3 tiles((cols + cc::TILE_W - 1) / cc::TILE_W, (rows + cc::TILE_H - 1) / cc::TILE_H);
+  cc_tile4<<<tiles, dim3(cc::TILE_W, cc::TILE_H), 0, stream>>>(link_v, link_h, labels, rows,
+                                                              cols);
+  cc_border4<<<tiles, cc::TILE_W + cc::TILE_H, 0, stream>>>(link_v, link_h, labels, rows, cols);
   cc::compress<<<blocks, threads, 0, stream>>>(labels, n);
   return (int)cudaGetLastError();
 }

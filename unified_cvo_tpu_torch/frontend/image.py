@@ -6,10 +6,11 @@ fastNlMeansDenoising (RawImage.cpp:22-25) before computing intensity and the
 2-channel gradient dx = 0.5*(I[x+1]-I[x-1]), dy = 0.5*(I[y+1]-I[y-1]) with
 zeroed borders (compute_image_gradient, RawImage.cpp:55-81).
 
-Grey levels emulate OpenCV 4's fixed-point BGR2GRAY exactly, the
-reference's OpenCV (`frontend/device.py::device_gray_and_gradients`), and
-OpenCV's denoiser is ported exactly (`ops/nlm_opencv.py`), so nothing here
-needs OpenCV.
+The grey level of a colour image is cv2.cvtColor's BGR2GRAY exactly, as
+JAX's host frontend calls it (`opencv_gray`), and OpenCV's denoiser is
+ported exactly (`ops/nlm_opencv.py`), so nothing here needs OpenCV. The
+device frontends take another rule, JAX's device frontend's
+(`frontend/device.py::device_gray_and_gradients`).
 
 As in JAX, the features take the (dx, dy) of the selected pixel, the evident
 intent of the reference's stereo feature fill (CvoPointCloud.cpp:747-757,
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from unified_cvo_tpu_torch.device import resolve_device
-from unified_cvo_tpu_torch.frontend.device import device_gray_and_gradients
+from unified_cvo_tpu_torch.frontend.device import gradients
 from unified_cvo_tpu_torch.ops.nlm import nlm_denoise
 from unified_cvo_tpu_torch.ops.nlm_opencv import fast_nl_means_denoising_colored, nlm_opencv
 
@@ -53,6 +54,21 @@ class RawImage:
     @property
     def num_classes(self):
         return 0 if self.semantics is None else self.semantics.shape[2]
+
+
+def opencv_gray(image: torch.Tensor) -> torch.Tensor:
+    """cv2.cvtColor(image, cv2.COLOR_BGR2GRAY) of a [H, W, 3] uint8 BGR
+    tensor, as float32 grey levels on its device: OpenCV's 15-bit
+    fixed-point rule (3735*B + 19235*G + 9798*R + 16384) >> 15, equal to
+    cv2 5.0.0 on all 2^24 colours (tests/test_torch_frontend_host.py) and
+    to cv2 4.13.0 (tests/torch_sgbm_cv2_probe.py). It is not the 14-bit
+    rule (1868*B + 9617*G + 4899*R + 8192) >> 14 of the device frontends
+    (`frontend/device.py::device_gray_and_gradients`), which rounds 43864
+    colours the other way by one. The largest sum, 8,372,224, is below
+    2^24, so float32 is exact."""
+    img = image.to(torch.float32)
+    return torch.floor((3735.0 * img[..., 0] + 19235.0 * img[..., 1]
+                        + 9798.0 * img[..., 2] + 16384.0) * (1.0 / 32768.0))
 
 
 def _opencv_denoise(image: torch.Tensor) -> torch.Tensor:
@@ -91,7 +107,8 @@ def make_raw_image(
         img = _opencv_denoise(img)
     elif denoise:
         img = torch.clamp(nlm_denoise(img.to(torch.float32)), 0, 255).to(torch.uint8)
-    gray, grad, gs = device_gray_and_gradients(img)
+    gray = opencv_gray(img) if img.ndim == 3 else img.to(torch.float32)
+    grad, gs = gradients(gray)
     if semantics is not None:
         semantics = torch.as_tensor(semantics, dtype=torch.float32, device=dev)
     return RawImage(image=img, intensity=gray, gradient=grad, gradient_square=gs,

@@ -28,7 +28,8 @@ import torch
 
 from unified_cvo_tpu_torch.device import resolve_device
 from unified_cvo_tpu_torch.frontend.calibration import Calibration
-from unified_cvo_tpu_torch.frontend.device import _upload, device_gray_and_gradients
+from unified_cvo_tpu_torch.frontend.device import _upload
+from unified_cvo_tpu_torch.frontend.image import opencv_gray
 from unified_cvo_tpu_torch.ops.sgbm_opencv import sgbm_3way
 from unified_cvo_tpu_torch.ops.sgm import sgm_disparity_native
 
@@ -55,7 +56,8 @@ def compute_disparity(left, right, max_disparity: int = 128, backend: str = "aut
     """Left-image disparity map [H, W] float32, invalid pixels <= 0, on
     `device` (None: the inputs' device where they are tensors, else the
     card). left / right: BGR [H, W, 3] or grey [H, W] uint8 images, colour
-    converted by OpenCV 4's fixed-point BGR2GRAY. backend 'native':
+    converted as cv2.cvtColor's BGR2GRAY converts it (`opencv_gray`), for
+    both backends, as JAX converts it. backend 'native':
     native/cvo_native.cpp's census-SGM bit for bit (p1 10, p2 120,
     uniqueness 0.1, the 120-pixel region speckle); 'opencv': StereoSGBM
     3WAY at `opencv_settings`, its int16 map / 16 (invalid pixels -1);
@@ -71,7 +73,7 @@ def compute_disparity(left, right, max_disparity: int = 128, backend: str = "aut
 
     def gray(im):
         im = _upload(im, dev)
-        return device_gray_and_gradients(im)[0].to(torch.uint8) if im.ndim == 3 else im
+        return opencv_gray(im).to(torch.uint8) if im.ndim == 3 else im
 
     if backend == "opencv":
         disp = sgbm_3way(gray(left), gray(right), **opencv_settings(max_disparity))
