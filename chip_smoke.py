@@ -79,7 +79,12 @@ kernel of each path was launched:
                    on the 'ell' backend (select at K = 128), irls_tartan
                    --translation-only and covis_tartan, phase 14;
   KITTI stereo     phase 9's frames written as a KITTI sequence of PNGs:
-  host             the native census-SGM disparity on the card against the
+  host             the SGM recurrence's kernel (sgm_scan, csrc/sgm.cu)
+                   against its plain version on frame 0's four scans
+                   (native / device horizontal and vertical, StereoSGBM
+                   top and across) and on cases of other D, the cap, S 1
+                   and L 1, with its bound and latency floor (15s);
+                   the native census-SGM disparity on the card against the
                    C++ library of native/ (built here with g++, called by
                    ctypes: equal bit for bit), against the CPU and twice;
                    L1 on its speckle links; Canny and EDGES_ONLY card
@@ -139,7 +144,8 @@ rows 1, and at phase 8's BA edge, K = 128 and 192 with P = 32, rows 1b and
 step_cached of the package in each DIR, e.g. an unpacked earlier commit,
 and of this tree, L1 and components8 on the inputs of phases 13a, 15a, 15b
 and 15e and on the fixed cases of phase 15a' (built once by this tree,
-`cc_inputs`), then (unless `--no-irls`) times phase 8's IRLS BA (ms per
+`cc_inputs`), the four SGM scans of phase 15's frame 0 and its native and
+StereoSGBM disparity frames (ms, device kernels and busy ms a call), then (unless `--no-irls`) times phase 8's IRLS BA (ms per
 outer iteration, device and host engines) and phase 14d's irls_tum, in
 turns, DIRs, this, this, DIRs reversed, each in a process of its own
 (`--kernel-times TREE`), on one card.
@@ -1240,10 +1246,47 @@ def kernel_times(frames_np, feats, guess_np, dev, floor, irls=True, cc=None):
                                                              twist=fk[0]))
     if cc:
         cc_times(cc, dev, times, nodes, bounds)
+    busy = stereo_times(dev, times, nodes, bounds)
     if irls:
         times.update(irls_times(f2f, dev))
     log(json.dumps({"tree": unified_cvo_tpu_torch.__file__, "launch_floor_ms": floor,
-                    "ms": times, "graph_nodes": nodes, "bound_ms": bounds}))
+                    "ms": times, "graph_nodes": nodes, "bound_ms": bounds,
+                    "device_busy_ms": busy}))
+
+
+def stereo_times(dev, times, nodes, bounds):
+    """--kernel-times: phase 15's frame 0 (1241 x 376, D 128) through the
+    package found first on the path: its four SGM scans (`_sgm_scan`) on the
+    arguments the native and StereoSGBM paths give them (frame_scans), and
+    the two whole frames (compute_disparity(backend="native"), sgbm_3way at
+    JAX's settings). ms: the least of three CUDA-event timings after a
+    warm-up; `nodes` here: the device kernels and copies of a call
+    (torch.profiler, taken again where it recorded no device activity, as
+    it at times does for a call of one kernel). Returns each one's device
+    busy ms a call."""
+    from unified_cvo_tpu_torch.frontend.calibration import Calibration
+    from unified_cvo_tpu_torch.ops import sgm
+    from unified_cvo_tpu_torch.utils import synth
+
+    calib = _camera(Calibration, **KITTI00)
+    T0 = synth.corridor_trajectory(STEREO_FRAMES, step=0.35)[0]
+    frame = synth.render_stereo(synth.corridor_scene(seed=3), calib, T0)[:2]
+    calls, native, sgbm = frame_scans(frame, dev)
+    busy = {}
+
+    def timed(name, fn):
+        times[name] = min(event_ms(fn)[0] for _ in range(3))
+        for _ in range(3):
+            nodes[name], busy[name] = profiled(fn)
+            if nodes[name]:
+                break
+
+    for name, (a, kw) in zip(SCAN_ROWS, calls):
+        timed(name, lambda a=a, kw=kw: sgm._sgm_scan(*a, **kw))
+        bounds[name] = bound(2 * 4 * a[0].numel() + (0 if a[1] is None else a[1].numel()), 0)[0]
+    timed("native disparity frame", native)
+    timed("StereoSGBM frame", sgbm)
+    return busy
 
 
 def ba_edge_grid(f2f, dev):
@@ -1333,7 +1376,7 @@ def compare_trees(others, frames, irls=True):
                              f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         for line in out.stdout.splitlines():    # its build's select / lidar / image report
-            if line.lstrip().startswith(("select.cu:", "lidar.cu:", "image.cu:")):
+            if line.lstrip().startswith(("select.cu:", "lidar.cu:", "image.cu:", "sgm.cu:")):
                 log(f"tree {tree}: {line.strip()}")
         log(f"tree {tree}: " + out.stdout.strip().splitlines()[-1])
     mine = runs[len(others)]
@@ -1398,8 +1441,10 @@ def reset_launch_counts():
     from unified_cvo_tpu_torch.ops import dense
     from unified_cvo_tpu_torch.ops import ell as ell_ops
     from unified_cvo_tpu_torch.ops import select as sel
+    from unified_cvo_tpu_torch.ops import sgm
 
     ell_ops.reset_launches()
+    sgm.reset_launches()
     for fn in (sel.select, dense.dense_flow, dense.dense_step):
         fn.launches = 0
 
@@ -1408,8 +1453,9 @@ def launch_counts():
     from unified_cvo_tpu_torch.ops import dense
     from unified_cvo_tpu_torch.ops import ell as ell_ops
     from unified_cvo_tpu_torch.ops import select as sel
+    from unified_cvo_tpu_torch.ops import sgm
 
-    return {"select": sel.select.launches, "flow_reduce": ell_ops.flow_reduce.launches,
+    return {"sgm_scan": sgm._sgm_scan.launches, "select": sel.select.launches, "flow_reduce": ell_ops.flow_reduce.launches,
             "flow_reduce_by_variant": dict(ell_ops.flow_reduce.variant_launches),
             "step_cached": ell_ops.step_cached.launches,
             "flow_reduce_lanes": ell_ops.flow_reduce_lanes.launches,
@@ -2134,7 +2180,8 @@ def stereo_phase(dev, smi, results):
     and its launches counted; then kitti_odometry.run_frames registers the
     first pair (KITTI_COLOR_BENCH, bench.py's 1500-iteration cap, capacity
     32768, max_disp by the width rule: 128) and every pair must end below
-    the bench bound with select, flow_reduce and step_cached launched. Those
+    the bench bound with select, flow_reduce and step_cached launched (and
+    sgm_scan twice a frame, phase 15s's kernel). Those
     three kernels are first held against their plain versions on the
     driver's clouds of frames 0 and 1 (driver_kernel_checks)."""
     from unified_cvo_tpu_torch.apps import kitti_odometry
@@ -2198,7 +2245,9 @@ def stereo_phase(dev, smi, results):
     launches = launch_counts()
     out = driver_report("phase 9", "phase 9 KITTI stereo driver (kitti_odometry.run_frames, "
                         "--device-frontend)", poses, traj, records, seconds, launches, smi)
+    scan_launches("phase 9", launches["sgm_scan"], len(poses), (), results)
     out.update(valid_points=valid, frontend=stages, cpu_sgm_s=cpu_s,
+               sgm_scan_launches=launches["sgm_scan"],
                frontend_checks={"disparity_max_abs": float((disp_k - disp).abs().max()),
                                 "selected_cells": n_sel, "cloud_xyz_max_abs": xyz_err})
     for name in ("select", "flow_reduce", "step_cached"):
@@ -2282,6 +2331,9 @@ def rgbd_phase(dev, smi, results):
     out = driver_report("phase 10", "phase 10 TUM RGB-D driver (tum_odometry.run_frames, "
                         "--device-frontend, NL-means)", poses, traj, records, seconds,
                         launches, smi)
+    if launches["sgm_scan"] != 0:        # depth comes from the sensor: no disparity
+        raise SystemExit(f"phase 10: the RGB-D driver launched sgm_scan {launches['sgm_scan']} "
+                         f"times")
     out.update(valid_points=valid, frontend=stages, cpu_nlm_s=cpu_s,
                frontend_checks={"nlm_max_abs": nlm_err, "selected_cells": n_sel,
                                 "cloud_xyz_max_abs": xyz_err,
@@ -3852,6 +3904,11 @@ def disparity_checks(frames, cxx, dev, smi, results):
     ms, _ = event_ms(lambda: stereo.compute_disparity(lk, rk, backend="native"))
     n_dev, busy = profiled(lambda: stereo.compute_disparity(lk, rk, backend="native"))
     timing_s = time.perf_counter() - t0
+    sgm.reset_launches()
+    stereo.compute_disparity(lk, rk, backend="native")
+    n_scan = sgm._sgm_scan.launches
+    if n_scan != 2:
+        raise SystemExit(f"phase 15a: a native disparity launched sgm_scan {n_scan} times, not 2")
     glk, grk = torch.from_numpy(gl).to(dev), torch.from_numpy(gr).to(dev)
     med = sgm._sgm_until_median(glk, grk, 128, 10, 120, np.float32(1.0) + np.float32(0.1))
     speckle_ms, _ = event_ms(lambda: sgm.speckle_regions(med))
@@ -3870,7 +3927,7 @@ def disparity_checks(frames, cxx, dev, smi, results):
         lambda: lops.components_plain(lv, lh), lv.numel() + lh.numel() + 4 * n, None)
     results["lidar_components (stereo speckle)"]["shape"] = list(med.shape)
     row = {"valid": float((want > 0).mean()), "ms": ms, "launches": n_dev,
-           "device_busy_ms": busy, "speckle_ms": speckle_ms, "speckle_share": speckle_ms / ms,
+           "device_busy_ms": busy, "sgm_scan_launches": n_scan, "speckle_ms": speckle_ms, "speckle_share": speckle_ms / ms,
            "speckle_removed": removed, "cpp_build_wait_s": build_s, "cpp_s": cpp_s,
            "card_two_runs_s": card_s, "cpu_s": cpu_s, "timing_s": timing_s}
     k = results["lidar_components (stereo speckle)"]
@@ -3879,8 +3936,8 @@ def disparity_checks(frames, cxx, dev, smi, results):
         f"(waited {build_s:.1f} s for g++, run {cpp_s:.2f} s host), to the port's CPU call "
         f"({cpu_s:.1f} s) and between two card launches ({card_s:.1f} s); timed and profiled "
         f"in {timing_s:.1f} s; {row['valid']:.4f} valid; "
-        f"{ms:.2f} ms (CUDA events), {n_dev} device kernels+copies a call, busy {busy:.2f} ms; "
-        f"region speckle {speckle_ms:.2f} ms ({100 * speckle_ms / ms:.1f}%), {removed} pixels "
+        f"{ms:.2f} ms (CUDA events), {n_dev} device kernels+copies a call ({n_scan} of them "
+        f"sgm_scan), busy {busy:.2f} ms; region speckle {speckle_ms:.2f} ms ({100 * speckle_ms / ms:.1f}%), {removed} pixels "
         f"removed; L1 at {tuple(med.shape)} equal to its plain version, two launches "
         f"bit-equal: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.6f} "
         f"ms ({k['bound_by']}), {k['launches_per_call']} device kernels a call ({smi})")
@@ -4226,7 +4283,7 @@ def sgbm_part(frames, runs, root, dev, smi, results):
     device kernels and busy ms (torch.profiler); L1 on its speckle's links
     against its plain version. Then kitti_odometry.run_sequence over frames
     0 -> 1 on stereo_backend="opencv", launches counted from 0 (select,
-    flow_reduce, step_cached, L1 once a frame), pose error < 0.05 (or within
+    flow_reduce, step_cached, L1 once a frame, sgm_scan twice), pose error < 0.05 (or within
     JAX_MISSES' spread), kernels 1-3 on its clouds."""
     import hashlib
     import os
@@ -4237,6 +4294,7 @@ def sgbm_part(frames, runs, root, dev, smi, results):
     from unified_cvo_tpu_torch.frontend.calibration import read_calibration
     from unified_cvo_tpu_torch.ops import lidar as lops
     from unified_cvo_tpu_torch.ops import sgbm_opencv as sg
+    from unified_cvo_tpu_torch.ops import sgm
 
     left, right = frames[0]
     digest = hashlib.sha256(left.tobytes() + right.tobytes()).hexdigest()
@@ -4266,6 +4324,11 @@ def sgbm_part(frames, runs, root, dev, smi, results):
     t0 = time.perf_counter()
     ms, _ = event_ms(lambda: sg.sgbm_3way(glk, grk, **kw))
     n_dev, busy = profiled(lambda: sg.sgbm_3way(glk, grk, **kw))
+    sgm.reset_launches()
+    sg.sgbm_3way(glk, grk, **kw)
+    n_scan = sgm._sgm_scan.launches
+    if n_scan != 2:
+        raise SystemExit(f"phase 15e: a StereoSGBM map launched sgm_scan {n_scan} times, not 2")
     native_ms, _ = event_ms(lambda: stereo.compute_disparity(lk, rk, backend="native"))
     timing_s = time.perf_counter() - t0
     # the map filterSpeckles meets (speckle window 0: cv2 skips the filter) and its links
@@ -4290,13 +4353,13 @@ def sgbm_part(frames, runs, root, dev, smi, results):
     results[name]["shape"] = list(lh.shape)
     k = results[name]
     row = {"valid": float((maps[0] >= 0).float().mean()), "ms": ms, "launches": n_dev,
-           "device_busy_ms": busy, "native_ms": native_ms, "card_two_runs_s": card_s,
+           "device_busy_ms": busy, "sgm_scan_launches": n_scan, "native_ms": native_ms, "card_two_runs_s": card_s,
            "cpu_s": cpu_s, "timing_s": timing_s}
     log(f"phase 15e StereoSGBM 3WAY ({left.shape[1]} x {left.shape[0]}, D 128, JAX's "
         f"settings): input digest checked; the card's int16 map equal to the port's CPU call "
         f"({cpu_s:.1f} s), between two card launches ({card_s:.1f} s) and to cv2's bytes "
         f"(SHA-256); {row['valid']:.4f} valid; {ms:.2f} ms (CUDA events), {n_dev} device "
-        f"kernels+copies a call, busy {busy:.2f} ms; the native backend {native_ms:.2f} ms in "
+        f"kernels+copies a call ({n_scan} of them sgm_scan), busy {busy:.2f} ms; the native backend {native_ms:.2f} ms in "
         f"this call; timed and profiled in {timing_s:.1f} s; L1 at {tuple(lh.shape)} equal to "
         f"its plain version, two launches bit-equal: {k['ms']:.4f} ms, plain "
         f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.6f} ms ({k['bound_by']}) ({smi})")
@@ -4320,19 +4383,194 @@ def sgbm_part(frames, runs, root, dev, smi, results):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t1
     l1 = lops.components.launches
+    launches = launch_counts()
     row["driver"] = driver_report(
         "phase 15e", "phase 15e KITTI stereo driver (kitti_odometry.run_sequence, host "
         "frontend at its defaults, stereo_backend='opencv')", poses, traj[:2], records,
-        seconds, launch_counts(), smi)
+        seconds, launches, smi)
     row["driver"]["l1_launches"] = l1
+    row["driver"]["sgm_scan_launches"] = launches["sgm_scan"]
+    scan_launches("phase 15e", launches["sgm_scan"], len(poses), SCAN_ROWS[2:], results)
     if l1 != len(poses):
         raise SystemExit(f"phase 15e: L1 launched {l1} times for {len(poses)} frames")
     results[name]["launches"] = l1
     return row
 
 
+# 15s: the SGM recurrence (csrc/sgm.cu) beyond the main paths' four shapes, on costs
+# drawn from a seeded generator on the card: (label, [S, G, L, D], n_shift, has_prev
+# ("xcols": the vertical scan's, the shifted members' line 0 without a predecessor;
+# "random"; None), P1, P2, cap, largest cost, a 4-byte offset of the rows)
+SCAN_CASES = (
+    ("D 16, vertical four", (377, 4, 611, 16), 2, "xcols", 10, 120, None, 24, False),
+    ("D 48, vertical four", (250, 4, 333, 48), 2, "xcols", 10, 120, None, 24, False),
+    ("D 256, vertical four", (150, 4, 260, 256), 2, "xcols", 10, 120, None, 24, False),
+    ("cap binding (P2 65000, cap 60000)", (300, 4, 200, 128), 2, "xcols", 10, 65000, 60000,
+     30000, False),
+    ("shifted members without a mask", (200, 3, 150, 128), 2, None, 10, 120, None, 24, False),
+    ("S 1", (1, 4, 1241, 128), 2, "xcols", 10, 120, None, 24, False),
+    ("L 1", (376, 4, 1, 128), 2, "xcols", 10, 120, None, 24, False),
+    ("random mask, D 48", (100, 3, 200, 48), 1, "random", 10, 120, None, 24, False),
+    ("D 99 (rows a value at a time)", (100, 2, 200, 99), 0, None, 10, 120, None, 24, False),
+    ("D 1000 (32 values a lane)", (64, 2, 64, 1000), 1, "random", 10, 120, None, 24, False),
+    ("rows off 16-byte alignment", (200, 2, 100, 128), 0, None, 200, 800, None, 4000, True),
+)
+SCAN_FLOOR_STEPS = 4096      # 15s: steps of the one-chain run that times a serial step
+SCAN_ROWS = ("sgm_scan (horizontal pair, native / device SGM)",
+             "sgm_scan (vertical four, native / device SGM)",
+             "sgm_scan (StereoSGBM top)", "sgm_scan (StereoSGBM across)")
+SCAN_REPLACES = ("unified_cvo_tpu/ops/sgm.py:154 (the lax.scan of _sgm_scan, :98; no Pallas "
+                 "kernel)")
+
+
+def record_scans(fn):
+    """The arguments of every `_sgm_scan` call fn makes (ops/sgm.py's own and
+    ops/sgbm_opencv.py's name for it), in order; each scan runs as usual."""
+    from unified_cvo_tpu_torch.ops import sgbm_opencv as sg
+    from unified_cvo_tpu_torch.ops import sgm
+
+    real, calls = sgm._sgm_scan, []
+
+    def recorder(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+
+    recorder.launches = getattr(real, "launches", 0)   # the kernel counts into its global name
+    sgm._sgm_scan = sg._sgm_scan = recorder
+    try:
+        fn()
+    finally:
+        sgm._sgm_scan = sg._sgm_scan = real
+        if hasattr(real, "launches"):
+            real.launches = recorder.launches
+    return calls
+
+
+def frame_scans(frame, dev):
+    """The four scans of frame 0 (1241 x 376, D 128) on the card, as the
+    paths call them: the native disparity's horizontal pair and vertical
+    four (the device frontend's are the same shapes and settings), then
+    StereoSGBM's top and across paths at JAX's settings; and the two frames'
+    calls. Returns ([(args, kwargs)] x 4, native call, StereoSGBM call)."""
+    from unified_cvo_tpu_torch.frontend import image, stereo
+    from unified_cvo_tpu_torch.ops import sgbm_opencv as sg
+
+    left, right = frame
+    lk, rk = torch.from_numpy(left).to(dev), torch.from_numpy(right).to(dev)
+    glk, grk = (image.opencv_gray(torch.from_numpy(im)).to(torch.uint8).to(dev)
+                for im in (left, right))
+    kw = stereo.opencv_settings(128)
+
+    def native():
+        return stereo.compute_disparity(lk, rk, backend="native")
+
+    def sgbm():
+        return sg.sgbm_3way(glk, grk, **kw)
+
+    calls = record_scans(lambda: (native(), sgbm()))
+    if len(calls) != 4:
+        raise SystemExit(f"the native and StereoSGBM frames made {len(calls)} scans, not 4")
+    return calls, native, sgbm
+
+
+def scan_agree(args, kw, what):
+    """The kernel against the plain version on the card, torch.equal, and
+    two launches bit-equal. Returns the kernel's output."""
+    from unified_cvo_tpu_torch.ops import sgm
+
+    k1, k2 = sgm._sgm_scan(*args, **kw), sgm._sgm_scan(*args, **kw)
+    plain = sgm.sgm_scan_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(k1, plain):
+        raise SystemExit(f"phase 15s: sgm_scan on {what} differs from its plain version at "
+                         f"{int((k1 != plain).sum())} of {k1.numel()} cells")
+    if not torch.equal(k1, k2):
+        raise SystemExit(f"phase 15s: two sgm_scan launches on {what} differ")
+    return k1
+
+
+def scan_case(spec, dev, gen):
+    """The arguments of a SCAN_CASES entry."""
+    _, shape, n_shift, mask, p1, p2, cap, high, offset = spec
+    n = int(np.prod(shape))
+    flat = torch.randint(0, high + 1, (n + offset,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    costs = flat[int(offset):].view(shape)
+    G, L = shape[1], shape[2]
+    hp = None
+    if mask == "xcols":
+        hp = torch.ones((G, L), dtype=torch.bool, device=dev)
+        hp[G - n_shift:, 0] = False
+    elif mask == "random":
+        hp = torch.rand((G, L), generator=gen, device=dev) < 0.7
+    return (costs, hp, n_shift, p1, p2), ({} if cap is None else {"cap": cap})
+
+
+def sgm_scan_checks(frames, dev, smi, results):
+    """15s: the SGM recurrence's kernel (csrc/sgm.cu, `_sgm_scan` on the card)
+    against its plain version (`sgm_scan_plain`, torch ops on the card),
+    torch.equal, and two launches bit-equal: on the four scans of frame 0
+    as the native / device SGM and StereoSGBM paths call them, and on
+    SCAN_CASES (D 16, 48, 99, 256, 1000, the cap binding, shifted members
+    without a mask, S 1, L 1, a random mask, rows off alignment). Each of
+    the four gets a kernels-line row: ms (CUDA events) beside the byte bound
+    and the latency floor (its S serial steps times the time of one step,
+    from one chain of SCAN_FLOOR_STEPS steps), plain ms, device kernels a
+    call. Their launches are filled in from the drivers of 15c and 15e."""
+    from unified_cvo_tpu_torch.ops import sgm
+
+    t0 = time.perf_counter()
+    calls, _, _ = frame_scans(frames[0], dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for spec in SCAN_CASES:
+        args, kw = scan_case(spec, dev, gen)
+        out = scan_agree(args, kw, spec[0])
+        if kw and not bool((out == kw["cap"]).any()):
+            raise SystemExit(f"phase 15s: the cap never binds on {spec[0]}")
+        del args, out
+    chain = torch.randint(0, 25, (SCAN_FLOOR_STEPS, 1, 1, 128), generator=gen, device=dev,
+                          dtype=torch.int32)
+    step_ms = device_ms(lambda: sgm._sgm_scan(chain, None, 0, 10, 120)) / SCAN_FLOOR_STEPS
+    shapes = {}
+    for name, (a, kw) in zip(SCAN_ROWS, calls):
+        scan_agree(a, kw, name)
+        costs, hp = a[0], a[1]
+        nbytes = 2 * 4 * costs.numel() + (0 if hp is None else hp.numel())
+        row = results[name] = kernel_row(
+            name, "unified_cvo_tpu_torch/csrc/sgm.cu", SCAN_REPLACES,
+            lambda a=a, kw=kw: sgm._sgm_scan(*a, **kw),
+            lambda a=a, kw=kw: sgm.sgm_scan_plain(*a, **kw), nbytes, None)
+        floor = costs.shape[0] * step_ms
+        row.update(shape=list(costs.shape), n_shift=a[2], latency_floor_ms=floor,
+                   step_us=1e3 * step_ms, binds="latency" if floor > row["bound_ms"] else "bytes")
+        shapes[name] = tuple(costs.shape)
+        log(f"  {name} {list(costs.shape)}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"(bytes: {nbytes / 1e6:.1f} MB), latency floor {floor:.4f} ms ({costs.shape[0]} "
+            f"steps x {1e3 * step_ms:.4f} us), plain {row['plain_ms']:.2f} ms, "
+            f"{row['launches_per_call']} device kernel(s) a call ({smi})")
+    del calls
+    seconds = time.perf_counter() - t0
+    log(f"phase 15s sgm_scan: equal to its plain version and twice bit-equal on frame 0's four "
+        f"scans {list(shapes.values())} and on {len(SCAN_CASES)} cases "
+        f"({', '.join(c[0] for c in SCAN_CASES)}); one serial step of a chain "
+        f"{1e3 * step_ms:.4f} us (D 128); {seconds:.1f} s ({smi})")
+    return {"shapes": {k: list(v) for k, v in shapes.items()}, "step_us": 1e3 * step_ms,
+            "cases": [c[0] for c in SCAN_CASES], "seconds": seconds}
+
+
+def scan_launches(label, n, frames, rows, results):
+    """The driver of `label` ran two scans a frame (one launch each); the
+    rows' launches are its frames."""
+    if n != 2 * frames:
+        raise SystemExit(f"{label}: sgm_scan launched {n} times for {frames} frames, not 2 "
+                         f"a frame")
+    for name in rows:
+        results[name]["launches"] = frames
+
+
 def stereo_host_phase(dev, smi, results):
-    """Phase 15: the KITTI stereo host frontend on the card. 15a: the native
+    """Phase 15: the KITTI stereo host frontend on the card. 15s: the SGM
+    recurrence's kernel (sgm_scan_checks); 15a: the native
     census-SGM against the C++ library; 15b: Canny and EDGES_ONLY; 15a':
     the union-find kernels' fixed cases (cc_case_checks);
     15c: kitti_odometry.run_sequence at its defaults (NL-means, FAST,
@@ -4340,7 +4578,8 @@ def stereo_host_phase(dev, smi, results):
     there; "auto" is StereoSGBM where cv2 is importable, as on the card's
     machine) over 1 pair read from PNGs, pose error
     < 0.05 a pair, kernels 1-3 against their plain versions on its clouds of
-    frames 0 and 1, L1 once a frame; one --semantic pair; 15d: irls_kitti,
+    frames 0 and 1, L1 once a frame, sgm_scan twice a frame; one --semantic
+    pair; 15d: irls_kitti,
     depth_filtering and indicator_sweep; 15e: the StereoSGBM backend
     (sgbm_part)."""
     import os
@@ -4367,6 +4606,9 @@ def stereo_host_phase(dev, smi, results):
                 f"{stereo.auto_backend()!r} here (JAX's rule: cv2.StereoSGBM where cv2 is "
                 f"importable): 15b and 15d take it, 15c runs 'native' (its JAX_MISSES), "
                 f"15e 'opencv'")
+            t0 = time.perf_counter()
+            out["sgm_scan"] = sgm_scan_checks(frames, dev, smi, results)
+            parts["15s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             out["disparity"] = disparity_checks(frames, cxx, dev, smi, results)
             parts["15a"] = time.perf_counter() - t0
@@ -4397,13 +4639,17 @@ def stereo_host_phase(dev, smi, results):
                 torch.cuda.synchronize()
                 seconds = time.perf_counter() - t1
                 l1 = lops.components.launches
+                launches = launch_counts()
                 key = "semantic" if "semantic" in label else "driver"
                 out[key] = driver_report(
                     label, f"{label} KITTI stereo driver (kitti_odometry.run_sequence, host "
                     f"frontend at its defaults, stereo_backend='native'"
                     f"{', --semantic' if kw.get('semantic') else ''})", poses, traj_,
-                    records, seconds, launch_counts(), smi)
+                    records, seconds, launches, smi)
                 out[key]["l1_launches"] = l1
+                out[key]["sgm_scan_launches"] = launches["sgm_scan"]
+                scan_launches(label, launches["sgm_scan"], len(poses),
+                              SCAN_ROWS[:2] if key == "driver" else (), results)
                 if l1 != len(poses):
                     raise SystemExit(f"{label}: L1 launched {l1} times for {len(poses)} frames")
                 if key == "driver":
@@ -4418,6 +4664,9 @@ def stereo_host_phase(dev, smi, results):
             t0 = time.perf_counter()
             out["sgbm"] = sgbm_part(frames, runs, root, dev, smi, results)
             parts["15e"] = time.perf_counter() - t0
+            idle = [n for n in SCAN_ROWS if not results[n]["launches"]]
+            if idle:
+                raise SystemExit(f"phase 15: no driver launched {idle}")
     finally:                                # no compiler left running on a failure
         if cxx[1] is not None and cxx[1][0].poll() is None:
             cxx[1][0].kill()

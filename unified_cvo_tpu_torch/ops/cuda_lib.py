@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "unified_cvo_tpu_torch"
-SOURCES = ("select", "ell", "dense", "lidar", "image")
+SOURCES = ("select", "ell", "dense", "lidar", "image", "sgm")
 
 # -fmad=false: every multiply and add rounds on its own, as the plain
 # PyTorch versions' separate ops do (no --use_fast_math, ever)

@@ -29,7 +29,9 @@ stage by stage as OpenCV's stereosgbm.cpp runs them:
    row offset: its output row i is its computed row overlap + i % stripe,
    invalid where that row is past its end (images under ~14 rows a stripe).
    The count 4 is fixed in OpenCV, so the result does not depend on the
-   thread count. `ops/sgm.py::_sgm_scan` runs every path.
+   thread count. `ops/sgm.py::_sgm_scan` runs every path: on the card
+   as one launch of the hand kernel in csrc/sgm.cu a scan (`top`, then
+   `across`), on the CPU as its plain loop of torch ops.
 5. Winner-take-all on the sum of the three paths, with the tie rule of
    OpenCV's 128-bit SIMD search: 8 lanes (d mod 8) each keep their last
    minimum, and the smallest of those positions that hold the overall

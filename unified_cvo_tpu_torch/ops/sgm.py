@@ -23,9 +23,10 @@ float step rounds as JAX's does (float32 throughout, ties broken at the
 first minimum by `argmin`), so a disparity agrees with JAX's to f32
 division and with the same call on another device exactly.
 
-The scans are plain torch ops on [G, lines, D] states: one step of the
-horizontal scan and one of the vertical scan are each ~15 launches, W and
-H steps a frame. A hand kernel for them is a later candidate (ROADMAP).
+The two scans (`_sgm_scan`, JAX's `lax.scan`) run on the card as one
+launch each of the hand kernel in csrc/sgm.cu: a warp a scanline or
+diagonal, the step loop inside the kernel. On a CPU tensor they run
+`sgm_scan_plain`, a Python loop of torch ops over the steps.
 
 `sgm_disparity_native` is the host frontend's disparity: the C++ census-SGM
 of native/cvo_native.cpp (JAX's `native.sgm_disparity`) bit for bit. The
@@ -38,13 +39,16 @@ flood fill, which `speckle_regions` computes as connected components.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from unified_cvo_tpu_torch.ops import lidar
+from unified_cvo_tpu_torch.ops import cuda_lib, lidar
 
 INF = 1 << 28
+INT32_MAX = (1 << 31) - 1
 MAX_COST = 24          # 24-bit census: hamming <= 24
 
 
@@ -93,9 +97,10 @@ def _shift_lines(a: torch.Tensor, fill: int) -> torch.Tensor:
     return F.pad(a[:, :-1], (0, 0, 1, 0), value=fill)
 
 
-def _sgm_scan(costs: torch.Tensor, has_prev_masks, n_shift: int,
-              P1: int, P2: int, cap=None) -> torch.Tensor:
-    """Batched SGM recurrence.
+def sgm_scan_plain(costs: torch.Tensor, has_prev_masks, n_shift: int,
+                   P1: int, P2: int, cap=None) -> torch.Tensor:
+    """Batched SGM recurrence, a step of torch ops at a time (the plain
+    version of csrc/sgm.cu).
 
     costs: [S, G, L, D] int32, contiguous: S scan steps of G direction
     members over L lines. has_prev_masks: [G, L] bool, lines whose in-step
@@ -128,6 +133,60 @@ def _sgm_scan(costs: torch.Tensor, has_prev_masks, n_shift: int,
         Lp = Lc
         minprev = Lc.amin(-1, keepdim=True)
     return out
+
+
+def _sgm_scan(costs: torch.Tensor, has_prev_masks, n_shift: int,
+              P1: int, P2: int, cap=None) -> torch.Tensor:
+    """The recurrence as `sgm_scan_plain` computes it: the kernel of
+    csrc/sgm.cu on a CUDA tensor (one launch, counted in
+    `_sgm_scan.launches`), the plain version on a CPU tensor."""
+    if costs.device.type == "cpu":
+        return sgm_scan_plain(costs, has_prev_masks, n_shift, P1, P2, cap)
+    if costs.device.type != "cuda":
+        raise ValueError(f"sgm_scan: unsupported device {costs.device}")
+    dev = costs.device
+    if costs.dim() != 4:
+        raise ValueError(f"sgm_scan: costs must be [S, G, L, D]; got {tuple(costs.shape)}")
+    S, G, L, D = costs.shape
+    cuda_lib.check_tensor(costs, "costs", torch.int32, (S, G, L, D), dev, "sgm_scan")
+    hp = None
+    if has_prev_masks is not None:
+        hp = has_prev_masks.contiguous()                # bool: one byte, 0 or 1
+        cuda_lib.check_tensor(hp, "has_prev_masks", torch.bool, (G, L), dev, "sgm_scan")
+    cap = INT32_MAX if cap is None else int(cap)       # min(Lc, INT32_MAX) is Lc
+    if not (0 <= n_shift <= G and all(-INT32_MAX - 1 <= v <= INT32_MAX for v in (P1, P2, cap))):
+        raise ValueError(f"sgm_scan: n_shift {n_shift} must lie in [0, {G}] and P1 {P1}, "
+                         f"P2 {P2}, cap {cap} in int32")
+    lib = _lib()
+    if min(S, G, L) <= 0 or not 0 < D <= lib.cvo_sgm_max_d():
+        raise ValueError(f"sgm_scan: shape {tuple(costs.shape)} needs S, G, L > 0 and "
+                         f"0 < D <= {lib.cvo_sgm_max_d()}")
+    out = torch.empty_like(costs)
+    err = lib.cvo_sgm_scan(costs.data_ptr(), out.data_ptr(), None if hp is None else hp.data_ptr(),
+                           S, G, L, D, n_shift, int(P1), int(P2), cap,
+                           torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(err, "sgm_scan kernel launch")
+    _sgm_scan.launches += 1
+    return out
+
+
+_sgm_scan.launches = 0
+
+
+def reset_launches() -> None:
+    _sgm_scan.launches = 0
+
+
+def _lib():
+    lib = cuda_lib.load("sgm")
+    if not getattr(lib, "_argtypes_set", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.cvo_sgm_scan.argtypes = [P, P, P, I, I, I, I, I, I, I, I, P]
+        lib.cvo_sgm_scan.restype = I
+        lib.cvo_sgm_max_d.argtypes = []
+        lib.cvo_sgm_max_d.restype = I
+        lib._argtypes_set = True
+    return lib
 
 
 def _aggregate(cost: torch.Tensor, max_disp: int, p1: int, p2: int,
