@@ -69,6 +69,10 @@ kernel of each path was launched:
                    pair, 2 Lyft pairs and the PCD demo (align_two_pcd),
                    phase 13; frame 0 rendered with each beam sweeping the
                    other way (velodyne order: 64 rings) card against CPU;
+                   L2 on 16 sets of adversarial rings (dense candidates,
+                   column gaps, sector edges, short rings, the mark
+                   thresholds, a curvature ramp, ties, random; 64 x 1800
+                   and 64 x 3400) against its plain version, 13a';
   BA apps          PNG input without OpenCV (a TUM sequence at 640 x 480
                    and a TartanAir one written and decoded, decode times),
                    cv2's NL-means exact on the card (colour and grey, card
@@ -143,7 +147,8 @@ rows 1, and at phase 8's BA edge, K = 128 and 192 with P = 32, rows 1b and
 1c; each row's bound on this tree's inputs), flow_rows, flow_reduce and
 step_cached of the package in each DIR, e.g. an unpacked earlier commit,
 and of this tree, L1 and components8 on the inputs of phases 13a, 15a, 15b
-and 15e and on the fixed cases of phase 15a' (built once by this tree,
+and 15e and on the fixed cases of phase 15a', L2 on phase 13a's frame and
+on 13a's "dense" and "ramp" rings at 64 x 3400 (built once by this tree,
 `cc_inputs`), the four SGM scans of phase 15's frame 0 and its native and
 StereoSGBM disparity frames (ms, device kernels and busy ms a call), then (unless `--no-irls`) times phase 8's IRLS BA (ms per
 outer iteration, device and host engines) and phase 14d's irls_tum, in
@@ -1187,7 +1192,7 @@ def kernel_times(frames_np, feats, guess_np, dev, floor, irls=True, cc=None):
     phase 8's BA edge at K = 128 and 192 (rows 1b, 1c), flow_rows in its
     three variants (geometry and colour on grid lists, channel only on a
     scan list), flow_reduce geo and step_cached (the loop's form) beside
-    them; then, with `cc` (a file of cc_inputs), L1 and components8 on the
+    them; then, with `cc` (a file of cc_inputs), L1, components8 and L2 on the
     main paths' inputs and the fixed cases (`cc_times`); then, unless `irls`
     is false (--no-irls), phase 8's IRLS BA and phase 14d's irls_tum, ms per
     outer iteration (`irls_times`). Prints one JSON line."""
@@ -3083,6 +3088,10 @@ def lidar_frontend_checks(scan, dev, smi, results):
         log(f"time   {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, one "
             f"call), bound {b_ms:.6f} ms ({b_by}), {n_dev} device kernels a call (graph "
             f"nodes) ({smi})")
+    floor_ms, ring = loam_floor_ms(ri, keep)
+    results["lidar_loam_features"].update(latency_floor_ms=floor_ms, latency_ring=ring)
+    log(f"       lidar_loam_features: latency floor {floor_ms:.4f} ms (ring {ring} of {rows} "
+        f"launched alone, {int(keep[ring].sum())} kept columns) ({smi})")
     return {"frontend": stages, "filled_cells": int((k["index image"] >= 0).sum()),
             "segmented_cells": int(k["segmented"].sum()), "clusters": n_comp,
             "edges_loam": int(k["edges"].sum()), "surfaces_loam": int(k["surfaces"].sum()),
@@ -3187,6 +3196,7 @@ def lidar_phase(dev, smi, results):
             reader.next()
         out["frontend_checks"] = lidar_frontend_checks(scans[0], dev, smi, results)
         out["velodyne_sweep"] = velodyne_sweep_checks(dev, smi)
+        out["loam_cases"] = loam_case_checks(dev, smi, results)
         params = read_cvo_params_yaml(yaml)
         clouds = [fl.pointcloud_from_lidar(s, capacity=kl.CAPACITY, device=dev) for s in scans]
         valid = [int(c.mask.sum()) for c in clouds]
@@ -4034,12 +4044,14 @@ def cc_case_checks(dev, smi, results):
 
 
 def cc_inputs(dev):
-    """The union-find kernels' inputs on the main paths, as CPU tensors: L1's
-    links of a LeGO-LOAM range image (phase 13's room, 64 x 1800), of the
-    native speckle (15a) and of StereoSGBM's filterSpeckles (15e) on phase
-    15's frame 0 (376 x 1241), and components8's Canny candidates of that
-    frame (15b). {name: (kernel, input tensors)}: "L1" takes (link_v,
-    link_h), "components8" (mask,)."""
+    """The lidar and union-find kernels' inputs on the main paths, as CPU
+    tensors: L1's links of a LeGO-LOAM range image (phase 13's room, 64 x
+    1800), of the native speckle (15a) and of StereoSGBM's filterSpeckles
+    (15e) on phase 15's frame 0 (376 x 1241), components8's Canny
+    candidates of that frame (15b), the fixed cases of 15a', and L2's range
+    image and kept cells of the same lidar frame and of 13a's "dense" and
+    "ramp" rings at 64 x 3400. {name: (kernel, input tensors)}: "L1" takes
+    (link_v, link_h), "components8" (mask,), "L2" (range_img, keep)."""
     from unified_cvo_tpu_torch.frontend import image, stereo
     from unified_cvo_tpu_torch.frontend import lidar as fl
     from unified_cvo_tpu_torch.ops import canny, sgm
@@ -4052,7 +4064,9 @@ def cc_inputs(dev):
                                    fov_deg=LIDAR_FOV, noise=0.005, seed=0)
     x = torch.from_numpy(np.ascontiguousarray(scan[:, :3])).to(dev)
     ri, ii = fl.project_range_image(x)
-    lidar = fl.segment_links(ri, fl.ground_mask_range_image(x, ii))[:2]
+    g = fl.ground_mask_range_image(x, ii)
+    lidar = fl.segment_links(ri, g)[:2]
+    keep = fl.segment_range_image(ri, g) & (ii >= 0)
     _, frames, _ = stereo_frames()
     gl, gr = (image.opencv_gray(torch.from_numpy(im).to(dev)).to(torch.uint8)
               for im in frames[0])
@@ -4060,36 +4074,241 @@ def cc_inputs(dev):
     kw = stereo.opencv_settings(128)
     new_val, max_diff = (kw["min_disparity"] - 1) * sg.DISP_SCALE, sg.DISP_SCALE * kw["speckle_range"]
     pre = sg.sgbm_3way(gl, gr, **dict(kw, speckle_window_size=0)).to(torch.int32)
-    out = {"L1 64x1800 lidar": ("L1", lidar),
+    out = {"L1 64x1800 lidar": ("L1", lidar), "L2 64x1800 lidar": ("L2", (ri, keep)),
            "L1 376x1241 native speckle": ("L1", sgm.speckle_links(med)),
            "L1 376x1241 StereoSGBM speckle": ("L1", sg.speckle_links(pre, new_val, max_diff)),
            "components8 376x1241 Canny": ("components8", (canny.canny_candidates(gl)[0],))}
     for case, (lv, lh, _, mask, _) in cc_cases(dev).items():
         out[f"L1 {case}"] = ("L1", (lv, lh))
         out[f"components8 {case}"] = ("components8", (mask,))
+    for case in ("dense", "ramp"):
+        r, i, seg = loam_rings(case, LOAM_ROWS, max(LOAM_WIDTHS))
+        out[f"L2 {LOAM_ROWS}x{max(LOAM_WIDTHS)} {case}"] = (
+            "L2", (torch.from_numpy(r), torch.from_numpy(seg & (i >= 0))))
     return {k: (kind, tuple(t.cpu() for t in ts)) for k, (kind, ts) in out.items()}
 
 
 def cc_times(path, dev, times, nodes, bounds):
-    """kernel_times' rows of L1 and components8 on cc_inputs saved at
+    """kernel_times' rows of L1, components8 and L2 on cc_inputs saved at
     `path`: each checked against its plain version (torch.equal) and for
-    two bit-equal launches, then timed; the bound is the bytes (links or
-    mask in, int32 labels out)."""
+    two bit-equal launches, then timed; the bound is the bytes (inputs
+    read once, outputs written once)."""
     from unified_cvo_tpu_torch.ops import canny
     from unified_cvo_tpu_torch.ops import lidar as lops
 
     fns = {"L1": (lops.components, lops.components_plain),
-           "components8": (canny.components8, canny.components8_plain)}
+           "components8": (canny.components8, canny.components8_plain),
+           "L2": (lops.loam_features, lops.loam_features_plain)}
+    as_tuple = lambda o: o if isinstance(o, tuple) else (o,)           # noqa: E731
     for name, (kind, ts) in torch.load(path).items():
         ts = tuple(t.to(dev) for t in ts)
         kfn, pfn = fns[kind]
-        runs = [kfn(*ts) for _ in range(2)]
-        if not (torch.equal(runs[0], runs[1]) and torch.equal(runs[0], pfn(*ts))):
+        runs = [as_tuple(kfn(*ts)) for _ in range(2)]
+        plain = as_tuple(pfn(*ts))
+        if not all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(*runs, plain)):
             raise SystemExit(f"{kind} on {name!r} differs from its plain version or between "
                              f"two launches")
         times[name] = device_ms(lambda: kfn(*ts))
         nodes[name] = kernels_per_call(lambda: kfn(*ts))
-        bounds[name] = bound(sum(t.numel() for t in ts) + 4 * ts[-1].numel(), 0)[0]
+        bounds[name] = bound(sum(t.numel() * t.element_size() for t in ts + plain), 0)[0]
+
+
+# 13a': L2's adversarial rings (loam_rings), each at both widths. "dense" at
+# 64 x 3400 makes the serial walk visit the most candidates, "ramp" makes
+# the kernel's rounds the longest (20 a sector, one corner a round)
+LOAM_CASES = ("dense", "gaps", "sector edge", "short rings", "thresholds", "ramp", "ties",
+              "random")
+LOAM_WIDTHS = (1800, 3400)
+LOAM_ROWS = 64
+
+
+def loam_rings(case, rows, cols, seed=19):
+    """A LeGO-LOAM range image made for one of L2's hard cases, from a numpy
+    seed: (range_img float32, index_img int64 (-1 where no point), segmented
+    bool), each [rows, cols]; L2 keeps the segmented cells with a point.
+
+    dense        every column kept, 5-6 mm steps of noise at 20-30 m: most
+                 positions are candidates with distinct curvatures, so the
+                 20-corner cap binds in every sector
+    gaps         runs of 3-25 kept columns, the column step between runs 9,
+                 10, 11, 12 or 21 (occlusion needs < 10, a suppression run
+                 stops at > 10); the gap cells unfilled or not segmented
+    sector edge  a bump at one of each sector's last 5 positions, the
+                 sector's largest curvature: its corner marks the next
+                 sector's first candidates
+    short rings  ring i keeps 11 + i % 19 columns (11 to 29) at column steps
+                 of 1-12: sectors shorter than 5, suppression across several
+    thresholds   ranges 8-12 m with steps 1e-5 either side of 0.3 m
+                 (occlusion) and 1e-5 relative either side of 2% of the
+                 range (parallel beams)
+    ramp         r_k = R + a_k (-1)^k with a_k growing along the ring (every
+                 other ring shrinking): curvature strictly monotone in each
+                 sector, so each corner waits on the one before it
+    ties         ranges on a 4 cm grid: curvatures tie within sectors
+    random       a smooth wall 2-60 m with 1 m jumps, 75% of the cells kept
+
+    Every case but "ties" is then made free of curvature ties among a
+    sector's candidates (untie_ring), so JAX's unstable argsort walks it in
+    the one order the port's tie rule gives.
+    """
+    rng = np.random.default_rng([seed, LOAM_CASES.index(case), rows, cols])
+    base = rng.uniform(20.0, 30.0, (rows, 1))
+    ranges = np.zeros((rows, cols), np.float64)
+    filled = np.ones((rows, cols), bool)
+    seg = np.ones((rows, cols), bool)
+    k = np.arange(cols)
+    if case in ("dense", "sector edge"):
+        noise = 0.13 if case == "dense" else 0.05
+        ranges = base + rng.uniform(-noise, noise, (rows, cols))
+        if case == "sector edge":
+            bounds = np.linspace(0, cols, 7).astype(int)
+            for i in range(rows):
+                for ep in bounds[1:-1]:
+                    ranges[i, ep - 1 - (i + ep) % 5] += 0.15
+    elif case == "gaps":
+        ranges = base + rng.uniform(-0.13, 0.13, (rows, cols))
+        for i in range(rows):
+            keep = np.zeros(cols, bool)
+            c = int(rng.integers(0, 12))
+            while c < cols:
+                n = int(rng.integers(3, 26))
+                keep[c:c + n] = True
+                c += n - 1 + int(rng.choice([9, 10, 11, 12, 21]))
+            off = ~keep
+            filled[i] = keep | (off & (rng.random(cols) < 0.5))
+            seg[i] = keep
+    elif case == "short rings":
+        ranges = base + rng.uniform(-0.13, 0.13, (rows, cols))
+        filled[:] = False
+        for i in range(rows):
+            m = 11 + i % 19
+            cols_i = np.cumsum(rng.choice([1, 2, 5, 9, 10, 11, 12], m)) + int(rng.integers(0, 40))
+            filled[i, cols_i[cols_i < cols]] = True
+    elif case == "thresholds":
+        base = rng.uniform(8.0, 12.0, (rows, 1))
+        for i in range(rows):
+            r = np.empty(cols, np.float32)
+            r[0] = base[i, 0]
+            for c in range(1, cols):
+                u, prev = rng.random(), float(r[c - 1])
+                away = prev - base[i, 0]                    # large steps lean back to the base
+                side = -np.sign(away) if abs(away) > 1.0 else rng.choice([-1.0, 1.0])
+                if u < 0.2:
+                    step = side * (0.3 + rng.choice([-1e-5, 1e-5]))
+                elif u < 0.5:
+                    step = side * (0.02 * prev * (1 + rng.choice([-1e-5, 1e-5])))
+                else:
+                    step = rng.uniform(-0.03, 0.03)
+                r[c] = np.float32(prev + step)
+            ranges[i] = r
+    elif case == "ramp":
+        t = k / cols
+        a = 0.03 + 0.11 * np.where(np.arange(rows)[:, None] % 2 == 0, t, 1.0 - t)
+        ranges = base + a * np.where(k % 2 == 0, 1.0, -1.0)
+    elif case == "ties":
+        ranges = np.round(base) + 0.04 * rng.integers(-2, 3, (rows, cols))
+        seg = rng.random((rows, cols)) < 0.9
+    elif case == "random":
+        base = rng.uniform(2.0, 55.0, (rows, 1))
+        wall = base + 3.0 * np.sin(k / rng.uniform(20, 200, (rows, 1)))
+        jumps = np.cumsum(np.where(rng.random((rows, cols)) < 0.02,
+                                   rng.choice([-1.0, 1.0], (rows, cols)), 0.0), 1)
+        ranges = np.clip(wall + jumps, 1.0, 80.0) + rng.normal(0.0, 0.05, (rows, cols))
+        seg = rng.random((rows, cols)) < 0.75
+        filled = rng.random((rows, cols)) < 0.95
+    else:
+        raise ValueError(f"unknown L2 case {case!r}")
+    range_img = np.where(filled, ranges, 0.0).astype(np.float32)
+    index = np.where(filled, np.cumsum(filled).reshape(rows, cols) - 1, -1).astype(np.int64)
+    if case != "ties":
+        for i in range(rows):
+            untie_ring(range_img[i], seg[i] & filled[i])
+    return range_img, index, seg & filled
+
+
+def untie_ring(ranges, keep, edge_threshold=0.1):
+    """Raises kept ranges of one ring (float32, in place) by one ulp at a
+    time until no sector's candidates (curvature finite and above the
+    threshold, numpy's float32 window sums) share a curvature."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    cols = np.nonzero(keep)[0]
+    m = len(cols)
+    if m < 12:
+        return
+    sector = np.searchsorted(np.linspace(0, m, 7).astype(int), np.arange(m), side="right") - 1
+    for _ in range(200):
+        r = ranges[cols]
+        w = sliding_window_view(r, 11).T
+        s = ((w[0] + w[1]) + (w[2] + w[3])) + ((w[4] + w[5]) + (w[6] + w[7]))
+        d = ((s + w[8]) + w[9]) + w[10] - np.float32(11) * r[5:m - 5]
+        curv = np.full(m, np.nan, np.float32)
+        curv[5:m - 5] = d * d
+        k = np.nonzero(np.isfinite(curv) & (curv.astype(np.float64) > edge_threshold))[0]
+        k = k[np.lexsort((curv[k], sector[k]))]
+        tied = (sector[k[1:]] == sector[k[:-1]]) & (curv[k[1:]] == curv[k[:-1]])
+        if not tied.any():
+            return
+        at = cols[k[1:][tied]]
+        ranges[at] = np.nextafter(ranges[at], np.float32(np.inf))
+    raise RuntimeError("untie_ring: curvature ties remain")
+
+
+def loam_floor_ms(ri, keep):
+    """L2's latency floor on a range image: its slowest ring launched alone
+    (one block: the launch and that ring's chain of block barriers), which
+    the launch of all rings cannot beat. Every ring is timed once (10
+    calls), the three slowest again in full (device_ms). Returns (ms,
+    ring)."""
+    from unified_cvo_tpu_torch.ops import lidar as lops
+
+    def one(i):
+        return lambda: lops.loam_features(ri[i:i + 1], keep[i:i + 1])
+
+    quick = [device_ms(one(i), reps=10, trials=1) for i in range(ri.shape[0])]
+    slow = sorted(range(len(quick)), key=quick.__getitem__)[-3:]
+    return max((device_ms(one(i)), i) for i in slow)
+
+
+def loam_case_checks(dev, smi, results):
+    """13a': L2 on each of LOAM_CASES (loam_rings) at LOAM_ROWS rings of each
+    of LOAM_WIDTHS columns: torch.equal to loam_features_plain on the card,
+    two launches bit-equal, then timed (CUDA events) beside the byte bound;
+    the slowest one's latency floor (loam_floor_ms). Launches made here are
+    not counted into the path's."""
+    from unified_cvo_tpu_torch.ops import lidar as lops
+
+    t0 = time.perf_counter()
+    ms, edges, inputs = {}, {}, {}
+    for cols in LOAM_WIDTHS:
+        for case in LOAM_CASES:
+            r, i, seg = loam_rings(case, LOAM_ROWS, cols)
+            ri = torch.from_numpy(r).to(dev)
+            keep = torch.from_numpy(seg & (i >= 0)).to(dev)
+            runs = [lops.loam_features(ri, keep) for _ in range(2)]
+            plain = lops.loam_features_plain(ri, keep)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(runs[0], runs[1], plain)):
+                raise SystemExit(f"phase 13a': L2 on the {case!r} rings at {LOAM_ROWS} x {cols} "
+                                 f"differs from its plain version or between two launches")
+            name = f"{case} {LOAM_ROWS}x{cols}"
+            ms[name] = device_ms(lambda: lops.loam_features(ri, keep))
+            edges[name] = int((plain[0] == lops.EDGE).sum())
+            inputs[name] = (ri, keep)
+    worst = max(ms, key=ms.get)
+    floor_ms, ring = loam_floor_ms(*inputs[worst])
+    bounds = {cols: bound(6 * LOAM_ROWS * cols + 4 * LOAM_ROWS * lops.N_SECTORS, 0)[0]
+              for cols in LOAM_WIDTHS}
+    results["lidar_loam_features"]["cases_ms"] = ms
+    seconds = time.perf_counter() - t0
+    log(f"phase 13a' L2 cases ({', '.join(LOAM_CASES)}) at {LOAM_ROWS} x {LOAM_WIDTHS}: equal to "
+        f"the plain version on the card, two launches bit-equal; ms "
+        f"{ {k: round(v, 4) for k, v in ms.items()} }, edges {edges}; byte bound "
+        f"{ {k: round(v, 6) for k, v in bounds.items()} } ms; slowest {worst!r}, latency "
+        f"floor {floor_ms:.4f} ms (ring {ring} alone); {seconds:.1f} s ({smi})")
+    return {"ms": ms, "edges": edges, "bound_ms": bounds, "worst": worst,
+            "worst_latency_floor_ms": floor_ms, "seconds": seconds}
 
 
 def canny_checks(frames, calib, dev, smi, results):

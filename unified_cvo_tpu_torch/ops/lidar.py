@@ -178,7 +178,16 @@ def loam_features_plain(range_img: torch.Tensor, keep: torch.Tensor,
 
 def loam_features(range_img: torch.Tensor, keep: torch.Tensor, edge_threshold: float = 0.1):
     """(kind, rest_counts) as `loam_features_plain` gives them: the kernel
-    on a CUDA tensor, the plain version on a CPU tensor."""
+    on a CUDA tensor, the plain version on a CPU tensor.
+
+    The kernel runs one block a ring (csrc/lidar.cu). It resolves each
+    sector's greedy walk in parallel rounds: a live candidate that outranks
+    the neighbours it would mark becomes a corner, and the live neighbours
+    of corners drop. Marking is symmetric, so this gives the walk's corners,
+    and its j-th corner is decided by round j: at most 20 rounds a sector,
+    then the 20 corners that fewer than 20 others outrank are kept. Its time
+    is its slowest ring's serial chain (the prologue, then two
+    barrier-separated phases a round), not the bytes it moves."""
     if range_img.device.type == "cpu":
         return loam_features_plain(range_img, keep, edge_threshold)
     if range_img.device.type != "cuda":
