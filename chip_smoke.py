@@ -109,14 +109,18 @@ kernel of each path was launched:
                    spread) of the port's CPU pose (CANNY_CPU); gicp_align,
                    evaluate_semantics and the prefetch loader card against
                    CPU, phase 16;
-  batch, shards    the lane axis of flow_reduce and step_cached (B = 4 x
-                   16384 points, against their plain versions and, lane by
-                   lane and at B = 1, bit-equal to the unbatched launch),
-                   parallel.batch_align.make_batch_align on 4 bench pairs
-                   against align pair by pair (iterations, builds, pose),
-                   and the sp, ring and sharded-IRLS paths on 2 gloo ranks
-                   sharing the card against the same calls in one process,
-                   phase 17.
+  batch, shards    the lane axis of flow_reduce, step_cached, select and
+                   the dense pair (B = 4 x 16384 points, against their plain
+                   versions and, lane by lane and at B = 1, bit-equal to the
+                   unbatched launch; a call launches the device kernels one
+                   unbatched call does), parallel.batch_align.
+                   make_batch_align on 4 bench pairs on geometric ELL,
+                   colour ELL and dense 'pallas' against align pair by pair
+                   (iterations, builds, pose; the lane kernels launched once
+                   a batched iteration or build step, the single-pair ones
+                   never), and the sp, ring and sharded-IRLS paths on 2 gloo
+                   ranks sharing the card against the same calls in one
+                   process, phase 17.
 
 Phase 2c also holds flow_rows and step_uncached (the entry points of
 pallas_ell.flow_stats_ell_fused and step_coeffs_ell_fused, which no align
@@ -283,11 +287,11 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def select_bound(sel, g, K, P, dims):
-    """bound() of select on the grid inputs g: the bytes the function needs
-    (the P index slots of each cell some pool touches, the xyz of their
-    filled slots, cbase, xr2 and the pose, then idx, y_xyz and kept) and its
-    operations on the candidates this run's pools hold."""
+def select_work(sel, g, K, P, dims):
+    """(bytes, operations) of select on the grid inputs g: the bytes the
+    function needs (the P index slots of each cell some pool touches, the
+    xyz of their filled slots, cbase, xr2 and the pose, then idx, y_xyz and
+    kept) and its operations on the candidates this run's pools hold."""
     N = g.cbase.shape[0]
     cid = sel.pool_cells(g.cbase, dims)
     cells = torch.unique(cid[cid < dims[0] * dims[1] * dims[2]]).long()
@@ -295,7 +299,12 @@ def select_bound(sel, g, K, P, dims):
     cands = int((g.tab[cid.long()][..., 3 * P:] >= 0).sum())
     nbytes = (cells.numel() * P * 4 + filled * 12 + N * (12 + 16) + 48
               + K * N * 4 + 3 * K * N * 4 + N * 4)
-    return bound(nbytes, SELECT_OPS_PER_CANDIDATE * cands)
+    return nbytes, SELECT_OPS_PER_CANDIDATE * cands
+
+
+def select_bound(sel, g, K, P, dims):
+    """bound() of select on the grid inputs g (select_work)."""
+    return bound(*select_work(sel, g, K, P, dims))
 
 
 def select_exact(sel, args, what):
@@ -682,6 +691,16 @@ def dense_agree(dense, params, lo, xp, yp, yp_t, comp, ti, tj, label):
     bk2 = dense.dense_step(params, lo, xp, yp_t, comp, ti, tj)
     bp = dense.dense_step_plain(params, lo, xp, yp_t, comp, ti, tj)
     torch.cuda.synchronize()
+    out = dense_close(fk, fp, bk, bp, label)
+    if not (all(torch.equal(a, b) for a, b in zip(fk, fk2)) and torch.equal(bk, bk2)):
+        raise SystemExit(f"two launches on the same inputs differ ({label})")
+    return out
+
+
+def dense_close(fk, fp, bk, bp, label):
+    """One pair's flow (fk) and step (bk) outputs against the plain
+    versions' (fp, bp) at phase 2b's tolerances; raises SystemExit on a
+    disagreement."""
     s_ok = torch.allclose(fk[0], fp[0], rtol=1e-5, atol=1e-7)
     wy_ok = torch.allclose(fk[1], fp[1], rtol=1e-5, atol=1e-6)
     a_rel = abs(float(fk[3]) - float(fp[3])) / max(abs(float(fp[3])), 1e-30)
@@ -695,8 +714,6 @@ def dense_agree(dense, params, lo, xp, yp, yp_t, comp, ti, tj, label):
     s_err = float(torch.max(torch.abs(bk - bp)))
     if not bool(torch.all(torch.abs(bk - bp) <= 2e-4 * torch.abs(bp) + 1e-6)):
         raise SystemExit(f"dense_step disagrees ({label}): {bk.tolist()} vs {bp.tolist()}")
-    if not (all(torch.equal(a, b) for a, b in zip(fk, fk2)) and torch.equal(bk, bk2)):
-        raise SystemExit(f"two launches on the same inputs differ ({label})")
     return {"nz": nz_k, "a_rel": a_rel, "f_err": f_err, "s_err": s_err, "bk": bk, "bp": bp,
             "fp": fp}
 
@@ -1192,7 +1209,8 @@ def kernel_times(frames_np, feats, guess_np, dev, floor, irls=True, cc=None):
     phase 8's BA edge at K = 128 and 192 (rows 1b, 1c), flow_rows in its
     three variants (geometry and colour on grid lists, channel only on a
     scan list), flow_reduce geo and step_cached (the loop's form) beside
-    them; then, with `cc` (a file of cc_inputs), L1, components8 and L2 on the
+    them, dense_flow and dense_step on phase 2b's case a (`dense_times`);
+    then, with `cc` (a file of cc_inputs), L1, components8 and L2 on the
     main paths' inputs and the fixed cases (`cc_times`); then, unless `irls`
     is false (--no-irls), phase 8's IRLS BA and phase 14d's irls_tum, ms per
     outer iteration (`irls_times`). Prints one JSON line."""
@@ -1249,6 +1267,7 @@ def kernel_times(frames_np, feats, guess_np, dev, floor, irls=True, cc=None):
                                                                  params.d))
             timed("step_cached", lambda: ell_ops.step_cached(xp, nl.y_xyz, fk[4], scal,
                                                              twist=fk[0]))
+    dense_times(frames_np, feats, guess_np, dev, times, nodes)
     if cc:
         cc_times(cc, dev, times, nodes, bounds)
     busy = stereo_times(dev, times, nodes, bounds)
@@ -1450,7 +1469,8 @@ def reset_launch_counts():
 
     ell_ops.reset_launches()
     sgm.reset_launches()
-    for fn in (sel.select, dense.dense_flow, dense.dense_step):
+    for fn in (sel.select, sel.select_lanes, dense.dense_flow, dense.dense_step,
+               dense.dense_flow_lanes, dense.dense_step_lanes):
         fn.launches = 0
 
 
@@ -1465,7 +1485,10 @@ def launch_counts():
             "step_cached": ell_ops.step_cached.launches,
             "flow_reduce_lanes": ell_ops.flow_reduce_lanes.launches,
             "step_cached_lanes": ell_ops.step_cached_lanes.launches,
-            "dense_flow": dense.dense_flow.launches, "dense_step": dense.dense_step.launches}
+            "dense_flow": dense.dense_flow.launches, "dense_step": dense.dense_step.launches,
+            "select_lanes": sel.select_lanes.launches,
+            "dense_flow_lanes": dense.dense_flow_lanes.launches,
+            "dense_step_lanes": dense.dense_step_lanes.launches}
 
 
 def profile_main_path(f2f, frames, guess, params, dev, iters=200, label="", **align_kw):
@@ -5232,6 +5255,8 @@ LANES = 4                    # 17a-b: lanes of the lane-axis kernels, pairs of t
 BATCH_ITER = 200             # 17b: iteration cap of the batch and of its sequential runs
 BATCH_POSE_TOL = 2e-3        # 17b: a lane's transform against its sequential run's (abs)
 BATCH_PROFILE_ITER = 50      # 17b: iterations of the profiled batch (idle share)
+DENSE_BATCH_ITER = 100       # 17b: iteration cap of the dense batch and of its sequential
+#                              runs (a dense iteration is ~13 ms a pair on the card)
 SHARD_RANKS = 2              # 17c: gloo ranks sharing the one card (NCCL takes one a card)
 SHARD_POINTS = 4096          # 17c: points of the sp / ring pair (bench frames 0 -> 1)
 # 17c: iteration cap of the sp / ring loops. Dense 'jnp' pairs stop far from
@@ -5290,6 +5315,25 @@ def lane_inputs(params, frames_np, guess, dev, feats=None):
     scal = ell_ops.pack_scalars(params, Rinv, Tinv).expand(LANES, -1).contiguous()
     return (torch.stack(xp), torch.stack(ys), scal,
             None if chans[0] is None else torch.stack(chans))
+
+
+def lane_row(name, replaces, kfn, seqfn, pfn, b_ms, b_by, err, floor, n_dev, source):
+    """Times of a lane-axis kernel (kfn(B) on the first B lanes) at B =
+    LANES and B = 1 against LANES unbatched calls (seqfn) and its plain
+    version; its kernels line row."""
+    ms = device_ms(lambda: kfn(LANES))
+    ms1 = device_ms(lambda: kfn(1))
+    seq_ms = device_ms(seqfn)
+    plain_ms = device_ms(pfn, reps=3, trials=3)
+    log(f"time   {name} (B = {LANES}): kernel {ms:.4f} ms, B = 1 {ms1:.4f} ms, {LANES} "
+        f"unbatched calls {seq_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}: the {LANES} lanes' work), launch floor {floor:.4f} ms, {n_dev} device "
+        f"kernel(s) a call")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "lanes": LANES,
+            "ms_b1": ms1, "ms_sequential": seq_ms, "launches_per_call": n_dev,
+            "launch_floor_ms": floor}
 
 
 def lane_kernel_checks(frames_np, feats, guess_np, dev, results, floor):
@@ -5369,92 +5413,339 @@ def lane_kernel_checks(frames_np, feats, guess_np, dev, results, floor):
                    "of align: parallel/batch_align.py:51-55)"),
     }
     for kname, (kfn, seqfn, pfn, (b_ms, b_by), err, replaces) in rows.items():
-        ms = device_ms(lambda: kfn(LANES))
-        ms1 = device_ms(lambda: kfn(1))
-        seq_ms = device_ms(seqfn)
-        plain_ms = device_ms(pfn)
         n_dev = kernels_per_call(lambda: kfn(LANES))
         if n_dev != 1:
             raise SystemExit(f"{kname}: one call launched {n_dev} device kernels, not 1")
-        results[kname] = {
-            "name": kname, "route": "cuda", "source": "unified_cvo_tpu_torch/csrc/ell.cu",
-            "replaces": replaces, "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "lanes": LANES, "ms_b1": ms1, "ms_sequential": seq_ms, "launches_per_call": n_dev,
-            "launch_floor_ms": floor}
-        log(f"time   {kname} (B = {LANES}): kernel {ms:.4f} ms, B = 1 {ms1:.4f} ms, {LANES} "
-            f"unbatched launches {seq_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}), launch floor {floor:.4f} ms, {n_dev} device kernel a call")
+        results[kname] = lane_row(kname, replaces, kfn, seqfn, pfn, b_ms, b_by, err, floor,
+                                  n_dev, "unified_cvo_tpu_torch/csrc/ell.cu")
     check_counters_zero(ell_ops, dev, "phase 17a timings")
 
 
-def batch_path(frames_np, guess_np, dev, smi, results):
+def lane_select_checks(frames_np, guess_np, dev, results, floor):
+    """17a, select_lanes: the grid inputs of LANES bench pairs (frames b ->
+    b + 1, 16384 points, KITTI_GEOMETRIC_BENCH at the bench guess and
+    ell_init) in one launch, held against select_lanes_plain (torch.equal:
+    the same slots in the same order), every lane and B = 1 bit-equal to
+    the unbatched select on its inputs, two launches bit-equal, one device
+    kernel a call. Bound: the lanes' select_work summed."""
+    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH as params
+    from unified_cvo_tpu_torch.ops import lie
+    from unified_cvo_tpu_torch.ops import neighbors as nbr
+    from unified_cvo_tpu_torch.ops import select as sel
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    K, P, dims = nbr.DEFAULT_K, nbr.PER_CELL_CAP, nbr.GRID_DIMS
+    guess = torch.from_numpy(guess_np).to(dev)
+    Rinv, Tinv = lie.invert_rt(guess[:3, :3], guess[:3, 3])
+    ell = torch.full((), params.ell_init, dtype=torch.float32, device=dev)
+    gs = [nbr.grid_inputs(params, ell, *(make_pointcloud(frames_np[b + i], bucket=N_POINTS,
+                                                         device=dev) for i in (0, 1)),
+                          Rinv, Tinv) for b in range(LANES)]
+    lanes = [torch.stack([getattr(g, f) for g in gs]) for f in ("tab", "cbase", "xr2", "pose")]
+
+    def kfn(B):
+        return sel.select_lanes(*(t[:B] for t in lanes), K, P, dims)
+
+    def seqfn():
+        return [sel.select(g.tab, g.cbase, g.xr2, g.pose, K, P, dims) for g in gs]
+
+    got, again, one = kfn(LANES), kfn(LANES), kfn(1)
+    want = sel.select_lanes_plain(*lanes, K, P, dims)
+    single = seqfn()
+    torch.cuda.synchronize()
+    what = f"(B = {LANES}, N = {N_POINTS})"
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise SystemExit(f"select_lanes differs from select_lanes_plain {what}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise SystemExit(f"two select_lanes launches on the same inputs differ {what}")
+    for b in range(LANES):
+        if not all(torch.equal(u[b], v) for u, v in zip(got, single[b])):
+            raise SystemExit(f"select_lanes lane {b} differs from the unbatched select {what}")
+    if not all(torch.equal(u[0], v) for u, v in zip(one, single[0])):
+        raise SystemExit(f"select_lanes at B = 1 differs from the unbatched select {what}")
+    n_dev = kernels_per_call(lambda: kfn(LANES))
+    if n_dev != 1:
+        raise SystemExit(f"select_lanes: one call launched {n_dev} device kernels, not 1")
+    log(f"lanes  select_lanes {what}: equal to select_lanes_plain, every lane and B = 1 "
+        f"bit-equal to the unbatched select, reruns bit-equal; kept per lane "
+        f"{got[2].sum(dim=1).tolist()}")
+    work = [select_work(sel, g, K, P, dims) for g in gs]
+    b_ms, b_by = bound(sum(w[0] for w in work), sum(w[1] for w in work))
+    results["select_lanes"] = lane_row(
+        "select_lanes", "unified_cvo_tpu/ops/pallas_select.py:39 (_select_kernel, under "
+        "jax.vmap of align: parallel/batch_align.py:51-55)", kfn, seqfn,
+        lambda: sel.select_lanes_plain(*lanes, K, P, dims), b_ms, b_by, 0.0, floor, n_dev,
+        "unified_cvo_tpu_torch/csrc/select.cu")
+
+
+def dense_case(params, frames_np, feats, b, Rinv, Tinv, dev):
+    """Phase 2b's dense case on frames b -> b + 1 (16384 points with 5
+    features, Morton-sorted, the target moved by (Rinv, Tinv), ell_init
+    culling, tiles 128 x 512): (layout, xp, yp, the step's yp with the
+    plain flow's twist, the [nI, nJ] cull mask, its compaction)."""
+    from unified_cvo_tpu_torch.ops import dense, kernels, morton
+    from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
+
+    ti, tj = dense.DEFAULT_TILE_I, dense.DEFAULT_TILE_J
+    ell = torch.full((), params.ell_init, dtype=torch.float32, device=dev)
+    src, tgt = (morton.sort_cloud(make_pointcloud(frames_np[b + i], features=feats,
+                                                  bucket=N_POINTS, device=dev))[0]
+                for i in (0, 1))
+    y_t = tgt.transformed(Rinv, Tinv)
+    x_lo, x_hi = morton.tile_aabbs(src.xyz, src.mask, ti)
+    y_lo, y_hi = morton.tile_aabbs(y_t.xyz, y_t.mask, tj)
+    mask = morton.tile_cull_mask(x_lo, x_hi, morton.tile_d2max(params, ell, src.xyz, src.mask,
+                                                               ti), y_lo, y_hi)
+    lo = dense.layout_for(params, src)
+    c = dense.cloud_center(src)
+    xp, yp = dense.pack_x(params, lo, src, ell, center=c), dense.pack_y(lo, y_t, center=c)
+    comp = dense.compact_tile_mask(mask)
+    fp = dense.dense_flow_plain(params, lo, xp, yp, comp, ti, tj)
+    twist, _ = kernels.flow_from_stats(params, src, kernels.FlowStats(
+        fp[0], fp[1] + fp[0][:, None] * c, fp[2], fp[3]))
+    return lo, xp, yp, dense.pack_y(lo, y_t, twist=twist, center=c), mask, comp
+
+
+def dense_times(frames_np, feats, guess_np, dev, times, nodes):
+    """--kernel-times: dense_flow and dense_step (rows 6-7) on phase 2b's
+    case (a), KITTI_COLOR_BENCH on frames 0 -> 1 at the bench guess
+    (dense_case), held to their plain versions (dense_agree), then timed."""
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH as params
+    from unified_cvo_tpu_torch.ops import dense, lie
+
+    ti, tj = dense.DEFAULT_TILE_I, dense.DEFAULT_TILE_J
+    guess = torch.from_numpy(guess_np).to(dev)
+    lo, xp, yp, yt, _, comp = dense_case(params, frames_np, feats, 0,
+                                         *lie.invert_rt(guess[:3, :3], guess[:3, 3]), dev)
+    dense_agree(dense, params, lo, xp, yp, yt, comp, ti, tj, "case a, kernel times")
+    for name, fn in (("dense_flow", lambda: dense.dense_flow(params, lo, xp, yp, comp, ti, tj)),
+                     ("dense_step", lambda: dense.dense_step(params, lo, xp, yt, comp, ti, tj))):
+        nodes[name] = kernels_per_call(fn)
+        times[name] = device_ms(fn)
+
+
+def lane_dense_checks(frames_np, feats, guess_np, dev, results, floor):
+    """17a, dense_flow_lanes and dense_step_lanes: LANES bench pairs of
+    KITTI_COLOR_BENCH (frames b -> b + 1, 16384 points with 5 features,
+    Morton-sorted, the bench guess, ell_init culling, tiles 128 x 512:
+    phase 2b's shapes) in one call each, every lane held against the plain
+    versions at phase 2b's tolerances (dense_close), every lane and B = 1
+    bit-equal to the unbatched call on its own compaction, two calls
+    bit-equal, a frozen lane (count 0) zeros with the others unchanged; as
+    many device kernels a call as one unbatched call. Bound: the lanes' work
+    summed (phase 2b's bytes and dense_ops, lane by lane)."""
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH as params
+    from unified_cvo_tpu_torch.ops import dense, lie
+
+    ti, tj = dense.DEFAULT_TILE_I, dense.DEFAULT_TILE_J
+    guess = torch.from_numpy(guess_np).to(dev)
+    Rinv, Tinv = lie.invert_rt(guess[:3, :3], guess[:3, 3])
+    cases = [dense_case(params, frames_np, feats, b, Rinv, Tinv, dev) for b in range(LANES)]
+    lo = cases[0][0]
+    comps = [c[5] for c in cases]
+    xp, yp, yt, mask = (torch.stack([c[i] for c in cases]) for i in range(1, 5))
+    comp = dense.compact_tile_mask_lanes(mask)
+    comp1 = dense.compact_tile_mask_lanes(mask[:1])
+    live = torch.tensor([b != 1 for b in range(LANES)], device=dev)
+    frozen = dense.compact_tile_mask_lanes(mask, live)
+
+    def lanes(B, c):
+        return (comp if B == LANES else comp1) if c is None else c
+
+    def flow(B, c=None):
+        return dense.dense_flow_lanes(params, lo, xp[:B], yp[:B], lanes(B, c), ti, tj)
+
+    def step(B, c=None):
+        return dense.dense_step_lanes(params, lo, xp[:B], yt[:B], lanes(B, c), ti, tj)
+
+    fk, fk2, f1, ff = flow(LANES), flow(LANES), flow(1), flow(LANES, frozen)
+    sk, sk2, s1, sf = step(LANES), step(LANES), step(1), step(LANES, frozen)
+    fp = dense.dense_flow_lanes_plain(params, lo, xp, yp, comp, ti, tj)
+    sp = dense.dense_step_lanes_plain(params, lo, xp, yt, comp, ti, tj)
+    single = [(dense.dense_flow(params, lo, xp[b], yp[b], comps[b], ti, tj),
+               dense.dense_step(params, lo, xp[b], yt[b], comps[b], ti, tj))
+              for b in range(LANES)]
+    torch.cuda.synchronize()
+    what = f"(B = {LANES}, N = M = {N_POINTS}, tiles {ti} x {tj})"
+    if not (all(torch.equal(a, b) for a, b in zip(fk, fk2)) and torch.equal(sk, sk2)):
+        raise SystemExit(f"two dense lane calls on the same inputs differ {what}")
+    f_err = s_err = 0.0
+    for b in range(LANES):
+        got = dense_close([v[b] for v in fk], [v[b] for v in fp], sk[b], sp[b],
+                          f"lane {b} {what}")
+        f_err, s_err = max(f_err, got["f_err"]), max(s_err, got["s_err"])
+        fb, sb = single[b]
+        if not (all(torch.equal(u[b], v) for u, v in zip(fk, fb)) and torch.equal(sk[b], sb)):
+            raise SystemExit(f"dense lane {b} differs from the unbatched call {what}")
+        if b == 0 and not (all(torch.equal(u[0], v) for u, v in zip(f1, fb))
+                           and torch.equal(s1[0], sb)):
+            raise SystemExit(f"dense lanes at B = 1 differ from the unbatched call {what}")
+        same = (all(torch.equal(u[b], v[b]) for u, v in zip(ff, fk))
+                and torch.equal(sf[b], sk[b]))
+        if b == 1:
+            same = not (any(bool(u[b].any()) for u in ff) or bool(sf[b].any()))
+        if not same:
+            raise SystemExit(f"dense lanes with lane 1 frozen: lane {b} wrong {what}")
+    n_flow = kernels_per_call(lambda: flow(LANES))
+    n_step = kernels_per_call(lambda: step(LANES))
+    n_flow1 = kernels_per_call(lambda: dense.dense_flow(params, lo, xp[0], yp[0], comps[0],
+                                                        ti, tj))
+    n_step1 = kernels_per_call(lambda: dense.dense_step(params, lo, xp[0], yt[0], comps[0],
+                                                        ti, tj))
+    if (n_flow, n_step) != (n_flow1, n_step1):
+        raise SystemExit(f"dense lane calls launch {n_flow} / {n_step} device kernels, one "
+                         f"unbatched call {n_flow1} / {n_step1}")
+    log(f"lanes  dense_flow_lanes / dense_step_lanes {what}: within phase 2b's tolerances of "
+        f"the plain versions lane by lane, every lane and B = 1 bit-equal to the unbatched "
+        f"call, reruns bit-equal, a frozen lane zeros; active pairs per lane "
+        f"{comp.n.tolist()}, nonzeros per lane {fk[2].tolist()}; {n_flow} / {n_step} device "
+        f"kernels a call, as one unbatched call")
+    fbytes = fops = sbytes = sops = 0
+    for b in range(LANES):
+        n_b = int(comp.n[b])
+        comp_bytes = 4 * (3 * comps[b].pair_i.numel() + 1) + comps[b].row_has.numel()
+        in_bytes = 4 * xp[b].numel() + comp_bytes
+        gated = dense.geometric_gate_count(lo, xp[b], yp[b], comps[b], ti, tj)
+        fbytes += in_bytes + 4 * yp[b].numel() + 4 * 5 * N_POINTS + 8
+        sbytes += in_bytes + 4 * yt[b].numel() + 16
+        fops += dense_ops(lo, n_b * ti * tj, gated, False)
+        sops += dense_ops(lo, n_b * ti * tj, gated, True)
+    for name, kfn, seqfn, pfn, (b_ms, b_by), err, n_dev, replaces in (
+            ("dense_flow_lanes", flow, lambda: [
+                dense.dense_flow(params, lo, xp[b], yp[b], comps[b], ti, tj)
+                for b in range(LANES)],
+             lambda: dense.dense_flow_lanes_plain(params, lo, xp, yp, comp, ti, tj),
+             bound(fbytes, fops), f_err, n_flow,
+             "unified_cvo_tpu/ops/pallas_kernels.py:398 (_flow_kernel via _compacted_call "
+             ":490, under jax.vmap of align: parallel/batch_align.py:51-55)"),
+            ("dense_step_lanes", step, lambda: [
+                dense.dense_step(params, lo, xp[b], yt[b], comps[b], ti, tj)
+                for b in range(LANES)],
+             lambda: dense.dense_step_lanes_plain(params, lo, xp, yt, comp, ti, tj),
+             bound(sbytes, sops), s_err, n_step,
+             "unified_cvo_tpu/ops/pallas_kernels.py:429 (_step_kernel / _step_tile :445, "
+             "under jax.vmap of align: parallel/batch_align.py:51-55)")):
+        results[name] = lane_row(name, replaces, kfn, seqfn, pfn, b_ms, b_by, err, floor, n_dev,
+                                 "unified_cvo_tpu_torch/csrc/dense.cu")
+
+
+def batch_path(frames_np, feats, guess_np, dev, smi, results):
     """17b: make_batch_align on LANES pairs of the bench scene (frames b ->
-    b + 1, 16384 points, KITTI_GEOMETRIC_BENCH, the bench guess, BATCH_ITER
-    iterations) against align on each pair: every lane with its sequential
-    run's iterations and builds and its transform within BATCH_POSE_TOL; one
-    host read a batched iteration; flow_reduce_lanes and step_cached_lanes
-    launched once a batched iteration and the single-pair passes never;
-    pairs/s of both, and the card's idle share under torch.profiler."""
+    b + 1, 16384 points, the bench guess) against align on each pair, in
+    three batches: KITTI_GEOMETRIC_BENCH and KITTI_COLOR_BENCH (5 features)
+    on the default backend ('ell', grid builder; BATCH_ITER iterations), and
+    KITTI_COLOR_BENCH on 'pallas' (DENSE_BATCH_ITER). Each is held by
+    batch_run; the lane kernels' rows get their launches."""
+    from unified_cvo_tpu_torch.config import KITTI_COLOR_BENCH, KITTI_GEOMETRIC_BENCH
+
+    out = {}
+    for label, params, ft, backend, max_iter in (
+            ("geometric ELL", KITTI_GEOMETRIC_BENCH, None, "auto", BATCH_ITER),
+            ("colour ELL", KITTI_COLOR_BENCH, feats, "auto", BATCH_ITER),
+            ("dense", KITTI_COLOR_BENCH, feats, "pallas", DENSE_BATCH_ITER)):
+        preset = "KITTI_COLOR_BENCH" if ft is not None else "KITTI_GEOMETRIC_BENCH"
+        out[label] = batch_run(f"{label} ({preset})", params, frames_np, ft, guess_np, dev,
+                               smi, backend, max_iter)
+    for name in ("flow_reduce_lanes", "step_cached_lanes", "select_lanes"):
+        results[name]["launches"] = out["geometric ELL"]["launches"][name]
+        results[name]["launches_colour_batch"] = out["colour ELL"]["launches"][name]
+    for name in ("dense_flow_lanes", "dense_step_lanes"):
+        results[name]["launches"] = out["dense"]["launches"][name]
+    return out
+
+
+def batch_run(label, params, frames_np, feats, guess_np, dev, smi, backend, max_iter):
+    """One 17b batch: every lane with its sequential run's iterations and
+    builds and its transform within BATCH_POSE_TOL (bit-equality reported);
+    one host read a batched iteration; on 'ell' flow_reduce_lanes and
+    step_cached_lanes launched once a batched iteration, select_lanes once
+    a batched build step (build_neighbor_list_lanes calls, counted here;
+    their lanes sum to the builds), the single-pair select, flow_reduce and
+    step_cached never; on 'pallas' dense_flow_lanes and dense_step_lanes
+    once a batched iteration, dense_flow and dense_step never. pairs/s of
+    both, and the card's device kernels a batched iteration and idle share
+    under torch.profiler. Any failed check ends the run (SystemExit)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from unified_cvo_tpu_torch.config import KITTI_GEOMETRIC_BENCH as params
     from unified_cvo_tpu_torch.models.align import align
+    from unified_cvo_tpu_torch.ops import neighbors as nbr
     from unified_cvo_tpu_torch.parallel.batch_align import make_batch_align, stack_pairs
     from unified_cvo_tpu_torch.utils.pointcloud import make_pointcloud
 
-    frames = [make_pointcloud(f, bucket=N_POINTS, device=dev) for f in frames_np[:LANES + 1]]
+    frames = [make_pointcloud(f, features=feats, bucket=N_POINTS, device=dev)
+              for f in frames_np[:LANES + 1]]
     guess = torch.from_numpy(guess_np).to(dev)
     src_b, tgt_b = stack_pairs(frames[:LANES], frames[1:])
     init_b = guess.expand(LANES, 4, 4).contiguous()
-    batch = make_batch_align(params, max_iter=BATCH_ITER, device=dev)
-    make_batch_align(params, max_iter=10, device=dev)(src_b, tgt_b, init_b)     # warm-up
-    align(frames[0], frames[1], guess, params, device=dev, max_iter=10)
+    kw = dict(backend=backend, device=dev)
+    batch = make_batch_align(params, max_iter=max_iter, **kw)
+    make_batch_align(params, max_iter=10, **kw)(src_b, tgt_b, init_b)     # warm-up
+    align(frames[0], frames[1], guess, params, max_iter=10, **kw)
     torch.cuda.synchronize()
 
     seq = []
     t0 = time.perf_counter()
     for b in range(LANES):
-        seq.append(align(frames[b], frames[b + 1], guess, params, device=dev,
-                         max_iter=BATCH_ITER))
+        seq.append(align(frames[b], frames[b + 1], guess, params, max_iter=max_iter, **kw))
     torch.cuda.synchronize()
     seq_s = time.perf_counter() - t0
+    steps = []                               # lanes of each batched build step
+    real_build = nbr.build_neighbor_list_lanes
+
+    def counted_build(*a, **k):
+        lists = real_build(*a, **k)
+        steps.append(len(lists))
+        return lists
+
+    nbr.build_neighbor_list_lanes = counted_build
     reset_launch_counts()
-    t0 = time.perf_counter()
-    Tb, rets, iters = batch(src_b, tgt_b, init_b)
-    torch.cuda.synchronize()
-    batch_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        Tb, rets, iters = batch(src_b, tgt_b, init_b)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+    finally:
+        nbr.build_neighbor_list_lanes = real_build
     launches = launch_counts()
     info = batch.last_info
     gaps = [float(torch.max(torch.abs(Tb[b] - seq[b][0]))) for b in range(LANES)]
     bit_equal = [bool(torch.equal(Tb[b], seq[b][0])) for b in range(LANES)]
     s_iters = [s[2].iterations for s in seq]
     s_builds = [s[2].nl_rebuilds for s in seq]
-    log(f"batch path (make_batch_align, {LANES} pairs, KITTI_GEOMETRIC_BENCH, "
-        f"{BATCH_ITER}-iteration cap): {batch_s:.3f} s, {LANES / batch_s:.3f} pairs/s; the "
-        f"pairs one by one (align): {seq_s:.3f} s, {LANES / seq_s:.3f} pairs/s ({smi})")
+    builds = info.nl_rebuilds or [None] * LANES
+    what = f"{label} batch ({LANES} pairs, {info.backend}"
+    what += f" + {info.nl_builder} builder" if info.nl_builder else ""
+    what += f", {max_iter}-iteration cap)"
+    log(f"batch path, {what}: {batch_s:.3f} s, {LANES / batch_s:.3f} pairs/s; the pairs one "
+        f"by one (align): {seq_s:.3f} s, {LANES / seq_s:.3f} pairs/s ({smi})")
     log(f"  iterations batch {info.iterations} sequential {s_iters}; builds batch "
-        f"{info.nl_rebuilds} sequential {s_builds}; host reads batch {info.host_reads} "
-        f"({info.host_reads / max(info.iterations):.3f} a batched iteration), sequential "
-        f"{[s[2].host_reads for s in seq]}; transform gap per lane {gaps}, bit-equal {bit_equal}")
+        f"{info.nl_rebuilds} sequential {s_builds}; batched build steps {len(steps)} (lanes "
+        f"{steps}); host reads batch {info.host_reads} ({info.host_reads / max(info.iterations):.3f} "
+        f"a batched iteration), sequential {[s[2].host_reads for s in seq]}; transform gap per "
+        f"lane {gaps}, bit-equal {bit_equal}")
     log(f"  launches {launches}")
-    if not (info.iterations == s_iters and info.nl_rebuilds == s_builds
+    if not (info.iterations == s_iters and list(builds) == s_builds
             and max(gaps) <= BATCH_POSE_TOL and rets.tolist() == [int(s[1]) for s in seq]
             and iters.tolist() == s_iters and bool(torch.all(torch.isfinite(Tb)))):
-        raise SystemExit(f"batch lanes do not match their sequential runs: iterations "
+        raise SystemExit(f"{label} batch: lanes do not match their sequential runs: iterations "
                          f"{info.iterations} vs {s_iters}, builds {info.nl_rebuilds} vs "
                          f"{s_builds}, gaps {gaps}")
     n_it = max(info.iterations)
-    if not (info.host_reads == n_it
-            and launches["flow_reduce_lanes"] == launches["step_cached_lanes"] == n_it
-            and launches["flow_reduce"] == launches["step_cached"] == 0
-            and launches["select"] >= sum(info.nl_rebuilds)):
-        raise SystemExit(f"batch path launches {launches}, host reads {info.host_reads}, "
-                         f"{n_it} batched iterations, builds {info.nl_rebuilds}")
-    for name in ("flow_reduce_lanes", "step_cached_lanes"):
-        results[name]["launches"] = launches[name]
+    single = ("select", "flow_reduce", "step_cached", "dense_flow", "dense_step")
+    if info.backend == "ell":
+        ok = (info.nl_builder == "grid"
+              and launches["flow_reduce_lanes"] == launches["step_cached_lanes"] == n_it
+              and launches["select_lanes"] == len(steps) and sum(steps) == sum(builds)
+              and launches["dense_flow_lanes"] == launches["dense_step_lanes"] == 0)
+    else:
+        ok = (info.backend == "pallas"
+              and launches["dense_flow_lanes"] == launches["dense_step_lanes"] == n_it
+              and launches["flow_reduce_lanes"] == launches["select_lanes"] == 0)
+    if not (ok and info.host_reads == n_it and not any(launches[k] for k in single)):
+        raise SystemExit(f"{label} batch: launches {launches}, host reads {info.host_reads}, "
+                         f"{n_it} batched iterations, build steps {steps}, builds {builds}")
 
-    short = make_batch_align(params, max_iter=BATCH_PROFILE_ITER, device=dev)
+    short = make_batch_align(params, max_iter=BATCH_PROFILE_ITER, **kw)
     short(src_b, tgt_b, init_b)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -5472,9 +5763,10 @@ def batch_path(frames_np, guess_np, dev, smi, results):
             f"{busy_us / n:.1f} us, device idle share {idle:.4f}")
     else:
         log("  profile: the profiler recorded no device activity (idle share not measured)")
-    return {"pairs": LANES, "max_iter": BATCH_ITER, "batch_s": batch_s, "sequential_s": seq_s,
+    return {"pairs": LANES, "max_iter": max_iter, "backend": info.backend,
+            "nl_builder": info.nl_builder, "batch_s": batch_s, "sequential_s": seq_s,
             "pairs_per_s": LANES / batch_s, "sequential_pairs_per_s": LANES / seq_s,
-            "iterations": info.iterations, "builds": info.nl_rebuilds,
+            "iterations": info.iterations, "builds": info.nl_rebuilds, "build_steps": steps,
             "host_reads": info.host_reads, "transform_gaps": gaps, "bit_equal": bit_equal,
             "launches": launches, "idle_share": idle,
             "profile_us_per_iteration": None if not events else wall_us / n,
@@ -5631,14 +5923,18 @@ def shard_phase(dev, smi):
 
 
 def parallel_phase(frames_np, feats, guess_np, dev, smi, results, floor):
-    """Phase 17: 17a the lane-axis kernels, 17b batched registration on the
-    card, 17c the sharded paths on gloo ranks sharing the card."""
+    """Phase 17: 17a the lane-axis kernels (ELL consume pair, select, dense
+    pair), 17b batched registration on the card (geometric ELL, colour ELL
+    and dense batches), 17c the sharded paths on gloo ranks sharing the
+    card."""
     parts, out = {}, {}
     t0 = time.perf_counter()
     lane_kernel_checks(frames_np, feats, guess_np, dev, results, floor)
+    lane_select_checks(frames_np, guess_np, dev, results, floor)
+    lane_dense_checks(frames_np, feats, guess_np, dev, results, floor)
     parts["17a"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["batch"] = batch_path(frames_np, guess_np, dev, smi, results)
+    out["batch"] = batch_path(frames_np, feats, guess_np, dev, smi, results)
     parts["17b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["shards"] = shard_phase(dev, smi)

@@ -76,6 +76,22 @@
 // terms of depth F = 5 and C = 19, the gates need them as explicit f32 sums
 // in a fixed order, and wgmma offers f32 inputs only as TF32.
 //
+// Lane axis (`cvo_dense_flow_lanes`, `cvo_dense_step_lanes`): B pairs in
+// one call, the counterpart of both TPU kernels under the JAX package's
+// jax.vmap of align (parallel/batch_align.py:51-55), where the batch becomes
+// a grid axis. xp is [B, N, Dx], yp [B, Dy, M], each lane's compacted list
+// [B, nI * nJ] as compact_tile_mask gives it for that lane alone, its count
+// [B] and its offset in the joined walk [B] on the device. The persistent
+// pass walks the lanes' lists laid end to end (LANES = true: an item finds
+// its lane from the offsets, and reads that lane's rows, tiles and list),
+// writing each item's partial where the unbatched launch of that lane
+// writes it, in a scratch B times as large; the row, row-sum and step sums
+// then run per lane (blockIdx.y or blockIdx.x the lane) in the same launches.
+// So a call launches the device kernels one unbatched call does (flow 3,
+// step 2) whatever B is, and every lane's outputs are the unbatched
+// launch's bit for bit: the same items, summed in the same order. A lane
+// with count 0 (a frozen one) gets zeros.
+//
 // Build-time switches for measurements (never set by the package):
 // -DDENSE_PREFILTER=0 sends every pair through the full evaluation,
 // -DDENSE_COMPACT=0 lets each thread evaluate its own survivors,
@@ -157,6 +173,16 @@ struct Channels {
 // x columns and yT rows that do not depend on the channel widths.
 enum { X_MASK = 3, X_TWOL2 = 4, X_D2THRES = 5, X_COEF = 6, X_FEAT = 7,
        Y_PAD = 3, Y_FEAT = 4 };
+
+// Where each lane's arrays start (LANES; zeros and one lane otherwise).
+struct Lanes {
+  const int* off;       // [lanes] first entry of each lane in the joined walk
+  int lanes;
+  int pairs;            // tile pairs of a lane (nI * nJ): its list and scratch stride
+  int nI;               // source tiles of a lane: its row_has stride
+  long long x_stride;   // floats of one lane's xp (N * Dx)
+  long long y_stride;   // floats of one lane's yp (Dy * M)
+};
 
 // Kernel constants, exact f32 values from ops/dense.py::_consts.
 struct Consts {
@@ -313,6 +339,17 @@ __device__ __forceinline__ int warp_scan(int v, int lane) {
   return v;
 }
 
+// Lane of joined entry e: the last lane whose offset is <= e (a lane of
+// count 0 shares its offset with the next one and is never chosen).
+__device__ __forceinline__ int lane_of(const int* __restrict__ off, int lanes, int e) {
+  int lo = 0, hi = lanes;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (off[mid] <= e) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
 // First index in a[0, n) (sorted ascending) whose value is >= v.
 __device__ int lower_bound(const int* __restrict__ a, int n, int v) {
   int lo = 0, hi = n;
@@ -323,15 +360,14 @@ __device__ int lower_bound(const int* __restrict__ a, int n, int v) {
   return lo;
 }
 
-// Start the copy of chunk `chunk` of work item `item`'s target tile into
-// stage `dst` ([Dy][CH]); the caller commits the group.
-__device__ __forceinline__ void stage_chunk(const Layout& L, const float* __restrict__ yp,
-                                            const int* __restrict__ pair_j, int M,
-                                            int tile_j, int rbn, int item, int chunk,
-                                            float* dst, int tid) {
-  const int col0 = pair_j[item / rbn] * tile_j + chunk * CH;
+// Start the copy of chunk `chunk` of a target tile (its first column at
+// `tile`, rows M apart) into stage `dst` ([Dy][CH]); the caller commits the
+// group.
+__device__ __forceinline__ void stage_chunk(const Layout& L, const float* __restrict__ tile,
+                                            int M, int tile_j, int chunk, float* dst,
+                                            int tid) {
   const int cols = min(CH, tile_j - chunk * CH);
-  const float* src = yp + col0;
+  const float* src = tile + chunk * CH;
   if (cols == CH) {
     for (int t = tid; t < L.Dy * (CH / 4); t += THREADS) {
       const int k = t / (CH / 4), q = t % (CH / 4);
@@ -348,14 +384,15 @@ __device__ __forceinline__ void stage_chunk(const Layout& L, const float* __rest
 
 // One pass over the active list. Item = pair * rbn + row block; `part` is
 // [pairs, FLOW_NV, tile_i] (flow; the count as int bits) or [items,
-// STEP_NV] (step).
-template <bool STEP, class CS>
+// STEP_NV] (step). LANES: the lanes' lists end to end, `n_active` their
+// total, every array one lane after another (`Lanes`).
+template <bool STEP, class CS, bool LANES = false>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 dense_pass_kernel(Layout L, Consts K, const float* __restrict__ xp,
                   const float* __restrict__ yp, const int* __restrict__ pair_i,
                   const int* __restrict__ pair_j, const unsigned char* __restrict__ row_has,
                   const int* __restrict__ n_active, float* __restrict__ part,
-                  int M, int tile_i, int tile_j, int rbn) {
+                  int M, int tile_i, int tile_j, int rbn, Lanes ln) {
   extern __shared__ __align__(16) float smem[];
   const int stage_floats = L.Dy * CH;
   float* xs = smem + STAGES * stage_floats;  // [Dx][RB]
@@ -373,17 +410,32 @@ dense_pass_kernel(Layout L, Consts K, const float* __restrict__ xp,
   const int G = gridDim.x;
   int item = blockIdx.x;
   if (item >= n_items) return;
+  // an item's entry: its place in its lane's list and scratch (the joined
+  // entry itself without LANES), and its lane
+  auto entry = [&](int it, int& pl) -> size_t {
+    const int e = it / rbn;
+    pl = LANES ? lane_of(ln.off, ln.lanes, e) : 0;
+    return LANES ? (size_t)pl * ln.pairs + (e - ln.off[pl]) : (size_t)e;
+  };
+  auto target_tile = [&](int it) {
+    int pl;
+    const size_t q = entry(it, pl);
+    return yp + (LANES ? pl * ln.y_stride : 0) + (size_t)pair_j[q] * tile_j;
+  };
 
   if (DENSE_ASYNC) {
-    stage_chunk(L, yp, pair_j, M, tile_j, rbn, item, 0, smem, tid);
+    stage_chunk(L, target_tile(item), M, tile_j, 0, smem, tid);
     cp_async_commit();
   }
   int seq = 0;
   for (; item < n_items; item += G) {
-    const int p = item / rbn, rb = item - p * rbn;
+    int pl;                                  // the item's pair lane
+    const size_t p = entry(item, pl);
+    const int rb = item - (item / rbn) * rbn;
     const int tile = pair_i[p];
     const int rows = min(RB, tile_i - rb * RB);
-    const bool mine = row_has[tile] != 0;
+    const bool mine = row_has[(LANES ? (size_t)pl * ln.nI : 0) + tile] != 0;
+    const float* ytile = target_tile(item);
     // a thread's rows are ry, ry + 32, ...: whatever part of the tile holds
     // the survivors, every warp gets its share. Row r is in the tile for
     // r < rows / 32 (rows is a multiple of 32).
@@ -391,7 +443,8 @@ dense_pass_kernel(Layout L, Consts K, const float* __restrict__ xp,
     {  // the item's source rows, transposed, a thread's 4 rows side by side:
        // row r of the item sits in slot 4 (r % 32) + r / 32 (every thread is
        // past the previous item: its last chunk ended with a barrier)
-      const float* src = xp + ((size_t)tile * tile_i + (size_t)rb * RB) * L.Dx;
+      const float* src = xp + (LANES ? pl * ln.x_stride : 0) +
+                         ((size_t)tile * tile_i + (size_t)rb * RB) * L.Dx;
       for (int t = tid; t < rows * L.Dx; t += THREADS) {
         const int r = t / L.Dx, d = t - r * L.Dx;
         xs[d * RB + TR * (r % ROWG) + r / ROWG] = src[t];
@@ -412,13 +465,13 @@ dense_pass_kernel(Layout L, Consts K, const float* __restrict__ xp,
       if (DENSE_ASYNC) {
         float* nxt = smem + ((seq + 1) % STAGES) * stage_floats;
         if (chunk + 1 < n_chunks)
-          stage_chunk(L, yp, pair_j, M, tile_j, rbn, item, chunk + 1, nxt, tid);
+          stage_chunk(L, ytile, M, tile_j, chunk + 1, nxt, tid);
         else if (item + G < n_items)
-          stage_chunk(L, yp, pair_j, M, tile_j, rbn, item + G, 0, nxt, tid);
+          stage_chunk(L, target_tile(item + G), M, tile_j, 0, nxt, tid);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
-        stage_chunk(L, yp, pair_j, M, tile_j, rbn, item, chunk, ys, tid);
+        stage_chunk(L, ytile, M, tile_j, chunk, ys, tid);
         cp_async_commit();
         cp_async_wait<0>();
       }
@@ -526,7 +579,7 @@ dense_pass_kernel(Layout L, Consts K, const float* __restrict__ xp,
       cvo::block_sum<float, STEP_NV>(acc, red, tid, THREADS);
       if (tid == 0) {
 #pragma unroll
-        for (int i = 0; i < STEP_NV; ++i) part[(size_t)item * STEP_NV + i] = acc[i];
+        for (int i = 0; i < STEP_NV; ++i) part[(p * rbn + rb) * STEP_NV + i] = acc[i];
       }
     } else {
       // the 8 column groups of a row group are 8 neighbouring lanes
@@ -542,7 +595,7 @@ dense_pass_kernel(Layout L, Consts K, const float* __restrict__ xp,
         }
       }
       if (cx == 0) {
-        float* dst = part + (size_t)p * FLOW_NV * tile_i + rb * RB + ry;
+        float* dst = part + p * FLOW_NV * tile_i + rb * RB + ry;
 #pragma unroll
         for (int r = 0; r < TR; ++r) {
           if (r < live_rows) {
@@ -560,19 +613,28 @@ dense_pass_kernel(Layout L, Consts K, const float* __restrict__ xp,
 }
 
 // Rows of the flow pass: each source row sums its tile's pair partials in
-// list order; a tile with no active pair writes zeros.
+// list order; a tile with no active pair writes zeros. Lane blockIdx.y:
+// its list, scratch and outputs `pairs`, `pairs`, N rows on (one lane
+// without a lane axis).
 __global__ void __launch_bounds__(GATHER_THREADS)
 flow_gather_kernel(const float* __restrict__ part, const int* __restrict__ pair_i,
                    const unsigned char* __restrict__ row_has,
                    const int* __restrict__ n_active, float* __restrict__ s_out,
                    float* __restrict__ wy_out, int* __restrict__ cnt_out, int N,
-                   int tile_i) {
+                   int tile_i, int pairs) {
   const int row = blockIdx.x * GATHER_THREADS + threadIdx.x;
   if (row >= N) return;
+  const size_t lane = blockIdx.y;
+  part += lane * pairs * FLOW_NV * tile_i;
+  pair_i += lane * pairs;
+  row_has += lane * (N / tile_i);
+  s_out += lane * N;
+  wy_out += lane * 3 * N;
+  cnt_out += lane * N;
   const int tile = row / tile_i, rl = row - tile * tile_i;
   int lo = 0, hi = 0;
   if (row_has[tile]) {
-    const int n = *n_active;
+    const int n = n_active[lane];
     lo = lower_bound(pair_i, n, tile);
     hi = lower_bound(pair_i, n, tile + 1);
   }
@@ -591,13 +653,19 @@ flow_gather_kernel(const float* __restrict__ part, const int* __restrict__ pair_
   cnt_out[row] = cnt;
 }
 
-// a_sum = sum of the row sums, nonzeros = sum of the row counts.
+// a_sum = sum of the row sums, nonzeros = sum of the row counts; lane
+// blockIdx.x.
 __global__ void __launch_bounds__(FINAL_THREADS)
 row_sum_kernel(const float* __restrict__ s, const int* __restrict__ cnt, int N,
                float* __restrict__ out_sum, int* __restrict__ out_nz) {
   __shared__ float red[FINAL_THREADS / 32];
   __shared__ int red_cnt[FINAL_THREADS / 32];
   const int tid = threadIdx.x;
+  const size_t lane = blockIdx.x;
+  s += lane * N;
+  cnt += lane * N;
+  out_sum += lane;
+  out_nz += lane;
   float acc[1] = {0.f};
   int n[1] = {0};
   for (int i = tid; i < N; i += FINAL_THREADS) {
@@ -612,13 +680,17 @@ row_sum_kernel(const float* __restrict__ s, const int* __restrict__ cnt, int N,
   }
 }
 
-// B..E = sum of the first n * rbn item partials, in index order.
+// B..E = sum of the first n * rbn item partials, in index order; lane
+// blockIdx.x, its partials pairs * rbn items on.
 __global__ void __launch_bounds__(FINAL_THREADS)
 step_sum_kernel(const float* __restrict__ part, const int* __restrict__ n_active,
-                int rbn, float* __restrict__ out) {
+                int rbn, int pairs, float* __restrict__ out) {
   __shared__ float red[STEP_NV * FINAL_THREADS / 32];
   const int tid = threadIdx.x;
-  const int n_items = *n_active * rbn;
+  const size_t lane = blockIdx.x;
+  part += lane * pairs * rbn * STEP_NV;
+  out += lane * STEP_NV;
+  const int n_items = n_active[lane] * rbn;
   float acc[STEP_NV] = {0.f, 0.f, 0.f, 0.f};
   for (int b = tid; b < n_items; b += FINAL_THREADS) {
 #pragma unroll
@@ -663,15 +735,15 @@ Consts make_consts(const float* k) {
 
 using PassKernel = void (*)(Layout, Consts, const float*, const float*, const int*,
                             const int*, const unsigned char*, const int*, float*, int,
-                            int, int, int);
+                            int, int, int, Lanes);
 
-template <bool STEP>
+template <bool STEP, bool LANES>
 PassKernel pass_kernel(int inst) {
   switch (inst) {
-    case INST_COLOUR: return dense_pass_kernel<STEP, ColourSet>;
-    case INST_ALL: return dense_pass_kernel<STEP, AllSet>;
-    case INST_GEOMETRY: return dense_pass_kernel<STEP, GeometrySet>;
-    default: return dense_pass_kernel<STEP, GenericSet>;
+    case INST_COLOUR: return dense_pass_kernel<STEP, ColourSet, LANES>;
+    case INST_ALL: return dense_pass_kernel<STEP, AllSet, LANES>;
+    case INST_GEOMETRY: return dense_pass_kernel<STEP, GeometrySet, LANES>;
+    default: return dense_pass_kernel<STEP, GenericSet, LANES>;
   }
 }
 
@@ -683,15 +755,17 @@ bool bad_shapes(int N, int M, int tile_i, int tile_j) {
 int row_blocks(int tile_i) { return (tile_i + RB - 1) / RB; }
 
 // Launch one pass on a persistent grid: as many blocks as stay resident
-// (shared memory opted in above the default 48 KB), at most one per item.
-template <bool STEP>
+// (shared memory opted in above the default 48 KB), at most one per item of
+// every lane's whole list. `n_active`: the count (LANES: the lanes' total).
+template <bool STEP, bool LANES = false>
 cudaError_t launch_pass(const int* flags, const float* consts, const float* xp,
                         const float* yp, const int* pair_i, const int* pair_j,
                         const unsigned char* row_has, const int* n_active, float* part,
-                        int N, int M, int tile_i, int tile_j, cudaStream_t stream) {
+                        int N, int M, int tile_i, int tile_j, cudaStream_t stream,
+                        const int* lane_off = nullptr, int lanes = 1) {
   const Layout L = make_layout(flags, (STEP ? 24 : 9) + flags[0] + flags[1]);
   const int inst = instance_of(flags);
-  const PassKernel kernel = pass_kernel<STEP>(inst);
+  const PassKernel kernel = pass_kernel<STEP, LANES>(inst);
   const size_t smem = (size_t)(STAGES * L.Dy * CH + L.Dx * RB) * sizeof(float);
   // resident blocks per kernel and shared-memory size, found once
   static size_t known_smem[4] = {0, 0, 0, 0};
@@ -713,10 +787,34 @@ cudaError_t launch_pass(const int* flags, const float* consts, const float* xp,
     known_grid[inst] = sms * per_sm;
   }
   const int rbn = row_blocks(tile_i);
-  const long long items = (long long)(N / tile_i) * (M / tile_j) * rbn;
+  const int pairs = (N / tile_i) * (M / tile_j);
+  const long long items = (long long)lanes * pairs * rbn;
   const int grid = (int)(items < known_grid[inst] ? items : known_grid[inst]);
+  const Lanes ln{lane_off, lanes, pairs, N / tile_i, (long long)N * L.Dx,
+                 (long long)L.Dy * M};
   kernel<<<grid, THREADS, smem, stream>>>(L, make_consts(consts), xp, yp, pair_i, pair_j,
-                                          row_has, n_active, part, M, tile_i, tile_j, rbn);
+                                          row_has, n_active, part, M, tile_i, tile_j, rbn, ln);
+  return cudaGetLastError();
+}
+
+// The flow pass's row and total sums, one lane a block row / block.
+cudaError_t flow_sums(const float* part, const int* pair_i, const unsigned char* row_has,
+                      const int* n_lane, float* s, float* wy, int* cnt, float* out_sum,
+                      int* out_nz, int lanes, int N, int M, int tile_i, int tile_j,
+                      cudaStream_t stream) {
+  flow_gather_kernel<<<dim3((N + GATHER_THREADS - 1) / GATHER_THREADS, lanes), GATHER_THREADS,
+                       0, stream>>>(part, pair_i, row_has, n_lane, s, wy, cnt, N, tile_i,
+                                    (N / tile_i) * (M / tile_j));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  row_sum_kernel<<<lanes, FINAL_THREADS, 0, stream>>>(s, cnt, N, out_sum, out_nz);
+  return cudaGetLastError();
+}
+
+cudaError_t step_sums(const float* part, const int* n_lane, float* out, int lanes, int N,
+                      int M, int tile_i, int tile_j, cudaStream_t stream) {
+  step_sum_kernel<<<lanes, FINAL_THREADS, 0, stream>>>(part, n_lane, row_blocks(tile_i),
+                                                       (N / tile_i) * (M / tile_j), out);
   return cudaGetLastError();
 }
 
@@ -742,15 +840,11 @@ int cvo_dense_flow(const int* flags, const float* consts, const float* xp,
                    float* s, float* wy, int* cnt, float* out_sum, int* out_nz, int N,
                    int M, int tile_i, int tile_j, cudaStream_t stream) {
   if (bad_shapes(N, M, tile_i, tile_j)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_pass<false>(flags, consts, xp, yp, pair_i, pair_j, row_has,
-                                       n_active, part, N, M, tile_i, tile_j, stream);
+  const cudaError_t err = launch_pass<false>(flags, consts, xp, yp, pair_i, pair_j, row_has,
+                                             n_active, part, N, M, tile_i, tile_j, stream);
   if (err != cudaSuccess) return (int)err;
-  flow_gather_kernel<<<(N + GATHER_THREADS - 1) / GATHER_THREADS, GATHER_THREADS, 0,
-                       stream>>>(part, pair_i, row_has, n_active, s, wy, cnt, N, tile_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  row_sum_kernel<<<1, FINAL_THREADS, 0, stream>>>(s, cnt, N, out_sum, out_nz);
-  return (int)cudaGetLastError();
+  return (int)flow_sums(part, pair_i, row_has, n_active, s, wy, cnt, out_sum, out_nz, 1, N,
+                        M, tile_i, tile_j, stream);
 }
 
 // As cvo_dense_flow with yp [24 + F + C, M] (twist rows appended);
@@ -761,11 +855,47 @@ int cvo_dense_step(const int* flags, const float* consts, const float* xp,
                    float* out, int N, int M, int tile_i, int tile_j,
                    cudaStream_t stream) {
   if (bad_shapes(N, M, tile_i, tile_j)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_pass<true>(flags, consts, xp, yp, pair_i, pair_j, row_has,
-                                      n_active, part, N, M, tile_i, tile_j, stream);
+  const cudaError_t err = launch_pass<true>(flags, consts, xp, yp, pair_i, pair_j, row_has,
+                                            n_active, part, N, M, tile_i, tile_j, stream);
   if (err != cudaSuccess) return (int)err;
-  step_sum_kernel<<<1, FINAL_THREADS, 0, stream>>>(part, n_active, row_blocks(tile_i), out);
-  return (int)cudaGetLastError();
+  return (int)step_sums(part, n_active, out, 1, N, M, tile_i, tile_j, stream);
+}
+
+// cvo_dense_flow for B lanes: xp [B, N, Dx], yp [B, 9 + F + C, M], pair_i
+// / pair_j [B, nI * nJ] (each lane's list as compact_tile_mask gives it),
+// row_has [B, nI], n_lane [B] (0: the lane gets zeros), lane_off [B] (the
+// exclusive prefix sum of n_lane), n_total [1] (their sum), part [B * nI *
+// nJ, 5, tile_i] scratch -> s [B, N], wy [B, N, 3], cnt [B, N], out_sum
+// [B], out_nz [B]; three device kernels, as cvo_dense_flow.
+int cvo_dense_flow_lanes(const int* flags, const float* consts, const float* xp,
+                         const float* yp, const int* pair_i, const int* pair_j,
+                         const unsigned char* row_has, const int* n_lane,
+                         const int* lane_off, const int* n_total, float* part, float* s,
+                         float* wy, int* cnt, float* out_sum, int* out_nz, int B, int N,
+                         int M, int tile_i, int tile_j, cudaStream_t stream) {
+  if (B <= 0 || B > 65535 || bad_shapes(N, M, tile_i, tile_j)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = launch_pass<false, true>(flags, consts, xp, yp, pair_i, pair_j,
+                                                   row_has, n_total, part, N, M, tile_i,
+                                                   tile_j, stream, lane_off, B);
+  if (err != cudaSuccess) return (int)err;
+  return (int)flow_sums(part, pair_i, row_has, n_lane, s, wy, cnt, out_sum, out_nz, B, N, M,
+                        tile_i, tile_j, stream);
+}
+
+// cvo_dense_step for B lanes, inputs as cvo_dense_flow_lanes with yp [B, 24
+// + F + C, M]; part [B * nI * nJ * row blocks, 4] scratch -> out [B, 4];
+// two device kernels, as cvo_dense_step.
+int cvo_dense_step_lanes(const int* flags, const float* consts, const float* xp,
+                         const float* yp, const int* pair_i, const int* pair_j,
+                         const unsigned char* row_has, const int* n_lane,
+                         const int* lane_off, const int* n_total, float* part, float* out,
+                         int B, int N, int M, int tile_i, int tile_j, cudaStream_t stream) {
+  if (B <= 0 || B > 65535 || bad_shapes(N, M, tile_i, tile_j)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = launch_pass<true, true>(flags, consts, xp, yp, pair_i, pair_j,
+                                                  row_has, n_total, part, N, M, tile_i, tile_j,
+                                                  stream, lane_off, B);
+  if (err != cudaSuccess) return (int)err;
+  return (int)step_sums(part, n_lane, out, B, N, M, tile_i, tile_j, stream);
 }
 
 }  // extern "C"

@@ -74,6 +74,15 @@
 // No float atomics, no host sync, one launch; two launches on the same
 // inputs give identical bits.
 //
+// Route 1 also comes with a lane axis (`cvo_select_lanes`, LANES = true):
+// the build of L lists in one launch, the counterpart of _select_kernel
+// under the JAX package's jax.vmap of align (parallel/batch_align.py:51-55),
+// where the batch becomes a grid axis. The lane is blockIdx.y; every input
+// and output carries a leading lane axis and a lane's block offsets its
+// pointers by whole lanes, so each lane's slots are the unbatched launch's
+// bit for bit. LANES = false compiles the offsets out. Route 2 keeps no
+// lane axis: no JAX path vmaps the IRLS list.
+//
 // Compiled with -fmad=false so the transform and distance round exactly as
 // the plain PyTorch version's separate ops do.
 
@@ -116,6 +125,21 @@ struct Args {
   int C;               // pool size: nx * ny * nz * P
 };
 
+// Lane l's view of a lane-axis launch: every array [L, ...] advanced by l
+// whole lanes.
+__device__ __forceinline__ Args lane_args(const Args& a, int l) {
+  Args b = a;
+  const size_t L = (size_t)l;
+  b.tab += L * ((size_t)a.gx * a.gy * a.gz + 1) * 4 * a.P;
+  b.cbase += L * 3 * a.N;
+  b.xr2 += L * 4 * a.N;
+  b.pose += L * 12;
+  b.idx += L * a.K * a.N;
+  b.y += L * 3 * a.K * a.N;
+  b.kept += L * a.N;
+  return b;
+}
+
 // d2 bits of a candidate (INF_BITS when not kept): the plain version's
 // operation order, each multiply and add rounded on its own (-fmad=false).
 __device__ __forceinline__ unsigned cand_bits(const float (&R)[12], float x0, float x1, float x2,
@@ -145,9 +169,11 @@ __host__ __device__ constexpr size_t tile_bytes(bool staged) {
 // unstaged stores, a runtime P) included: without them ptxas spills 12 B at
 // PL = 7 and the align list takes 0.0275 ms against 0.0262-0.0264 (H100,
 // chip_smoke.py --compare-tree), as a rewrite around shared helpers did.
-template <int PC, int PL>
+// LANES: lane blockIdx.y of a lane-axis launch (lane_args).
+template <int PC, int PL, bool LANES = false>
 __global__ void __launch_bounds__(WARPS * 32, (PL <= 8 ? 4 : 3))
-select_kernel(const Args a) {
+select_kernel(const Args args) {
+  const Args a = LANES ? lane_args(args, blockIdx.y) : args;
   __shared__ float s_pose[12];
   __shared__ int s_cb[TILE_PTS * 3];
   __shared__ float s_xr2[TILE_PTS * 4];
@@ -512,7 +538,7 @@ select_pool_kernel(const Args a) {
 }
 
 template <typename Kernel>
-int launch_with(Kernel kernel, int blocks, int threads, size_t smem, const Args& a,
+int launch_with(Kernel kernel, dim3 blocks, int threads, size_t smem, const Args& a,
                 cudaStream_t stream) {
   if (smem > 48 * 1024) {                    // large pools: opt in beyond 48 KB
     const cudaError_t err =
@@ -523,10 +549,19 @@ int launch_with(Kernel kernel, int blocks, int threads, size_t smem, const Args&
   return (int)cudaGetLastError();
 }
 
-template <int PC, int PL>
-int launch(const Args& a, cudaStream_t stream) {
-  return launch_with(select_kernel<PC, PL>, (a.N + TILE_PTS - 1) / TILE_PTS, WARPS * 32,
+template <int PC, int PL, bool LANES = false>
+int launch(const Args& a, cudaStream_t stream, int lanes = 1) {
+  return launch_with(select_kernel<PC, PL, LANES>,
+                     dim3((a.N + TILE_PTS - 1) / TILE_PTS, LANES ? lanes : 1), WARPS * 32,
                      list_bytes(a.C) + tile_bytes(a.K <= K_STAGE), a, stream);
+}
+
+// Route 1 for every pool size it takes.
+template <bool LANES>
+int launch_route1(const Args& a, cudaStream_t stream, int lanes) {
+  if (a.C <= 32) return launch<P_FAST, 1, LANES>(a, stream, lanes);
+  if (a.C <= 96) return launch<P_FAST, 3, LANES>(a, stream, lanes);
+  return launch<P_FAST, 7, LANES>(a, stream, lanes);
 }
 
 template <int PC>
@@ -555,13 +590,26 @@ int cvo_select(const float* tab, const int* cbase, const float* xr2,
   const int pool = nx * ny * nz * P;
   if (pool > cvo_select_max_pool()) return (int)cudaErrorInvalidValue;
   const Args a{tab, cbase, xr2, pose, idx, y, kept, N, K, P, gx, gy, gz, nx, ny, nz, pool};
-  if (P == P_FAST && K <= K_STAGE) {         // route 1: pools of 8, 24, 72 or 216
-    if (pool <= 32) return launch<P_FAST, 1>(a, stream);
-    if (pool <= 96) return launch<P_FAST, 3>(a, stream);
-    return launch<P_FAST, 7>(a, stream);
-  }
+  if (P == P_FAST && K <= K_STAGE)           // route 1: pools of 8, 24, 72 or 216
+    return launch_route1<false>(a, stream, 1);
   if (P == 32) return launch_pool<32>(a, stream);  // the IRLS list
   return launch_pool<0>(a, stream);
+}
+
+// cvo_select for L lanes in one launch, route 1 only (P = 8, K <= 32):
+// tab [L, n_cells + 1, 4P], cbase [L, N, 3], xr2 [L, N, 4], pose [L, 12]
+// -> idx [L, K, N], y [L, 3, K, N], kept [L, N]; lane l's outputs are
+// cvo_select's on lane l's inputs, bit for bit.
+int cvo_select_lanes(const float* tab, const int* cbase, const float* xr2,
+                     const float* pose, int* idx, float* y, int* kept, int L, int N,
+                     int K, int P, int gx, int gy, int gz, cudaStream_t stream) {
+  if (L <= 0 || L > 65535 || N <= 0 || K <= 0 || K > K_STAGE || P != P_FAST)
+    return (int)cudaErrorInvalidValue;
+  const int nx = gx > 1 ? 3 : 1, ny = gy > 1 ? 3 : 1, nz = gz > 1 ? 3 : 1;
+  const int pool = nx * ny * nz * P;
+  if (pool > cvo_select_max_pool()) return (int)cudaErrorInvalidValue;
+  const Args a{tab, cbase, xr2, pose, idx, y, kept, N, K, P, gx, gy, gz, nx, ny, nz, pool};
+  return launch_route1<true>(a, stream, L);
 }
 
 }  // extern "C"

@@ -37,9 +37,13 @@ is frozen (its state kept as it was, as JAX's vmapped while loop keeps it),
 and the host reads one [B, 2] (finished, drift) flag tensor per iteration.
 On 'ell' the flow and step passes take all lanes in one launch each
 (`ell.flow_reduce_lanes`, `ell.step_cached_lanes`), and a lane's list is
-rebuilt on that lane's own drift; the dense backends run their passes lane
-after lane inside the lockstep iteration. Each lane makes the iterations and
-builds of `align` on its pair.
+rebuilt on that lane's own drift, the grid builder's lists of every lane
+that needs one in one select launch (`select.select_lanes`); on 'pallas'
+the lanes share one packed, Morton-sorted state, their tile pairs are culled
+together, and the flow and step passes take all lanes in one call each
+(`dense.dense_flow_lanes`, `dense.dense_step_lanes`); on 'jnp' the plain
+passes run lane after lane. Each lane makes the iterations and builds of
+`align` on its pair.
 
 `align(group=...)` and `align(ring_group=...)` run the whole loop over
 torch.distributed process groups (JAX's psum_axis and ring_axis,
@@ -588,12 +592,14 @@ def align_batch(
 def _ell_loop_lanes(st: _Schedule, sources, targets, max_iter, nl_k, nl_skin, nl_per_cell,
                     nl_builder, chunk):
     """_ell_loop for B lanes in lockstep. An iteration first builds the list
-    of every live lane that is new or drifted (lane after lane, into the
-    lanes' [B, 3, K, N] slots and [B, K, N] channel factor), then runs one
+    of every live lane that is new or drifted (the grid builder: one
+    select_lanes launch for those lanes, three under adaptive ell; the scan
+    builder lane after lane), into the lanes' [B, 3, K, N] slots and [B, K,
+    N] channel factor, then runs one
     flow_reduce_lanes and one step_cached_lanes over all lanes, advances the
     live lanes (frozen ones keep their state), and reads the [B, 2]
-    (finished, drift) flags. Under adaptive ell each lane's xx and yy lists
-    and its weighted sums are taken lane after lane. Returns (iterations,
+    (finished, drift) flags. Under adaptive ell each lane's weighted sums
+    over its three lists are taken lane after lane. Returns (iterations,
     host reads, overflow [B], builds), iterations and builds per lane."""
     params = st.params
     use_geo = bool(params.is_using_geometry)
@@ -608,12 +614,16 @@ def _ell_loop_lanes(st: _Schedule, sources, targets, max_iter, nl_k, nl_skin, nl
     z3 = torch.zeros((3,), dtype=torch.float32, device=dev)
     nl_overflow = torch.zeros((B,), dtype=torch.int32, device=dev)
 
-    def build(b, x, y, Rinv, Tinv):
+    def build(todo, xs, ys, Rs, Ts):
+        """The lists of lanes `todo`: the grid builder's in one select_lanes
+        launch, the scan builder's lane after lane."""
+        ells = [st.ell[b] for b in todo]
         if nl_builder == "scan":
-            return nbr.build_neighbor_list_scan(params, st.ell[b], x, y, Rinv, Tinv,
-                                                k=nl_k, skin=nl_skin, chunk=chunk)
-        return nbr.build_neighbor_list(params, st.ell[b], x, y, Rinv, Tinv,
-                                       k=nl_k, skin=nl_skin, per_cell_cap=nl_per_cell)
+            return [nbr.build_neighbor_list_scan(params, e, x, y, R, T, k=nl_k, skin=nl_skin,
+                                                 chunk=chunk)
+                    for e, x, y, R, T in zip(ells, xs, ys, Rs, Ts)]
+        return nbr.build_neighbor_list_lanes(params, ells, xs, ys, Rs, Ts, k=nl_k,
+                                             skin=nl_skin, per_cell_cap=nl_per_cell)
 
     lists = [None] * B                       # (xy, xx, yy) lists of each lane
     y_xyz = chan = pose_build = r_max = None
@@ -623,16 +633,21 @@ def _ell_loop_lanes(st: _Schedule, sources, targets, max_iter, nl_k, nl_skin, nl
     k = host_reads = 0
     while k < max_iter and not all(done):
         Rinv, Tinv = st.pose_inv()
-        for b in range(B):
-            if done[b] or not drift[b]:
-                continue
-            nl = build(b, srcs[b], tgts[b], Rinv[b], Tinv[b])
+        todo = [b for b in range(B) if not done[b] and drift[b]]
+        if todo:
+            Rs, Ts = [Rinv[b] for b in todo], [Tinv[b] for b in todo]
+            x_l, y_l = [srcs[b] for b in todo], [tgts[b] for b in todo]
+            built = [build(todo, x_l, y_l, Rs, Ts)]
+            if st.adaptive:
+                built.append(build(todo, x_l, x_l, [I3] * len(todo), [z3] * len(todo)))
+                built.append(build(todo, [y.transformed(R, T) for y, R, T in zip(y_l, Rs, Ts)],
+                                   y_l, Rs, Ts))
+        for i, b in enumerate(todo):
+            nl = built[0][i]
             overflow = nl.overflow
             nl_xx = nl_yy = None
             if st.adaptive:
-                nl_xx = build(b, srcs[b], srcs[b], I3, z3)
-                nl_yy = build(b, tgts[b].transformed(Rinv[b], Tinv[b]), tgts[b], Rinv[b],
-                              Tinv[b])
+                nl_xx, nl_yy = built[1][i], built[2][i]
                 overflow = overflow + nl_xx.overflow + nl_yy.overflow
             if y_xyz is None:
                 y_xyz = nl.y_xyz.new_empty((B,) + tuple(nl.y_xyz.shape))
@@ -700,15 +715,127 @@ def _drift_bound_lanes(pose_build, r_max, Rinv, Tinv):
             + torch.sqrt(torch.sum(dT * dT, dim=-1)))
 
 
+class _DenseLanes:
+    """The flow and step passes of B pairs on 'pallas' (align.py's passes
+    under jax.vmap): each lane's clouds padded to the tiles and, with the
+    geometric channel, Morton-sorted once, as _DensePasses does for one
+    pair, and stacked; each iteration culls every lane's tile pairs at once
+    into one [B, nI, nJ] mask and one TileCompactionLanes (a frozen lane's
+    count 0), packs the lanes, and runs one dense_flow_lanes and one
+    dense_step_lanes call for all of them. The packing, the flow from the
+    row sums and ACVO's weighted sums stay lane by lane (torch), so each
+    lane's values are _DensePasses' on its pair."""
+
+    def __init__(self, params, sources, targets, spatial_culling, tile_i, tile_j, chunk):
+        self.params, self.chunk = params, chunk
+        self.tile_i = dense.DEFAULT_TILE_I if tile_i is None else tile_i
+        self.tile_j = dense.DEFAULT_TILE_J if tile_j is None else tile_j
+        self.culling = spatial_culling and bool(params.is_using_geometry)
+        B = sources.xyz.shape[0]
+        self.srcs = [sources.map(lambda a: a[b]) for b in range(B)]
+        self.tgts = [targets.map(lambda a: a[b]) for b in range(B)]
+        if self.culling:
+            self.srcs = [morton.sort_cloud(kernels.pad_cloud_to_multiple(x, self.tile_i))[0]
+                         for x in self.srcs]
+            self.tgts = [morton.sort_cloud(kernels.pad_cloud_to_multiple(y, self.tile_j))[0]
+                         for y in self.tgts]
+            self.x_xyz = torch.stack([x.xyz for x in self.srcs])
+            self.x_mask = torch.stack([x.mask for x in self.srcs])
+            self.y_mask = torch.stack([y.mask for y in self.tgts])
+            self.x_lo, self.x_hi = morton.tile_aabbs(self.x_xyz, self.x_mask, self.tile_i)
+        # the passes' rows: padded to the tiles (a no-op after the sort)
+        self.packed = [kernels.pad_cloud_to_multiple(x, self.tile_i) for x in self.srcs]
+        self.centers = [dense.cloud_center(x) for x in self.packed]
+        self.lo = dense.layout_for(params, self.packed[0])
+
+    def run(self, ell, Rinv, Tinv, done, live, adaptive: bool):
+        """(twist [B, 6], joint_norm [B], nonzeros [B], a_sum [B], [B, 4],
+        d2_sums) at each lane's pose and ell; `live` [B] bool on the device
+        (a frozen lane's passes give zeros; `done`, its host copy, is not
+        read)."""
+        params, lo, ti, tj = self.params, self.lo, self.tile_i, self.tile_j
+        B = len(self.srcs)
+        y_t = [self.tgts[b].transformed(Rinv[b], Tinv[b]) for b in range(B)]
+        y_p = [kernels.pad_cloud_to_multiple(y, tj) for y in y_t]
+        if self.culling:
+            y_lo, y_hi = morton.tile_aabbs(torch.stack([y.xyz for y in y_t]), self.y_mask, tj)
+            d2max = morton.tile_d2max(params, ell, self.x_xyz, self.x_mask, ti)
+            mask = morton.tile_cull_mask(self.x_lo, self.x_hi, d2max, y_lo, y_hi)
+        else:
+            mask = torch.ones((B, self.packed[0].capacity // ti, y_p[0].capacity // tj),
+                              dtype=torch.int32, device=ell.device)
+        comp = dense.compact_tile_mask_lanes(mask, live)
+        xp = torch.stack([dense.pack_x(params, lo, x, ell[b], center=c)
+                          for b, (x, c) in enumerate(zip(self.packed, self.centers))])
+        yp = torch.stack([dense.pack_y(lo, y, center=c) for y, c in zip(y_p, self.centers)])
+        s, wy, nz, a_sum = dense.dense_flow_lanes(params, lo, xp, yp, comp, ti, tj)
+        flows = []
+        for b, (x, c) in enumerate(zip(self.srcs, self.centers)):
+            n = x.capacity
+            # the pass accumulated sum_j a_ij (y_j - c): the raw-frame wy
+            stats = kernels.FlowStats(row_sum=s[b][:n], row_wy=(wy[b] + s[b][:, None] * c)[:n],
+                                      nonzeros=nz[b], a_sum=a_sum[b])
+            flows.append(kernels.flow_from_stats(params, x, stats))
+        twist = torch.stack([f[0] for f in flows])
+        yp = torch.stack([dense.pack_y(lo, y, twist=twist[b], center=c)
+                          for b, (y, c) in enumerate(zip(y_p, self.centers))])
+        coeffs = dense.dense_step_lanes(params, lo, xp, yp, comp, ti, tj)
+        d2_sums = None
+        if adaptive:
+            per_lane = [tuple(kernels.weighted_d2_sum(params, ell[b], u, v, self.chunk)
+                              for u, v in ((x, y), (x, x), (y, y)))
+                        for b, (x, y) in enumerate(zip(self.srcs, y_t))]
+            d2_sums = tuple(tuple(torch.stack([lane[i][j] for lane in per_lane])
+                                  for j in range(2)) for i in range(3))
+        return twist, torch.stack([f[1] for f in flows]), nz, a_sum, coeffs, d2_sums
+
+
+class _DenseLanewise:
+    """The 'jnp' passes of B pairs: each live lane's _DensePasses one after
+    another (no kernel to batch), stacked; frozen lanes give zeros."""
+
+    def __init__(self, params, sources, targets, backend, spatial_culling, tile_i, tile_j,
+                 chunk):
+        self.passes = [_DensePasses(params, sources.map(lambda a: a[b]),
+                                    targets.map(lambda a: a[b]), backend, spatial_culling,
+                                    tile_i, tile_j, chunk) for b in range(sources.xyz.shape[0])]
+
+    def run(self, ell, Rinv, Tinv, done, live, adaptive: bool):
+        """As _DenseLanes.run; the lanes `done` [B] (host) marks are
+        skipped (`live` is not read)."""
+        outs = []
+        for b, passes in enumerate(self.passes):
+            if done[b]:
+                outs.append(None)
+                continue
+            twist, jn, nz, asum, coeffs, d2 = passes.run(ell[b], Rinv[b], Tinv[b], adaptive)
+            outs.append((twist, jn, nz, asum, torch.stack(coeffs), d2))
+        some = next(o for o in outs if o is not None)
+
+        def stacked(get):
+            return torch.stack([get(o if o is not None else some) * (o is not None)
+                                for o in outs])
+
+        d2_sums = None
+        if adaptive:
+            d2_sums = tuple(tuple(stacked(lambda o, i=i, j=j: o[5][i][j]) for j in range(2))
+                            for i in range(3))
+        return tuple(stacked(lambda o, i=i: o[i]) for i in range(5)) + (d2_sums,)
+
+
 def _dense_loop_lanes(st: _Schedule, sources, targets, max_iter, backend, spatial_culling,
                       tile_i, tile_j, chunk):
-    """_dense_loop for B lanes in lockstep: each live lane's passes run one
-    lane after another (frozen lanes contribute zeros, which their frozen
-    state ignores), then one batched advance and one [B] flag read. Returns
-    (iterations per lane, host reads)."""
+    """_dense_loop for B lanes in lockstep: on 'pallas' one call of each
+    pass for all lanes (_DenseLanes), on 'jnp' the lanes one after another
+    (_DenseLanewise); then one batched advance and one [B] flag read.
+    Returns (iterations per lane, host reads)."""
     B = sources.xyz.shape[0]
-    passes = [_DensePasses(st.params, sources.map(lambda a: a[b]), targets.map(lambda a: a[b]), backend,
-                           spatial_culling, tile_i, tile_j, chunk) for b in range(B)]
+    if backend == "pallas":
+        passes = _DenseLanes(st.params, sources, targets, spatial_culling, tile_i, tile_j,
+                             chunk)
+    else:
+        passes = _DenseLanewise(st.params, sources, targets, backend, spatial_culling, tile_i,
+                                tile_j, chunk)
     dev = sources.xyz.device
     iters = [0] * B
     done = [False] * B
@@ -716,28 +843,10 @@ def _dense_loop_lanes(st: _Schedule, sources, targets, max_iter, backend, spatia
     k = host_reads = 0
     while k < max_iter and not all(done):
         Rinv, Tinv = st.pose_inv()
-        outs = []
-        for b in range(B):
-            if done[b]:
-                outs.append(None)
-                continue
-            twist, jn, nz, asum, coeffs, d2 = passes[b].run(st.ell[b], Rinv[b], Tinv[b],
-                                                            st.adaptive)
-            outs.append((twist, jn, nz, asum, torch.stack(coeffs), d2))
-        live = next(o for o in outs if o is not None)
-
-        def stacked(get):
-            return torch.stack([get(o if o is not None else live) * (o is not None)
-                                for o in outs])
-
-        d2_sums = None
-        if st.adaptive:
-            d2_sums = tuple(tuple(stacked(lambda o, i=i, j=j: o[5][i][j]) for j in range(2))
-                            for i in range(3))
         active = ~done_dev
-        finished = st.advance_lanes(k, active, stacked(lambda o: o[0]), stacked(lambda o: o[1]),
-                                    stacked(lambda o: o[2]), stacked(lambda o: o[3]),
-                                    stacked(lambda o: o[4]), d2_sums)
+        twist, jn, nz, asum, coeffs, d2_sums = passes.run(st.ell, Rinv, Tinv, done, active,
+                                                          st.adaptive)
+        finished = st.advance_lanes(k, active, twist, jn, nz, asum, coeffs, d2_sums)
         for b in range(B):
             iters[b] += not done[b]
         k += 1

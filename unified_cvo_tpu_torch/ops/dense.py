@@ -17,6 +17,14 @@ The packed layout is the JAX package's: source rows x [N, Dx], target rows
 transposed yT [Dy, M], with validity folded into the operands (a -1 gate
 threshold for masked source rows, a +PAD_BIG row added to d2 and to the
 squared channel norms for masked targets), so no pass reads a mask per pair.
+
+`dense_flow_lanes` and `dense_step_lanes` are both passes with a lane axis:
+B pairs in one call (xp [B, N, Dx], yp [B, Dy, M], a `TileCompactionLanes`
+from `compact_tile_mask_lanes`), the counterparts of the two Pallas kernels
+under the JAX package's jax.vmap of align (parallel/batch_align.py:51-55).
+A call launches the device kernels one unbatched call does, and each
+lane's outputs are the unbatched call's on its inputs, bit for bit; their
+plain versions run the unbatched plain versions lane by lane.
 """
 
 from __future__ import annotations
@@ -219,28 +227,69 @@ class TileCompaction(NamedTuple):
     n: torch.Tensor        # [] int32 active count (>= 1)
 
 
+def _compact(tile_mask: torch.Tensor):
+    """(pair_i, pair_j, first, row_has, n) of compact_tile_mask for each
+    [nI, nJ] mask of a [B, nI, nJ] stack: a stable partition keeps each
+    mask's actives first, in row-major order."""
+    B, nI, nJ = tile_mask.shape
+    dev = tile_mask.device
+    i32 = torch.int32
+    flat = tile_mask.reshape(B, -1) > 0
+    P = nI * nJ
+    act = flat.to(i32)
+    n_act = torch.sum(act, dim=1)
+    pos = torch.where(flat, torch.cumsum(act, 1) - 1,
+                      n_act[:, None] + torch.cumsum(1 - act, 1) - 1)
+    order = torch.zeros((B, P), dtype=i32, device=dev).scatter_(
+        1, pos.to(torch.int64), torch.arange(P, dtype=i32, device=dev).expand(B, P))
+    pi = torch.div(order, nJ, rounding_mode="floor")
+    pj = order - pi * nJ
+    first = torch.cat([torch.ones((B, 1), dtype=i32, device=dev),
+                       (pi[:, 1:] != pi[:, :-1]).to(i32)], dim=1)
+    n = torch.clamp(n_act, min=1).to(i32)
+    # tail entries past n are inactive and must not mark a tile's start
+    first = first * (torch.arange(P, device=dev)[None, :] < n[:, None]).to(i32)
+    return pi, pj, first, torch.any(tile_mask > 0, dim=2), n
+
+
 def compact_tile_mask(tile_mask: torch.Tensor) -> TileCompaction:
     """[nI, nJ] 0/1 mask -> TileCompaction, all on the mask's device. A
     stable partition keeps the actives in row-major order, so each source
     tile's pairs are consecutive and pair_i is sorted over the first n."""
-    nI, nJ = tile_mask.shape
-    dev = tile_mask.device
-    i32 = torch.int32
-    flat = tile_mask.reshape(-1) > 0
-    P = nI * nJ
-    act = flat.to(i32)
-    n_act = torch.sum(act)
-    pos = torch.where(flat, torch.cumsum(act, 0) - 1, n_act + torch.cumsum(1 - act, 0) - 1)
-    order = torch.zeros((P,), dtype=i32, device=dev).scatter_(
-        0, pos.to(torch.int64), torch.arange(P, dtype=i32, device=dev))
-    pi = torch.div(order, nJ, rounding_mode="floor")
-    pj = order - pi * nJ
-    first = torch.cat([torch.ones((1,), dtype=i32, device=dev), (pi[1:] != pi[:-1]).to(i32)])
-    n = torch.clamp(n_act, min=1).to(i32)
-    # tail entries past n are inactive and must not mark a tile's start
-    first = first * (torch.arange(P, device=dev) < n).to(i32)
-    return TileCompaction(pair_i=pi, pair_j=pj, first=first,
-                          row_has=torch.any(tile_mask > 0, dim=1), n=n)
+    return TileCompaction(*(t[0] for t in _compact(tile_mask[None])))
+
+
+class TileCompactionLanes(NamedTuple):
+    """Every lane's TileCompaction ([B, ...] fields, each lane's list as
+    compact_tile_mask gives it for that lane alone) and the joined walk over
+    them: lane b's entries are the first n[b] of its list, at offset[b] of
+    the lanes' lists laid end to end. All on the device."""
+
+    pair_i: torch.Tensor   # [B, P] int32
+    pair_j: torch.Tensor   # [B, P] int32
+    first: torch.Tensor    # [B, P] int32
+    row_has: torch.Tensor  # [B, nI] bool
+    n: torch.Tensor        # [B] int32: compact_tile_mask's count, 0 on a frozen lane
+    offset: torch.Tensor   # [B] int32: exclusive prefix sum of n
+    total: torch.Tensor    # [] int32: sum of n
+
+    def lane(self, b: int) -> TileCompaction:
+        """Lane b's TileCompaction (its count n[b])."""
+        return TileCompaction(pair_i=self.pair_i[b], pair_j=self.pair_j[b],
+                              first=self.first[b], row_has=self.row_has[b], n=self.n[b])
+
+
+def compact_tile_mask_lanes(tile_mask: torch.Tensor, live=None) -> TileCompactionLanes:
+    """[B, nI, nJ] 0/1 masks -> TileCompactionLanes: lane b's list, first
+    and row_has are compact_tile_mask(tile_mask[b])'s, its count too unless
+    `live` [B] bool is false there (a frozen lane: count 0). Counts and
+    offsets stay on the device."""
+    pi, pj, first, row_has, n = _compact(tile_mask)
+    if live is not None:
+        n = torch.where(live, n, torch.zeros_like(n))
+    ends = torch.cumsum(n, 0).to(torch.int32)
+    return TileCompactionLanes(pair_i=pi, pair_j=pj, first=first, row_has=row_has, n=n,
+                               offset=ends - n, total=ends[-1])
 
 
 class _Consts(NamedTuple):
@@ -423,6 +472,23 @@ def dense_step_plain(params, lo: PackLayout, xp, yp, comp: TileCompaction,
     return torch.sum(torch.where(keep, rows, torch.zeros_like(rows)), dim=(0, 1))
 
 
+def dense_flow_lanes_plain(params, lo: PackLayout, xp, yp, comp: TileCompactionLanes,
+                           tile_i: int, tile_j: int):
+    """Plain version of the lane-axis flow pass: dense_flow_plain lane by
+    lane -> (s [B, N], wy [B, N, 3], nonzeros [B], a_sum [B])."""
+    outs = [dense_flow_plain(params, lo, xp[b], yp[b], comp.lane(b), tile_i, tile_j)
+            for b in range(xp.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def dense_step_lanes_plain(params, lo: PackLayout, xp, yp, comp: TileCompactionLanes,
+                           tile_i: int, tile_j: int) -> torch.Tensor:
+    """Plain version of the lane-axis step pass: dense_step_plain lane by
+    lane -> [B, 4]."""
+    return torch.stack([dense_step_plain(params, lo, xp[b], yp[b], comp.lane(b), tile_i, tile_j)
+                        for b in range(xp.shape[0])])
+
+
 def kernel_instance(lo: PackLayout) -> str:
     """Which instantiation of the CUDA passes a channel set runs (the C
     entry points choose the same way from the same flags)."""
@@ -438,20 +504,25 @@ def row_blocks(tile_i: int) -> int:
     return -(-tile_i // KERNEL_ROW_BLOCK)
 
 
-def scratch_shapes(N: int, M: int, tile_i: int, tile_j: int):
+def scratch_shapes(N: int, M: int, tile_i: int, tile_j: int, lanes: int = 1):
     """Shapes of the per-item partials the CUDA passes write before their
     fixed-order sums: flow [pairs, 5, tile_i] (s, wy, cnt as int bits per
-    row of every tile pair), step [pairs * row blocks, 4] (B..E per item).
-    Sized for every pair active: the active count stays on the device."""
-    pairs = (N // tile_i) * (M // tile_j)
+    row of every tile pair), step [pairs * row blocks, 4] (B..E per item),
+    `lanes` times as many with a lane axis. Sized for every pair active:
+    the active count stays on the device."""
+    pairs = lanes * (N // tile_i) * (M // tile_j)
     return {"flow": (pairs, 5, tile_i), "step": (pairs * row_blocks(tile_i), 4)}
 
 
-def _checks(lo: PackLayout, xp, yp, comp: TileCompaction, tile_i, tile_j, y_dim, who):
+def _checks(lo: PackLayout, xp, yp, comp, tile_i, tile_j, y_dim, who):
+    """Raise unless the inputs are what the CUDA passes take; with a lane
+    axis (comp a TileCompactionLanes) every array leads with B."""
     if xp.device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {xp.device}")
     dev = xp.device
-    N, M = xp.shape[0], yp.shape[1]
+    lanes = isinstance(comp, TileCompactionLanes)
+    lead = (xp.shape[0],) if lanes else ()
+    N, M = xp.shape[-2], yp.shape[-1]
     if N % tile_i or M % tile_j or tile_i % KERNEL_ROWS or tile_j % KERNEL_COLS:
         raise ValueError(f"{who}: N={N} must be a multiple of tile_i={tile_i}, itself a "
                          f"multiple of {KERNEL_ROWS}, and M={M} a multiple of tile_j={tile_j}, "
@@ -459,12 +530,16 @@ def _checks(lo: PackLayout, xp, yp, comp: TileCompaction, tile_i, tile_j, y_dim,
     if yp.data_ptr() % 16:
         raise ValueError(f"{who}: yp must be 16-byte aligned")
     P = (N // tile_i) * (M // tile_j)
-    cuda_lib.check_tensor(xp, "xp", torch.float32, (N, lo.x_dim), dev, who)
-    cuda_lib.check_tensor(yp, "yp", torch.float32, (y_dim, M), dev, who)
-    for name, t, dt, shape in (("pair_i", comp.pair_i, torch.int32, (P,)),
-                               ("pair_j", comp.pair_j, torch.int32, (P,)),
-                               ("row_has", comp.row_has, torch.bool, (N // tile_i,)),
-                               ("n", comp.n, torch.int32, ())):
+    cuda_lib.check_tensor(xp, "xp", torch.float32, lead + (N, lo.x_dim), dev, who)
+    cuda_lib.check_tensor(yp, "yp", torch.float32, lead + (y_dim, M), dev, who)
+    fields = [("pair_i", comp.pair_i, torch.int32, lead + (P,)),
+              ("pair_j", comp.pair_j, torch.int32, lead + (P,)),
+              ("row_has", comp.row_has, torch.bool, lead + (N // tile_i,)),
+              ("n", comp.n, torch.int32, lead)]
+    if lanes:
+        fields += [("offset", comp.offset, torch.int32, lead),
+                   ("total", comp.total, torch.int32, ())]
+    for name, t, dt, shape in fields:
         cuda_lib.check_tensor(t, name, dt, shape, dev, who)
     return dev, N, M
 
@@ -531,6 +606,66 @@ def dense_step(params, lo: PackLayout, xp, yp, comp: TileCompaction,
 
 
 dense_step.launches = 0
+
+
+def dense_flow_lanes(params, lo: PackLayout, xp, yp, comp: TileCompactionLanes,
+                     tile_i: int, tile_j: int):
+    """Flow pass of B lanes in one call: xp [B, N, Dx], yp [B, Dy, M] ->
+    (s [B, N], wy [B, N, 3] centred, nonzeros [B] int32, a_sum [B]), lane b
+    as dense_flow on its inputs and comp.lane(b) (zeros where its count is
+    0). The CUDA kernels (as many as one dense_flow call) on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    if xp.device.type == "cpu":
+        return dense_flow_lanes_plain(params, lo, xp, yp, comp, tile_i, tile_j)
+    dev, N, M = _checks(lo, xp, yp, comp, tile_i, tile_j, lo.y_dim_flow, "dense_flow_lanes")
+    B = xp.shape[0]
+    lib = _lib()
+    part = torch.empty(scratch_shapes(N, M, tile_i, tile_j, B)["flow"], dtype=torch.float32,
+                       device=dev)
+    s = torch.empty((B, N), dtype=torch.float32, device=dev)
+    wy = torch.empty((B, N, 3), dtype=torch.float32, device=dev)
+    cnt = torch.empty((B, N), dtype=torch.int32, device=dev)
+    a_sum = torch.empty((B,), dtype=torch.float32, device=dev)
+    nz = torch.empty((B,), dtype=torch.int32, device=dev)
+    err = lib.cvo_dense_flow_lanes(
+        _flags(lo), _cconsts(params), xp.data_ptr(), yp.data_ptr(),
+        comp.pair_i.data_ptr(), comp.pair_j.data_ptr(), comp.row_has.data_ptr(),
+        comp.n.data_ptr(), comp.offset.data_ptr(), comp.total.data_ptr(), part.data_ptr(),
+        s.data_ptr(), wy.data_ptr(), cnt.data_ptr(), a_sum.data_ptr(), nz.data_ptr(), B, N, M,
+        tile_i, tile_j, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(err, "dense_flow_lanes kernel launch")
+    dense_flow_lanes.launches += 1
+    return s, wy, nz, a_sum
+
+
+dense_flow_lanes.launches = 0
+
+
+def dense_step_lanes(params, lo: PackLayout, xp, yp, comp: TileCompactionLanes,
+                     tile_i: int, tile_j: int) -> torch.Tensor:
+    """Step pass of B lanes in one call: [B, 4], lane b as dense_step on its
+    inputs and comp.lane(b) (zeros where its count is 0). The CUDA kernels
+    (as many as one dense_step call) on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    if xp.device.type == "cpu":
+        return dense_step_lanes_plain(params, lo, xp, yp, comp, tile_i, tile_j)
+    dev, N, M = _checks(lo, xp, yp, comp, tile_i, tile_j, lo.y_dim_step, "dense_step_lanes")
+    B = xp.shape[0]
+    lib = _lib()
+    part = torch.empty(scratch_shapes(N, M, tile_i, tile_j, B)["step"], dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((B, 4), dtype=torch.float32, device=dev)
+    err = lib.cvo_dense_step_lanes(
+        _flags(lo), _cconsts(params), xp.data_ptr(), yp.data_ptr(),
+        comp.pair_i.data_ptr(), comp.pair_j.data_ptr(), comp.row_has.data_ptr(),
+        comp.n.data_ptr(), comp.offset.data_ptr(), comp.total.data_ptr(), part.data_ptr(),
+        out.data_ptr(), B, N, M, tile_i, tile_j, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(err, "dense_step_lanes kernel launch")
+    dense_step_lanes.launches += 1
+    return out
+
+
+dense_step_lanes.launches = 0
 
 
 def _prepare(params, ell, x: PointCloud, y_t: PointCloud, tile_i, tile_j,
@@ -617,5 +752,11 @@ def bind(lib):
         lib.cvo_dense_flow.restype = I
         lib.cvo_dense_step.argtypes = [PI, PF, P, P, P, P, P, P, P, P, I, I, I, I, P]
         lib.cvo_dense_step.restype = I
+        lib.cvo_dense_flow_lanes.argtypes = [PI, PF, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                                             I, I, I, I, I, P]
+        lib.cvo_dense_flow_lanes.restype = I
+        lib.cvo_dense_step_lanes.argtypes = [PI, PF, P, P, P, P, P, P, P, P, P, P,
+                                             I, I, I, I, I, P]
+        lib.cvo_dense_step_lanes.restype = I
         lib._argtypes_set = True
     return lib

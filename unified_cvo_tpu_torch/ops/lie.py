@@ -140,6 +140,19 @@ def invert_rt(R: torch.Tensor, t: torch.Tensor, mm=torch.matmul):
     return Rinv, -mm(Rinv, t[..., None])[..., 0]
 
 
+def transform_points(R: torch.Tensor, t: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """x -> R x + t on an [N, 3] array (leading axes broadcast)."""
+    return pts @ R.transpose(-1, -2) + t[..., None, :]
+
+
+def orthogonalize(R: torch.Tensor) -> torch.Tensor:
+    """Project a near-rotation onto SO(3): two Newton sweeps of
+    R (3I - R^T R) / 2, cheap drift control for long float32 pose chains."""
+    for _ in range(2):
+        R = 1.5 * R - 0.5 * R @ R.transpose(-1, -2) @ R
+    return R
+
+
 def rt_to_mat44(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     # filled on the device: no host-to-device copy inside the align loop
     out = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)

@@ -10,6 +10,10 @@ the mask is recomputed per iteration from the moved target's tile boxes.
 
 Codes are held in int64 (PyTorch's uint32 support is partial); the values
 are the JAX package's uint32 codes, padding rows 0xFFFFFFFF.
+
+The tile functions take leading lane axes (the batched dense loop culls
+every lane's pairs at once: [B, nI, nJ] masks); a lane's values are those
+of the call on that lane alone.
 """
 
 from __future__ import annotations
@@ -67,30 +71,33 @@ def sort_cloud(pc: PointCloud):
 
 
 def tile_aabbs(xyz: torch.Tensor, mask: torch.Tensor, tile: int):
-    """Per-tile (lo [T, 3], hi [T, 3]) over valid rows; empty tiles get
-    far-away boxes."""
-    T = xyz.shape[0] // tile
-    x = xyz.reshape(T, tile, 3)
-    m = (mask > 0).reshape(T, tile, 1)
-    lo = torch.amin(torch.where(m, x, torch.full_like(x, _FAR)), dim=1)
-    hi = torch.amax(torch.where(m, x, torch.full_like(x, -_FAR)), dim=1)
+    """Per-tile (lo [..., T, 3], hi [..., T, 3]) over valid rows of xyz
+    [..., N, 3]; empty tiles get far-away boxes."""
+    lead = xyz.shape[:-2]
+    T = xyz.shape[-2] // tile
+    x = xyz.reshape(*lead, T, tile, 3)
+    m = (mask > 0).reshape(*lead, T, tile, 1)
+    lo = torch.amin(torch.where(m, x, torch.full_like(x, _FAR)), dim=-2)
+    hi = torch.amax(torch.where(m, x, torch.full_like(x, -_FAR)), dim=-2)
     return lo, hi
 
 
 def tile_cull_mask(x_lo, x_hi, x_d2max, y_lo, y_hi) -> torch.Tensor:
-    """[nI, nJ] float32 mask: 1.0 where the least box-to-box squared
-    distance is within the source tile's kernel support x_d2max [nI]."""
-    gap = torch.clamp(torch.maximum(x_lo[:, None, :] - y_hi[None, :, :],
-                                    y_lo[None, :, :] - x_hi[:, None, :]), min=0.0)
+    """[..., nI, nJ] float32 mask: 1.0 where the least box-to-box squared
+    distance is within the source tile's kernel support x_d2max [..., nI]."""
+    gap = torch.clamp(torch.maximum(x_lo[..., :, None, :] - y_hi[..., None, :, :],
+                                    y_lo[..., None, :, :] - x_hi[..., :, None, :]), min=0.0)
     d2 = torch.sum(gap * gap, dim=-1)
-    return (d2 <= x_d2max[:, None]).to(torch.float32)
+    return (d2 <= x_d2max[..., :, None]).to(torch.float32)
 
 
 def tile_d2max(params, ell, xyz: torch.Tensor, mask: torch.Tensor, tile: int):
-    """Per-source-tile largest geometric gate threshold (range-scaled ell)."""
+    """Per-source-tile largest geometric gate threshold (range-scaled ell):
+    [..., nI] from xyz [..., N, 3] and ell [...] (one ell a lane)."""
     log_term = geometric_constants(params)[2]
-    p = torch.where((mask > 0)[:, None], xyz, torch.zeros_like(xyz))
-    l_i = range_ell(ell, torch.sqrt(torch.sum(p * p, dim=-1)))
+    p = torch.where((mask > 0)[..., None], xyz, torch.zeros_like(xyz))
+    ell = torch.as_tensor(ell, dtype=xyz.dtype, device=xyz.device)
+    l_i = range_ell(ell[..., None], torch.sqrt(torch.sum(p * p, dim=-1)))
     d2 = -2.0 * l_i * l_i * log_term
     d2 = torch.where(mask > 0, d2, torch.zeros_like(d2))
-    return torch.amax(d2.reshape(-1, tile), dim=1)
+    return torch.amax(d2.reshape(*d2.shape[:-1], -1, tile), dim=-1)

@@ -30,7 +30,7 @@ after the exact filter the candidate set is the same.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -216,6 +216,37 @@ def build_neighbor_list(
                     grid_dims)
     idx, y_xyz, kept = select_ops.select(g.tab, g.cbase, g.xr2, g.pose, k,
                                          per_cell_cap, grid_dims)
+    return _grid_list(params, ell, x, target, g, idx, y_xyz, kept)
+
+
+def build_neighbor_list_lanes(
+    params,
+    ells: Sequence,
+    xs: Sequence[PointCloud],
+    targets: Sequence[PointCloud],
+    R_invs: Sequence,
+    T_invs: Sequence,
+    k: int = DEFAULT_K,
+    skin: float = DEFAULT_SKIN,
+    per_cell_cap: int = PER_CELL_CAP,
+    grid_dims: Tuple[int, int, int] = GRID_DIMS,
+) -> List[NeighborList]:
+    """`build_neighbor_list` for L lanes (equal capacities): `grid_inputs`
+    lane by lane (torch), then one `select_ops.select_lanes` launch for all
+    of them, then each lane's channel factor. Lane l's list is
+    build_neighbor_list's on lane l's inputs, bit for bit."""
+    gs = [grid_inputs(params, ell, x, y, Ri, Ti, skin, per_cell_cap, grid_dims)
+          for ell, x, y, Ri, Ti in zip(ells, xs, targets, R_invs, T_invs)]
+    idx, y_xyz, kept = select_ops.select_lanes(
+        *(torch.stack([getattr(g, f) for g in gs]) for f in ("tab", "cbase", "xr2", "pose")),
+        k, per_cell_cap, grid_dims)
+    return [_grid_list(params, ells[l], xs[l], targets[l], g, idx[l], y_xyz[l], kept[l])
+            for l, g in enumerate(gs)]
+
+
+def _grid_list(params, ell, x: PointCloud, target: PointCloud, g: GridInputs, idx, y_xyz,
+               kept) -> NeighborList:
+    """The grid builder's list from select's outputs on `g`."""
     valid = idx >= 0
     overflow = (torch.sum(kept) - torch.sum(valid) + g.per_cell_dropped).to(torch.int32)
     return NeighborList(
@@ -380,6 +411,19 @@ def drift_bound_exceeded(nl: NeighborList, R_inv, T_inv, skin: float):
     target displacement since the build, from the pose delta alone:
       |dR y + dT| <= ||dR||_F r_max + |dT|."""
     return _drift_bound(nl, R_inv, T_inv) > skin
+
+
+def drift_exceeded(nl: NeighborList, target: PointCloud, R_inv, T_inv, skin: float):
+    """Exact Verlet rebuild trigger (neighbors.py:626-638): true when some
+    valid target moved more than `skin` since the build, from each target's
+    own displacement against y_t_build (not a bound)."""
+    d2 = torch.zeros((), dtype=torch.float32, device=target.xyz.device)
+    for c in range(3):
+        y_c = (target.xyz[:, 0] * R_inv[c, 0] + target.xyz[:, 1] * R_inv[c, 1]
+               + target.xyz[:, 2] * R_inv[c, 2] + T_inv[c])
+        d2 = d2 + (y_c - nl.y_t_build[:, c]) ** 2
+    d2 = torch.where(target.mask > 0, d2, torch.zeros_like(d2))
+    return torch.amax(d2) > torch.tensor(skin, dtype=torch.float32) ** 2
 
 
 def stale_bound_exceeded(nl: NeighborList, R_inv, T_inv, ell_now, skin: float):

@@ -20,6 +20,15 @@ in dx, dy, dz order, P slots each), keep candidates with index >= 0 and
 |x_n - (R_inv y + T_inv)|^2 <= r2_n; return the K nearest as
 idx [K, N] int32 (-1 on dead slots), y_xyz [3, K, N] raw target xyz
 (DEAD_COORD on dead slots) and kept [N] int32, the exact in-support count.
+
+`select_lanes` is route 1 with a lane axis: the builds of L lists in one
+launch (lane = blockIdx.y), every input and output [L, ...], each lane's
+outputs those of `select` on its inputs bit for bit. It is the counterpart
+of _select_kernel under the JAX package's jax.vmap of align
+(parallel/batch_align.py:51-55), where the batch becomes a grid axis; its
+plain version `select_lanes_plain` runs `select_plain` lane by lane. Route 2
+(the IRLS list, P = 32, K = 128) has no lane axis: no JAX path vmaps the
+IRLS list.
 """
 
 from __future__ import annotations
@@ -32,6 +41,8 @@ import torch
 from unified_cvo_tpu_torch.ops import cuda_lib
 
 DEAD_COORD = 1e9
+ROUTE1_P = 8         # route 1's pool width (csrc/select.cu P_FAST): the lane axis's
+ROUTE1_MAX_K = 32    # and its largest K (K_STAGE)
 
 
 def pool_cells(cbase: torch.Tensor, grid_dims) -> torch.Tensor:
@@ -119,6 +130,49 @@ def select(tab, cbase, xr2, pose, k: int, p: int, grid_dims):
 select.launches = 0
 
 
+def select_lanes_plain(tab, cbase, xr2, pose, k: int, p: int, grid_dims):
+    """Plain version of the lane-axis select: `select_plain` on each lane."""
+    outs = [select_plain(tab[l], cbase[l], xr2[l], pose[l], k, p, grid_dims)
+            for l in range(tab.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def select_lanes(tab, cbase, xr2, pose, k: int, p: int, grid_dims):
+    """`select` for L lanes at once: tab [L, cells + 1, 4P], cbase [L, N, 3],
+    xr2 [L, N, 4], pose [L, 12] -> idx [L, K, N], y_xyz [L, 3, K, N], kept
+    [L, N]. One CUDA launch (route 1: P = 8, K <= 32) on a CUDA tensor,
+    `select_lanes_plain` on a CPU tensor."""
+    if tab.device.type == "cpu":
+        return select_lanes_plain(tab, cbase, xr2, pose, k, p, grid_dims)
+    if tab.device.type != "cuda":
+        raise ValueError(f"select_lanes: unsupported device {tab.device}")
+    dev = tab.device
+    L, N = cbase.shape[0], cbase.shape[1]
+    gx, gy, gz = grid_dims
+    for t, name, dtype, shape in ((tab, "tab", torch.float32, (L, gx * gy * gz + 1, 4 * p)),
+                                  (cbase, "cbase", torch.int32, (L, N, 3)),
+                                  (xr2, "xr2", torch.float32, (L, N, 4)),
+                                  (pose, "pose", torch.float32, (L, 12))):
+        cuda_lib.check_tensor(t, name, dtype, shape, dev, "select_lanes")
+    if p != ROUTE1_P or not 0 < k <= ROUTE1_MAX_K:
+        raise ValueError(f"select_lanes: the lane axis is route 1's (P = {ROUTE1_P}, "
+                         f"K <= {ROUTE1_MAX_K}); got P = {p}, K = {k}")
+    lib = _lib()
+    idx = torch.empty((L, k, N), dtype=torch.int32, device=dev)
+    y_xyz = torch.empty((L, 3, k, N), dtype=torch.float32, device=dev)
+    kept = torch.empty((L, N), dtype=torch.int32, device=dev)
+    err = lib.cvo_select_lanes(
+        tab.data_ptr(), cbase.data_ptr(), xr2.data_ptr(), pose.data_ptr(),
+        idx.data_ptr(), y_xyz.data_ptr(), kept.data_ptr(), L, N, k, p, gx, gy, gz,
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_lib.check(err, "select_lanes kernel launch")
+    select_lanes.launches += 1
+    return idx, y_xyz, kept
+
+
+select_lanes.launches = 0
+
+
 def _lib():
     """The package's build of csrc/select.cu, its C interface declared."""
     lib = cuda_lib.load("select")
@@ -127,6 +181,8 @@ def _lib():
         I = ctypes.c_int
         lib.cvo_select.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, P]
         lib.cvo_select.restype = I
+        lib.cvo_select_lanes.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+        lib.cvo_select_lanes.restype = I
         lib.cvo_select_max_pool.argtypes = []
         lib.cvo_select_max_pool.restype = I
         lib._argtypes_set = True

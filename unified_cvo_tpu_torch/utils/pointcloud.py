@@ -104,6 +104,21 @@ def make_pointcloud(
     )
 
 
+def concatenate(a: PointCloud, b: PointCloud) -> PointCloud:
+    """The two clouds' rows one after the other (the reference's operator+,
+    CvoPointCloud.cpp:916-962); an optional field is None unless both
+    clouds have it."""
+
+    def cat(x, y):
+        return None if x is None or y is None else torch.cat([x, y], dim=0)
+
+    return PointCloud(xyz=torch.cat([a.xyz, b.xyz], dim=0),
+                      mask=torch.cat([a.mask, b.mask], dim=0),
+                      features=cat(a.features, b.features),
+                      labels=cat(a.labels, b.labels),
+                      geometric_types=cat(a.geometric_types, b.geometric_types))
+
+
 def to_numpy_valid(pc: PointCloud):
     """Strip padding; returns a dict of numpy arrays for IO and the host
     side of the mapping back end (`xyz`, and `features`, `labels`,
